@@ -1,0 +1,37 @@
+"""yaqs_tpu_torch: the PyTorch/CUDA port of yaqs_tpu.
+
+Mirrors ``yaqs_tpu``'s layout and function names (``models``, ``core``,
+``ops``, ``methods``, ``analog``) in PyTorch's idiom: plain functions on
+tensors, an explicit device and dtype, a leading trajectory axis ``B`` on
+every device function in place of ``vmap``, Python loops over sites in place
+of ``lax.scan``, ``torch.where`` masks in place of ``lax.cond``, and no host
+synchronization inside a time step.  The hand-written CUDA kernels live in
+``kernels/`` and are built on first use; importing the package needs neither
+``nvcc`` nor a card, and never imports JAX.
+
+The ported slice is the order-2 TJM trajectory path
+(:func:`yaqs_tpu_torch.analog.run.run_tjm_batch`).
+"""
+
+from __future__ import annotations
+
+from .analog.run import run_tjm_batch
+from .analog.tjm import TrajectoryPlan
+from .core.mpo_builders import heisenberg_mpo, ising_mpo
+from .core.mps_ops import named_product_state
+from .core.noise_model import NoiseModel, compile_noise
+from .core.observables import Observable, compile_observables
+from .methods.tdvp import TDVPConfig
+
+__all__ = [
+    "NoiseModel",
+    "Observable",
+    "TDVPConfig",
+    "TrajectoryPlan",
+    "compile_noise",
+    "compile_observables",
+    "heisenberg_mpo",
+    "ising_mpo",
+    "named_product_state",
+    "run_tjm_batch",
+]

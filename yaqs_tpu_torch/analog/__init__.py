@@ -1,0 +1,1 @@
+"""analog of the PyTorch port (see the package docstring)."""

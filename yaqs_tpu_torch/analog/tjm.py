@@ -1,0 +1,232 @@
+"""Order-2 Tensor Jump Method trajectories over a batch.
+
+Port of ``yaqs_tpu.analog.tjm`` at order 2.  One call runs a batch of ``B``
+trajectories as a Python loop over time steps:
+
+- ``Phi_0 = jump(dissipate(psi0, dt/2))``;
+- step ``Phi_{j+1} = jump(dissipate(tdvp(Phi_j, dt), dt))`` on the
+  trajectory stream;
+- measurement ``Psi_j = jump(dissipate(tdvp(Phi_j, dt), dt/2))`` on the
+  sampling stream, forked from the same evolved state and evaluated
+  gauge-free (every ported observable is one-site, so the measurement copy
+  is never re-canonicalized; the last one is, once, for the returned state).
+
+Random streams: JAX's ``fold_in`` key hierarchy has no torch counterpart.
+A draw source is any callable ``draws(stream, j) -> (u (B,), gumbel (B, nc))``
+with ``stream`` 0 for the trajectory stream and 1 for the sampling stream and
+``j`` the step index the JAX package folds in.  :class:`GeneratorDraws`
+gives each trajectory one generator per stream, seeded from ``(seed, stream,
+trajectory index)``, so a trajectory's result does not depend on the batch it
+ran in; parity tests hand in the JAX package's draws instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..core.mps_ops import norm_squared_center0, normalize_canonical
+from ..core.noise_model import CompiledNoise
+from ..core.observables import (
+    CompiledObservables,
+    evaluate_observables,
+    evaluate_observables_gauge_free,
+)
+from ..methods.dissipation import apply_dissipation
+from ..methods.stochastic import stochastic_process
+from ..methods.tdvp import TDVPConfig, tdvp_step
+
+__all__ = [
+    "TrajectoryPlan",
+    "GeneratorDraws",
+    "stream_seed",
+    "tjm_trajectory",
+    "TRAJECTORY_STREAM",
+    "SAMPLE_STREAM",
+]
+
+TRAJECTORY_STREAM = 0
+SAMPLE_STREAM = 1
+
+Draws = Callable[[int, int], tuple[torch.Tensor, torch.Tensor]]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrajectoryPlan:
+    """Trajectory schedule.  ``num_steps`` dt-steps; observables are sampled
+    at every grid point when ``sample_timesteps`` else only at the end.
+
+    Ported: ``order=2``, ``evolution_mode="tdvp"``, no scheduled jumps, no
+    diagnostics; other values raise ``NotImplementedError``.
+    """
+
+    dt: float
+    num_steps: int
+    order: int = 2
+    sample_timesteps: bool = True
+    evolution: TDVPConfig = dataclasses.field(default_factory=TDVPConfig)
+    evolution_mode: str = "tdvp"
+    has_scheduled: bool = False
+    has_scheduled2: bool = False
+    record_diagnostics: bool = False
+
+    @property
+    def num_times(self) -> int:
+        return self.num_steps + 1
+
+
+def stream_seed(seed: int, stream: int, traj_idx: int) -> int:
+    """64-bit generator seed for one trajectory's stream."""
+    return int(np.random.SeedSequence([seed, stream, traj_idx]).generate_state(1, np.uint64)[0])
+
+
+class GeneratorDraws:
+    """Per-trajectory draws from one ``torch.Generator`` per trajectory and
+    stream, on ``device``.  Each call draws ``1 + num_channels`` uniforms per
+    trajectory: the decision uniform and the channel's Gumbel noise."""
+
+    def __init__(self, seed: int, traj_indices, num_channels: int, device, dtype: torch.dtype):
+        self.num_channels = num_channels
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.generators = {
+            stream: [
+                torch.Generator(device=self.device).manual_seed(stream_seed(seed, stream, int(i)))
+                for i in traj_indices
+            ]
+            for stream in (TRAJECTORY_STREAM, SAMPLE_STREAM)
+        }
+
+    def __call__(self, stream: int, j: int) -> tuple[torch.Tensor, torch.Tensor]:
+        draws = torch.stack([
+            torch.rand(1 + self.num_channels, generator=g, device=self.device, dtype=self.dtype)
+            for g in self.generators[stream]
+        ])
+        uni = torch.clamp(draws[:, 1:], min=torch.finfo(self.dtype).tiny)
+        return draws[:, 0], -torch.log(-torch.log(uni))
+
+
+def _renorm_center0(tensors: torch.Tensor) -> torch.Tensor:
+    """Rescale site 0 so the canonical-at-0 states are normalized: the
+    unitary step's numerical norm drift must not leak into the dissipation
+    norm deficit, which is the jump probability."""
+    n2 = norm_squared_center0(tensors)
+    safe = torch.where(n2 > 0, torch.sqrt(n2), torch.ones_like(n2))
+    out = tensors.clone()
+    out[:, 0] /= safe.to(tensors.dtype)[:, None, None, None]  # in place on the copy
+    return out
+
+
+def _order2_branches(draws: Draws | None, noise, observables, plan: TrajectoryPlan, evolve):
+    """The measurement and trajectory continuations of an evolved state,
+    and the loop body that chains them."""
+    dt = plan.dt
+    cfg = plan.evolution
+
+    def draw(stream, j):
+        return None if noise is None else draws(stream, j)
+
+    def measure_branch(evolved, j):
+        """Dissipate dt/2 + jump on the sampling stream, then measure
+        gauge-free; the returned state is raw (any gauge, unnormalized)."""
+        psi = apply_dissipation(evolved, noise, dt / 2)
+        psi, _ = stochastic_process(psi, noise, dt, draw(SAMPLE_STREAM, j), cfg, canonicalize=False)
+        return evaluate_observables_gauge_free(psi, observables), psi
+
+    def trajectory_branch(evolved, j):
+        """Dissipate dt + jump on the trajectory stream."""
+        phi = apply_dissipation(evolved, noise, dt)
+        phi, _ = stochastic_process(phi, noise, dt, draw(TRAJECTORY_STREAM, j), cfg)
+        return phi
+
+    def body(evolved_prev, j):
+        phi = trajectory_branch(evolved_prev, j)
+        evolved_j = _renorm_center0(evolve(phi, dt))
+        obs_j, psi_j = measure_branch(evolved_j, j)
+        return evolved_j, psi_j, obs_j
+
+    return measure_branch, trajectory_branch, body
+
+
+def _check_plan(plan: TrajectoryPlan) -> None:
+    if plan.order != 2:
+        msg = "only order-2 TJM is ported"
+        raise NotImplementedError(msg)
+    if plan.evolution_mode != "tdvp":
+        msg = f"evolution_mode={plan.evolution_mode!r} is not ported (tdvp only)"
+        raise NotImplementedError(msg)
+    if plan.has_scheduled or plan.has_scheduled2:
+        msg = "scheduled jumps are not ported"
+        raise NotImplementedError(msg)
+    if plan.record_diagnostics:
+        msg = "record_diagnostics is not ported"
+        raise NotImplementedError(msg)
+
+
+def tjm_trajectory(
+    draws: Draws | None,
+    tensors0: torch.Tensor,
+    mpo: torch.Tensor,
+    noise: CompiledNoise | None,
+    observables: CompiledObservables,
+    plan: TrajectoryPlan,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run a batch of order-2 TJM trajectories.
+
+    ``tensors0 (B, L, d, chi, chi)`` canonical at 0 and normalized; ``mpo
+    (L, d, d, Dw, Dw)``; ``noise`` and ``observables`` as torch tables on the
+    same device (``CompiledNoise.to``, ``CompiledObservables.to``); ``draws``
+    a draw source (unused when ``noise`` is None).
+
+    Returns ``(results (B, n_obs, n_cols), diagnostics (B, 3, n_cols),
+    final (B, L, d, chi, chi))``; diagnostics are zeros (not ported), the
+    final state is the last measurement state, canonical at 0 and normalized.
+    """
+    _check_plan(plan)
+    dt = plan.dt
+    cfg = plan.evolution
+    b = tensors0.shape[0]
+    t_total = plan.num_times
+    n_cols = t_total if plan.sample_timesteps else 1
+    zero_diag = tensors0.real.new_zeros((b, 3, n_cols))
+    if noise is not None and draws is None:
+        msg = "a noisy run needs a draw source"
+        raise ValueError(msg)
+
+    obs0 = evaluate_observables(tensors0, observables)
+    if plan.num_steps == 0:
+        return obs0[:, :, None].expand(b, observables.num_rows, n_cols).clone(), zero_diag, tensors0
+
+    def evolve(t, step_dt):
+        return tdvp_step(t, mpo, step_dt, cfg)
+
+    measure_branch, trajectory_branch, body = _order2_branches(draws, noise, observables, plan, evolve)
+
+    def restore(psi):
+        out, _ = normalize_canonical(psi, method=cfg.canon_method)
+        return out
+
+    # F0: dissipate dt/2 + jump, then the first evolution
+    phi = apply_dissipation(tensors0, noise, dt / 2)
+    phi, _ = stochastic_process(
+        phi, noise, dt, None if noise is None else draws(TRAJECTORY_STREAM, 0), cfg
+    )
+    evolved = _renorm_center0(evolve(phi, dt))
+
+    if not plan.sample_timesteps:
+        # final-time-only sampling skips the per-step measurement branch; the
+        # trajectory stream uses the same step indices as the sampled path
+        for j in range(2, t_total):
+            evolved = _renorm_center0(evolve(trajectory_branch(evolved, j), dt))
+        obs_f, final_psi = measure_branch(evolved, t_total - 1)
+        return obs_f[:, :, None], zero_diag, restore(final_psi)
+
+    obs1, psi = measure_branch(evolved, 1)
+    cols = [obs0, obs1]
+    for j in range(2, t_total):
+        evolved, psi, obs_j = body(evolved, j)
+        cols.append(obs_j)
+    return torch.stack(cols, dim=-1), zero_diag, restore(psi)

@@ -1,0 +1,154 @@
+"""Host-side MPO construction (numpy), producing fixed-shape padded arrays.
+
+Port of ``yaqs_tpu.core.mpo_builders`` (the parts the TJM slice needs): an MPO
+over ``L`` sites is ``w: (L, d, d, Dw, Dw)`` complex, index order
+``(out, in, wl, wr)``, with the boundary bond vectors absorbed at index 0 and
+interior bonds smaller than ``Dw`` zero padded.  The finite-state-machine
+Pauli-sum builder shares an automaton state between terms whose remaining
+suffix is identical, so the arrays are bit-identical to the JAX package's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..models.operators import PAULI
+
+__all__ = ["mpo_from_terms", "ising_mpo", "heisenberg_mpo"]
+
+
+def _op_matrix(op, d: int) -> np.ndarray:
+    if isinstance(op, str):
+        label = op.upper()
+        if label not in PAULI:
+            msg = f"invalid local operator label {op!r} (expected one of {sorted(PAULI)})"
+            raise ValueError(msg)
+        m = PAULI[label]
+    else:
+        m = np.asarray(op, dtype=np.complex128)
+    if m.shape[0] < d:
+        out = np.zeros((d, d), dtype=np.complex128)
+        out[: m.shape[0], : m.shape[1]] = m
+        return out
+    return m
+
+
+def _op_key(op) -> object:
+    if isinstance(op, str):
+        return op.upper()
+    return np.asarray(op).tobytes()
+
+
+def mpo_from_terms(
+    terms: list[tuple[complex, list[tuple[int, object]]]],
+    length: int,
+    d: int = 2,
+    dtype=np.complex128,
+) -> np.ndarray:
+    """Build a padded MPO ``(L, d, d, Dw, Dw)`` from a sum of operator strings.
+
+    ``terms`` is a list of ``(coeff, [(site, op), ...])``; ``op`` is a Pauli
+    label or a ``(d, d)`` matrix.  An empty site list adds ``coeff * I``.
+    """
+    if length <= 0:
+        msg = "length must be positive"
+        raise ValueError(msg)
+    norm_terms: list[tuple[complex, list[tuple[int, object]]]] = []
+    for coeff, ops in terms:
+        ops = sorted(ops, key=lambda t: t[0])
+        sites = [s for s, _ in ops]
+        if sites and (sites[0] < 0 or sites[-1] >= length):
+            msg = f"term sites {sites} out of range for length {length}"
+            raise ValueError(msg)
+        if len(set(sites)) != len(sites):
+            msg = f"duplicate sites in term: {sites}"
+            raise ValueError(msg)
+        norm_terms.append((complex(coeff), ops))
+
+    READY, DONE = "ready", "done"
+
+    # suffix states per bond b (between sites b and b+1): key -> index
+    bond_states: list[dict[object, int]] = []
+    for b in range(length - 1):
+        states: dict[object, int] = {READY: 0, DONE: 1}
+        for _, ops in norm_terms:
+            if not ops:
+                continue
+            first, last = ops[0][0], ops[-1][0]
+            if first <= b < last:
+                suffix = tuple((s, _op_key(o)) for s, o in ops if s > b)
+                states.setdefault(suffix, len(states))
+        bond_states.append(states)
+
+    def bond_dim(b: int) -> int:
+        if b < 0 or b >= length - 1:
+            return 1
+        return len(bond_states[b])
+
+    dw = max(max((bond_dim(b) for b in range(length - 1)), default=1), 1)
+
+    def state_index(b: int, key: object) -> int:
+        # virtual boundary bonds: index 0 plays READY on the left edge and
+        # DONE on the right edge
+        if b < 0 or b >= length - 1:
+            return 0
+        return bond_states[b][key]
+
+    w = np.zeros((length, d, d, dw, dw), dtype=dtype)
+    eye = np.eye(d, dtype=dtype)
+    for i in range(length):
+        lb, rb = i - 1, i
+        if rb < length - 1:  # ready -> ready
+            w[i, :, :, state_index(lb, READY), state_index(rb, READY)] += eye
+        if lb >= 0:  # done -> done
+            w[i, :, :, state_index(lb, DONE), state_index(rb, DONE)] += eye
+
+    # entry transitions accumulate across terms; every other transition is
+    # fixed by its in-state suffix, so shared-suffix terms write it once
+    written: set[tuple[int, int, int]] = set()
+    for coeff, ops in norm_terms:
+        if not ops:
+            w[0, :, :, state_index(-1, READY), state_index(0, DONE)] += coeff * eye
+            continue
+        first, last = ops[0][0], ops[-1][0]
+        op_at = dict(ops)
+        for i in range(first, last + 1):
+            m = _op_matrix(op_at[i], d) if i in op_at else eye
+            if i == first:
+                m = coeff * m
+            in_key = (
+                READY if i == first else tuple((s, _op_key(o)) for s, o in ops if s >= i)
+            )
+            out_key = (
+                DONE if i == last else tuple((s, _op_key(o)) for s, o in ops if s > i)
+            )
+            in_idx = state_index(i - 1, in_key)
+            out_idx = state_index(i, out_key)
+            if i != first:
+                tag = (i, in_idx, out_idx)
+                if tag in written:
+                    continue
+                written.add(tag)
+            w[i, :, :, in_idx, out_idx] += m
+    return w
+
+
+def ising_mpo(length: int, j: float, g: float, d: int = 2) -> np.ndarray:
+    """Transverse-field Ising chain ``H = -J sum Z_i Z_{i+1} - g sum X_i``."""
+    terms: list[tuple[complex, list[tuple[int, object]]]] = []
+    terms += [(-j, [(i, "Z"), (i + 1, "Z")]) for i in range(length - 1)]
+    terms += [(-g, [(i, "X")]) for i in range(length)]
+    return mpo_from_terms(terms, length, d=d)
+
+
+def heisenberg_mpo(
+    length: int, jx: float, jy: float, jz: float, h: float = 0.0, d: int = 2
+) -> np.ndarray:
+    """XYZ chain ``H = -Jx sum XX - Jy sum YY - Jz sum ZZ - h sum Z``."""
+    terms: list[tuple[complex, list[tuple[int, object]]]] = []
+    for coeff, p in ((-jx, "X"), (-jy, "Y"), (-jz, "Z")):
+        if coeff != 0:
+            terms += [(coeff, [(i, p), (i + 1, p)]) for i in range(length - 1)]
+    if h != 0:
+        terms += [(-h, [(i, "Z")]) for i in range(length)]
+    return mpo_from_terms(terms, length, d=d)

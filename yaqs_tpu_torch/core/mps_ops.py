@@ -1,0 +1,279 @@
+"""MPS operations on fixed-shape padded tensors with a trajectory axis.
+
+Port of ``yaqs_tpu.core.mps_ops`` for the TJM slice.  A batch of MPS over
+``L`` sites with physical dimension ``d`` and padded bond dimension ``chi``
+is one tensor
+
+    ``tensors: (B, L, d, chi, chi)`` complex, index order ``(sigma, left, right)``
+
+Bonds smaller than ``chi`` (including the dangling boundary bonds) are zero
+padded; both chain boundaries are anchored at bond index 0.  "Canonical at 0"
+means ``tensors[:, 1:]`` are right-orthonormal and ``tensors[:, 0]`` carries
+the norm and phase.  Scans over sites are Python loops.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..ops.decomp import orthonormalize
+
+__all__ = [
+    "product_state_tensors",
+    "named_product_state",
+    "transfer_right",
+    "norm_squared_center0",
+    "canonicalize_right",
+    "zero_boundary_pads",
+    "normalize_canonical",
+    "left_gram_environments",
+    "right_gram_environments",
+    "site_moment_matrices",
+    "site_expectations",
+    "apply_one_site_operator",
+    "apply_operator_everywhere",
+]
+
+# ---------------------------------------------------------------------------
+# Construction (host-side numpy, identical to the JAX package's arrays)
+# ---------------------------------------------------------------------------
+
+_LOCAL_STATES = {
+    "zeros": np.array([1.0, 0.0]),
+    "ones": np.array([0.0, 1.0]),
+    "x+": np.array([1.0, 1.0]) / np.sqrt(2),
+    "x-": np.array([1.0, -1.0]) / np.sqrt(2),
+    "y+": np.array([1.0, 1.0j]) / np.sqrt(2),
+    "y-": np.array([1.0, -1.0j]) / np.sqrt(2),
+}
+
+
+def product_state_tensors(local_states, chi: int, d: int | None = None, dtype=np.complex128) -> np.ndarray:
+    """Padded product state ``(L, d, chi, chi)`` with only ``[:, :, 0, 0]`` set."""
+    locals_ = [np.asarray(v, dtype=dtype).reshape(-1) for v in local_states]
+    if d is None:
+        d = max(v.shape[0] for v in locals_)
+    out = np.zeros((len(locals_), d, chi, chi), dtype=dtype)
+    for i, v in enumerate(locals_):
+        out[i, : v.shape[0], 0, 0] = v
+    return out
+
+
+def named_product_state(
+    name: str,
+    length: int,
+    chi: int,
+    d: int = 2,
+    dtype=np.complex128,
+    basis_string: str | None = None,
+    rng: np.random.Generator | None = None,
+) -> np.ndarray:
+    """Preset product states: zeros, ones, x+/-, y+/-, Neel, wall, basis,
+    random.  (``haar-random`` is not ported.)"""
+    if name in _LOCAL_STATES:
+        vecs = [_LOCAL_STATES[name]] * length
+    elif name == "Neel":
+        vecs = [_LOCAL_STATES["zeros" if i % 2 == 0 else "ones"] for i in range(length)]
+    elif name == "wall":
+        vecs = [_LOCAL_STATES["zeros" if i < length // 2 else "ones"] for i in range(length)]
+    elif name == "basis":
+        if basis_string is None or len(basis_string) != length:
+            msg = "state='basis' requires a basis_string of chain length"
+            raise ValueError(msg)
+        vecs = []
+        for ch in basis_string:
+            v = np.zeros(d, dtype=dtype)
+            v[int(ch)] = 1.0
+            vecs.append(v)
+    elif name == "random":
+        rng = rng or np.random.default_rng()
+        vs = rng.normal(size=(length, d)) + 1j * rng.normal(size=(length, d))
+        vecs = list(vs / np.linalg.norm(vs, axis=1, keepdims=True))
+    elif name == "haar-random":
+        msg = "the haar-random preset is not ported yet"
+        raise NotImplementedError(msg)
+    else:
+        msg = f"Unknown preset state {name!r}"
+        raise ValueError(msg)
+    return product_state_tensors(vecs, chi, d=d, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Transfer / norm
+# ---------------------------------------------------------------------------
+
+
+def transfer_right(env: torch.Tensor, a_bra: torch.Tensor, a_ket: torch.Tensor) -> torch.Tensor:
+    """``env'[rb, rk] = sum conj(Ab[s,lb,rb]) env[lb,lk] Ak[s,lk,rk]`` per trajectory."""
+    tmp = torch.einsum("zlm,zsmr->zslr", env, a_ket)
+    return torch.einsum("zslb,zslr->zbr", a_bra.conj(), tmp)
+
+
+def norm_squared_center0(tensors: torch.Tensor) -> torch.Tensor:
+    """``<psi|psi>`` for states canonical at site 0, ``(B,)``."""
+    t0 = tensors[:, 0]
+    return (t0.conj() * t0).real.sum(dim=(1, 2, 3))
+
+
+# ---------------------------------------------------------------------------
+# Canonicalization
+# ---------------------------------------------------------------------------
+
+
+_QR_EPS32 = float(np.finfo(np.float32).eps)
+
+
+@functools.lru_cache(maxsize=8)
+def _qr_rank_noise(rows: int, cols: int, device: torch.device) -> torch.Tensor:
+    """The JAX package's fixed unit-norm noise matrix (numpy seed 9157)."""
+    nz = np.random.default_rng(9157).standard_normal((rows, cols))
+    return torch.as_tensor((nz / np.linalg.norm(nz)).astype(np.float32)).to(device)
+
+
+def _qr_noise_floor(mh: torch.Tensor) -> torch.Tensor:
+    """Rank-safety floor for complex64 QRs, one float32 ulp of each block's
+    norm (plus 1e-16) along a fixed noise matrix: PyTorch's complex64 QR on
+    the CPU returns NaN on the exactly rank-deficient blocks that padded
+    states produce, as XLA's does on the TPU.  complex128 takes no floor."""
+    scale = _QR_EPS32 * torch.linalg.matrix_norm(mh) + 1e-16
+    return scale.to(mh.dtype)[..., None, None] * _qr_rank_noise(*mh.shape[-2:], mh.device)
+
+
+def canonicalize_right(tensors: torch.Tensor, method: str = "qr") -> torch.Tensor:
+    """Bring each MPS to canonical form at site 0 without normalizing.
+
+    ``method="newton"`` takes the polar factor of each absorbed site block by
+    kernel A; ``method="qr"`` takes a Householder LQ (``torch.linalg.qr``).
+    Returns a new tensor; the input is not modified.
+    """
+    b, length, d, chi, _ = tensors.shape
+    if length == 1:
+        return zero_boundary_pads(tensors)
+    if method not in ("qr", "newton"):
+        msg = f"Unknown canonicalization method: {method!r}"
+        raise ValueError(msg)
+    out = torch.empty_like(tensors)
+    c = torch.eye(chi, dtype=tensors.dtype, device=tensors.device).expand(b, chi, chi)
+    for i in range(length - 1, 0, -1):
+        # absorb the carried factor from the right, then split m = c_new . q
+        t = torch.einsum("zslr,zrm->zslm", tensors[:, i], c)
+        m = t.permute(0, 2, 1, 3).reshape(b, chi, d * chi)
+        if method == "newton":
+            x = orthonormalize(m.mH)  # (B, d*chi, chi) isometry
+            qh = x.mH
+            c = m @ x
+        else:
+            mh = m.mH
+            if tensors.dtype == torch.complex64:
+                mh = mh + _qr_noise_floor(mh)
+            q, r = torch.linalg.qr(mh)  # m = r^H q^H
+            qh = q.mH
+            c = r.mH
+        out[:, i] = qh.reshape(b, chi, d, chi).permute(0, 2, 1, 3)  # in place: fresh buffer
+    out[:, 0] = torch.einsum("zslr,zrm->zslm", tensors[:, 0], c)
+    return zero_boundary_pads(out)
+
+
+def zero_boundary_pads(tensors: torch.Tensor) -> torch.Tensor:
+    """Zero the contraction-unreachable boundary pads: ``tensors[:, 0][:, :, 1:, :]``
+    and ``tensors[:, -1][:, :, :, 1:]`` (returns a new tensor)."""
+    out = tensors.clone()
+    out[:, 0, :, 1:, :] = 0
+    out[:, -1, :, :, 1:] = 0
+    return out
+
+
+def normalize_canonical(tensors: torch.Tensor, method: str = "qr") -> tuple[torch.Tensor, torch.Tensor]:
+    """Canonicalize at site 0 and scale to unit norm; returns
+    ``(tensors, norm (B,))`` with the norm before scaling."""
+    canon = canonicalize_right(tensors, method=method)
+    nrm = torch.sqrt(norm_squared_center0(canon))
+    safe = torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+    canon[:, 0] /= safe.to(canon.dtype)[:, None, None, None]  # in place: canon is ours
+    return canon, nrm
+
+
+# ---------------------------------------------------------------------------
+# Gram environments, moments, expectations
+# ---------------------------------------------------------------------------
+
+
+def left_gram_environments(tensors: torch.Tensor) -> torch.Tensor:
+    """Left Gram environments before each site, ``(B, L, chi, chi)``."""
+    b, length, _, chi, _ = tensors.shape
+    envs = tensors.new_empty((b, length, chi, chi))
+    env = torch.eye(chi, dtype=tensors.dtype, device=tensors.device).expand(b, chi, chi)
+    for i in range(length):
+        envs[:, i] = env
+        env = transfer_right(env, tensors[:, i], tensors[:, i])
+    return envs
+
+
+def right_gram_environments(tensors: torch.Tensor) -> torch.Tensor:
+    """Right Gram environments of the sites after each site, ``(B, L, chi, chi)``
+    (``out[:, i]`` applies to the right leg of site ``i``)."""
+    b, length, _, chi, _ = tensors.shape
+    envs = tensors.new_empty((b, length, chi, chi))
+    env = torch.eye(chi, dtype=tensors.dtype, device=tensors.device).expand(b, chi, chi)
+    for i in range(length - 1, -1, -1):
+        envs[:, i] = env
+        a = tensors[:, i]
+        tmp = torch.einsum("zslt,zrt->zslr", a, env)
+        env = torch.einsum("zslr,zsmr->zlm", a.conj(), tmp)
+    return envs
+
+
+def site_moment_matrices(tensors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gauge-free per-site moments ``T_i[b,k] = <psi|(|b><k|)_i|psi>``.
+
+    Returns ``(T (B, L, d, d), norm2 (B,))`` from one left and one right
+    transfer scan; the state may be in any gauge and unnormalized.
+    """
+    left_envs = left_gram_environments(tensors)
+    full = transfer_right(left_envs[:, -1], tensors[:, -1], tensors[:, -1])
+    right_envs = right_gram_environments(tensors)
+    tmp = torch.einsum("zilm,zikms->zikls", left_envs, tensors)
+    tmp = torch.einsum("zikls,zirs->ziklr", tmp, right_envs)
+    moments = torch.einsum("ziblr,ziklr->zibk", tensors.conj(), tmp)
+    return moments, torch.diagonal(full, dim1=-2, dim2=-1).sum(-1).real
+
+
+def site_expectations(tensors: torch.Tensor, ops: torch.Tensor, sites: torch.Tensor) -> torch.Tensor:
+    """One-site expectations for canonical-at-0 normalized states:
+    ``ops (n, d, d)``, ``sites (n,)`` -> ``(B, n)`` complex."""
+    envs = left_gram_environments(tensors)
+    a = tensors[:, sites]  # (B, n, d, chi, chi)
+    env = envs[:, sites]  # (B, n, chi, chi)
+    return torch.einsum("znblr,nbk,znkmr,znlm->zn", a.conj(), ops.to(a.dtype), a, env)
+
+
+# ---------------------------------------------------------------------------
+# Local operators
+# ---------------------------------------------------------------------------
+
+
+def apply_one_site_operator(
+    tensors: torch.Tensor, op: torch.Tensor, site: torch.Tensor, mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Apply per-trajectory ``op (B, d, d)`` at per-trajectory ``site (B,)``.
+
+    Trajectories where ``mask`` is False keep their tensors unchanged (the
+    port's replacement for a ``lax.cond`` around the application).  Returns a
+    new tensor.
+    """
+    rows = torch.arange(tensors.shape[0], device=tensors.device)
+    a = tensors[rows, site]
+    a2 = torch.einsum("zab,zblr->zalr", op.to(a.dtype), a)
+    if mask is not None:
+        a2 = torch.where(mask[:, None, None, None], a2, a)
+    out = tensors.clone()
+    out[rows, site] = a2
+    return out
+
+
+def apply_operator_everywhere(tensors: torch.Tensor, ops: torch.Tensor) -> torch.Tensor:
+    """Apply per-site ``ops (L, d, d)`` to every site of every trajectory."""
+    return torch.einsum("iab,ziblr->zialr", ops.to(tensors.dtype), tensors)

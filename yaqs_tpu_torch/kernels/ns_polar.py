@@ -1,0 +1,89 @@
+"""Kernel A: Newton–Schulz polar orthogonalization (``csrc/ns_polar.cu``).
+
+Replaces ``yaqs_tpu.ops.decomp.newton_schulz_orthogonalize``.  The schedule
+is fixed: scale by ``min(frobenius, sqrt(norm1 * norminf)) + 1e-30``, four
+polar-express quintics (3.4445, -4.7750, 2.0315), two mild quintics
+(2, -1.3333, 0.3333), two cubic steps (1.5, -0.5).  The JAX docstring explains
+why the schedule must never change: in complex64 any extra lift promotes
+sub-eps noise directions into the basis and collapses the state.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import LAUNCHES
+from .build import check, load_library
+
+__all__ = ["newton_schulz_orthogonalize", "newton_schulz_orthogonalize_plain"]
+
+MAX_ROWS = 128
+MAX_COLS = 64
+_QUINTIC_AGGRESSIVE = (3.4445, -4.7750, 2.0315)
+_QUINTIC_MILD = (2.0, -1.3333, 0.3333)
+
+
+def newton_schulz_orthogonalize_plain(
+    y: torch.Tensor, passes: int = 1, aggressive: int = 4
+) -> torch.Tensor:
+    """Plain PyTorch version: the polar factor of each ``(..., m, n)`` block."""
+    x = y
+    for _ in range(passes):
+        a1 = x.abs()
+        holder = torch.sqrt(
+            a1.sum(dim=-2).amax(dim=-1) * a1.sum(dim=-1).amax(dim=-1)
+        )
+        frob = torch.sqrt((a1 * a1).sum(dim=(-2, -1)))
+        bound = (torch.minimum(frob, holder) + 1e-30)[..., None, None]
+        x = x / bound.to(x.dtype)
+        for a, b, c in [_QUINTIC_AGGRESSIVE] * aggressive + [_QUINTIC_MILD] * 2:
+            g = x.mH @ x
+            xg = x @ g
+            x = a * x + b * xg + c * (xg @ g)
+        for _ in range(2):
+            g = x.mH @ x
+            x = 1.5 * x - 0.5 * (x @ g)
+    return x
+
+
+def newton_schulz_orthogonalize(
+    y: torch.Tensor, passes: int = 1, aggressive: int = 4
+) -> torch.Tensor:
+    """Orthonormalize the columns of each ``(..., m, n)`` block of ``y``.
+
+    A CPU tensor takes the plain version.  A CUDA tensor launches
+    ``ns_polar`` (one thread block per block of ``y``), which takes only
+    complex64, ``n <= 64``, ``m <= 128`` and the default ``passes=1,
+    aggressive=4``; anything else raises ``ValueError``.
+    """
+    if y.device.type == "cpu":
+        return newton_schulz_orthogonalize_plain(y, passes, aggressive)
+    if y.device.type != "cuda":
+        msg = f"ns_polar: unsupported device {y.device}"
+        raise ValueError(msg)
+    if passes != 1 or aggressive != 4:
+        msg = f"ns_polar supports passes=1, aggressive=4 only (got {passes}, {aggressive})"
+        raise ValueError(msg)
+    if y.dtype != torch.complex64:
+        msg = f"ns_polar takes complex64, got {y.dtype}"
+        raise ValueError(msg)
+    if y.dim() < 2:
+        msg = f"ns_polar takes (..., m, n) blocks, got shape {tuple(y.shape)}"
+        raise ValueError(msg)
+    m, n = y.shape[-2:]
+    if not (1 <= m <= MAX_ROWS and 1 <= n <= MAX_COLS):
+        msg = f"ns_polar takes m <= {MAX_ROWS}, n <= {MAX_COLS}; got ({m}, {n})"
+        raise ValueError(msg)
+    if not y.is_contiguous() or y.is_conj():
+        msg = "ns_polar takes a contiguous tensor with its conjugation resolved"
+        raise ValueError(msg)
+    batch = y.numel() // (m * n)
+    out = torch.empty_like(y)
+    if batch == 0:
+        return out
+    lib = load_library()
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    err = lib.ns_polar_launch(y.data_ptr(), out.data_ptr(), batch, m, n, stream)
+    check(err, "ns_polar")
+    LAUNCHES["ns_polar"] += 1
+    return out
