@@ -6,19 +6,35 @@ Phases (any failure raises and exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the hand-written kernels from ``yaqs_tpu_torch/kernels/csrc``;
-3. each kernel against its plain PyTorch version at the slice's shapes, with
-   median times of both (CUDA events);
-4. the order-2 TJM slice at the benchmark shape (TFIM L=100, chi=64, B=32,
-   z + lowering noise 0.05, 10 steps of dt=0.1, complex64, fast knob set):
-   trajectories/s, ms per step, peak memory, and proof that both kernels ran;
+3. each kernel against its plain PyTorch version at the slices' shapes: the
+   error, the device time per call from ``torch.profiler`` device rows (the
+   kernel's own time over its launch count, 20 calls), the host-paced time
+   per call (CUDA events around 20 back-to-back calls), the host-paced time
+   of the nearest PyTorch library call, and the bound (bytes over 3.35 TB/s
+   or FP32 operations over 67 TFLOP/s, the larger);
+4. the analog slice, order-2 TJM at the benchmark shape (TFIM L=100, chi=64,
+   B=32, z + lowering noise 0.05, 10 steps of dt=0.1, complex64, fast knob
+   set): trajectories/s, ms per step, peak memory, and proof that its three
+   kernels ran;
 5. the complex64 symmetric-Z guard: noiseless TFIM from x+ at L=48, chi=64
    keeps max|<Z>| < 1e-3 over 10 steps;
 6. noiseless L=32, chi=32 from a Neel state: the card's complex64 result
-   against the port's complex128 run on the CPU, max|dZ| <= 1e-3.
+   against the port's complex128 run on the CPU, max|dZ| <= 1e-3;
+7. the digital slice at full width, the JAX bench's ``digital_bench``: a
+   noisy QASM2 brickwork of n=20 qubits and 8 layers with a mid-circuit
+   observable column, lowering noise 0.02, chi=32, 512 trajectories, 256
+   shots, ``swaps`` mode, complex64, fast knob set: trajectories/s (median
+   of three runs), peak memory, the result's checks, proof that its four
+   kernels ran, and a profiled run's device time by kernel;
+8. the digital oracle guard: a noiseless 10-qubit brickwork of 8 layers at
+   chi=32 (exact there) against a numpy state vector, max|d<Z>| <= 1e-3 with
+   the fast and with the exact knob set; 4096 noiseless shots of a 4-qubit
+   circuit within total variation 0.05 of the exact distribution.
 
 The last two lines of standard output are the kernel table and
-``{"ok": true, "device": {...}}``.  Without a card the script exits non-zero
-before printing either.  It imports nothing of JAX.
+``{"ok": true, "device": {...}}``; the card's name and power limit come on
+the line before them.  Without a card the script exits non-zero before
+printing any of them.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -30,16 +46,32 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 NS_TOL = 1e-5
 NS_ISOMETRY_TOL = 1e-4
-EPILOGUE_TOL = 1e-5
+KERNEL_TOL = 1e-5  # relative: complex64 with another summation order
 GUARD_TOL = 1e-3
 CPU_PARITY_TOL = 1e-3
+ORACLE_TOL = 1e-3
+TV_TOL = 0.05
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOPS = 67e12  # FP32 outside the tensor cores (TF32 stays off)
+CMAC_FLOPS = 8  # one complex multiply-add is four real FMAs
+C64 = 8  # bytes
 
 BENCH = dict(length=100, chi=64, batch=32, steps=10, dt=0.1, gamma=0.05, krylov_dim=4)
+DIGITAL = dict(qubits=20, layers=8, chi=32, num_traj=512, shots=256, gamma=0.02, seed=3)
 FAST = dict(svd_method="subspace", subspace_iters=1, subspace_qr="newton", canon_method="newton", lanczos_reorth=False)
+EXACT = dict(svd_method="exact", subspace_iters=2, subspace_qr="householder", canon_method="qr", lanczos_reorth=True)
+ANALOG_KERNELS = ("ns_polar", "lanczos_epilogue", "moment_scan")
+DIGITAL_KERNELS = ("bond_gate", "moment_scan", "sample_shots", "ns_polar")
+# the path whose run gives a kernel's launch count in the kernel table: the
+# slice that ported it
+TABLE_PATH = dict(ns_polar="analog", lanczos_epilogue="analog", bond_gate="digital", moment_scan="digital",
+                  sample_shots="digital")
 
 
 def log(msg: str) -> None:
@@ -54,9 +86,15 @@ def card_info() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, windows: int = 5, calls: int = 20) -> float:
-    """Median per-call device time over ``windows`` runs of ``calls``
-    back-to-back calls, after warm-up (CUDA events)."""
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def host_paced_ms(fn, windows: int = 5, calls: int = 20) -> float:
+    """Median time per call over ``windows`` runs of ``calls`` back-to-back
+    calls (CUDA events), after warm-up.  Where a call holds little device
+    work this reads the host's launch rate, not the device."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -72,18 +110,108 @@ def time_ms(fn, windows: int = 5, calls: int = 20) -> float:
     return statistics.median(per_call)
 
 
+def single_call_ms(fn, calls: int = 20) -> float:
+    """Median time of one call, each between its own pair of CUDA events
+    with a synchronize after it."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, calls: int = 20, names: tuple[str, ...] = ()) -> tuple[float, float, str]:
+    """Device time per call from ``torch.profiler``'s device rows over
+    ``calls`` calls; the device events per call; and the source.
+
+    Without ``names``: the CUDA time of everything ``fn`` runs on the card,
+    over ``calls``.  With ``names`` (the kernels of one wrapper, each launched
+    once a call): every device row must be one of them, and the time per call
+    is the sum over them of each kernel's own time over its recorded launch
+    count, so a launch the tracer drops does not shorten the figure.  Where
+    the profiler records no device row, one call at a time between CUDA
+    events (source ``"events"``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [r for r in prof.key_averages() if r.device_type == DeviceType.CUDA and r.count > 0]
+    events = sum(r.count for r in rows)
+    if not rows:
+        log("[timing] torch.profiler recorded no device row; one call at a time between CUDA events instead")
+        return single_call_ms(fn, calls), float("nan"), "events"
+    if not names:
+        return sum(r.self_device_time_total for r in rows) / 1e3 / calls, events / calls, "profiler"
+    strangers = [r.key for r in rows if not any(n in r.key for n in names)]
+    check(not strangers, f"device rows other than {names}: {strangers}")
+    return sum(r.self_device_time_total / r.count for r in rows) / 1e3, events / calls, "profiler"
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the FP32 rate, the larger, in ms."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return ((got - ref).abs().max() / ref.abs().max()).item()
 
 
-def check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise AssertionError(msg)
+def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops):
+    """Every time of one kernel at one shape, printed on one line.  The
+    kernel and its plain version: profiler device time and host-paced time.
+    The library call, which may issue thousands of small launches and host
+    syncs (the batched SVD does): host-paced over 3 windows of 3 calls, kept
+    out of the profiler."""
+    ms, per_call, source = device_ms(kernel_fn, names=kernel_names)
+    plain_ms, plain_events, plain_source = device_ms(plain_fn)
+    library_ms = None if library_fn is None else host_paced_ms(library_fn, windows=3, calls=3)
+    bound_ms, bound_by = bound(nbytes, flops)
+    out = dict(
+        ms=ms, ms_source=source, launches_per_call=per_call, host_ms=host_paced_ms(kernel_fn), plain_ms=plain_ms,
+        plain_ms_source=plain_source, plain_events_per_call=plain_events, plain_host_ms=host_paced_ms(plain_fn),
+        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+    )
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms (host-paced)"
+    log(f"[phase 3] {label}: device {ms:.4f} ms ({source}, {per_call:g} launches), "
+        f"host-paced {out['host_ms']:.4f} ms; plain device {plain_ms:.4f} ms ({plain_source}, "
+        f"{plain_events:g} device events), host-paced {out['plain_host_ms']:.4f} ms; library {lib}; "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    return out
+
+
+def random_mps(gen, dev, batch, length, chi, d=2):
+    """Random padded MPS whose transfer operator keeps the norm of order one."""
+    shape = (batch, length, d, chi, chi)
+    t = torch.complex(
+        torch.randn(shape, generator=gen, device=dev), torch.randn(shape, generator=gen, device=dev)
+    ) / np.sqrt(2 * d * chi)
+    t[:, 0, :, 1:, :] = 0
+    t[:, -1, :, :, 1:] = 0
+    return t
 
 
 def phase_kernels(dev):
-    from yaqs_tpu_torch.kernels.lanczos_epilogue import lanczos_epilogue, lanczos_epilogue_plain
+    from yaqs_tpu_torch.core.mps_ops import normalize_canonical
+    from yaqs_tpu_torch.kernels.bond_gate import bond_gate, bond_gate_plain
+    from yaqs_tpu_torch.kernels.lanczos_epilogue import lanczos_epilogue, lanczos_epilogue_plain, tridiag
+    from yaqs_tpu_torch.kernels.moment_scan import site_moment_matrices, site_moment_matrices_plain
     from yaqs_tpu_torch.kernels.ns_polar import newton_schulz_orthogonalize, newton_schulz_orthogonalize_plain
+    from yaqs_tpu_torch.kernels.sample_shots import sample_shots, sample_shots_plain
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -93,33 +221,43 @@ def phase_kernels(dev):
         )
 
     b, d, chi, k = BENCH["batch"], 2, BENCH["chi"], BENCH["krylov_dim"]
-    rows = []
+    nd, ld, cd = DIGITAL["num_traj"], DIGITAL["qubits"], DIGITAL["chi"]
+    rows = {}
 
-    # kernel A at the slice's call shape (B, d*chi, chi) and at B*k blocks
-    ns_err = 0.0
-    for nblocks in (b, b * k):
-        y = randc(nblocks, d * chi, chi)
+    def polar_library(y):
+        u, _, vh = torch.linalg.svd(y, full_matrices=False)
+        return u @ vh
+
+    # ns_polar at the analog call shape (B, d chi, chi), at B k blocks, and at
+    # the digital one (512, 64, 32)
+    ns_err, ns_extra = 0.0, {}
+    for shape in ((b, d * chi, chi), (b * k, d * chi, chi), (nd, d * cd, cd)):
+        y = randc(*shape)
         got = newton_schulz_orthogonalize(y)
         ref = newton_schulz_orthogonalize_plain(y)
         torch.cuda.synchronize()
         err = rel_err(got, ref)
-        iso = (got.mH @ got - torch.eye(chi, device=dev)).abs().max().item()
-        log(f"[phase 3] ns_polar ({nblocks}, {d * chi}, {chi}): rel err {err:.3e}, isometry defect {iso:.3e}")
+        iso = (got.mH @ got - torch.eye(shape[-1], device=dev)).abs().max().item()
+        log(f"[phase 3] ns_polar {shape}: rel err {err:.3e}, isometry defect {iso:.3e}")
         check(err <= NS_TOL, f"ns_polar disagrees with its plain version: {err} > {NS_TOL}")
         check(iso <= NS_ISOMETRY_TOL, f"ns_polar isometry defect {iso} > {NS_ISOMETRY_TOL}")
         ns_err = max(ns_err, (got - ref).abs().max().item())
-    y = randc(b, d * chi, chi)
-    ms = time_ms(lambda: newton_schulz_orthogonalize(y))
-    plain_ms = time_ms(lambda: newton_schulz_orthogonalize_plain(y))
-    log(f"[phase 3] ns_polar ({b}, {d * chi}, {chi}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    rows.append(dict(
-        name="ns_polar", route="cuda", source="yaqs_tpu_torch/kernels/csrc/ns_polar.cu",
-        replaces="yaqs_tpu/ops/decomp.py:34", max_abs_err=ns_err, ms=ms, plain_ms=plain_ms,
-        shape=[b, d * chi, chi],
-    ))
+        if shape[0] != b * k:
+            bm, m, n = shape
+            ns_extra[shape] = timings(
+                f"ns_polar {shape}", lambda y=y: newton_schulz_orthogonalize(y),
+                lambda y=y: newton_schulz_orthogonalize_plain(y), lambda y=y: polar_library(y), ("ns_polar",),
+                2 * bm * m * n * C64, 22 * bm * m * n * n * CMAC_FLOPS,
+            )
+    rows["ns_polar"] = dict(
+        source="yaqs_tpu_torch/kernels/csrc/ns_polar.cu", replaces="yaqs_tpu/ops/decomp.py:34",
+        max_abs_err=ns_err, shape=[b, d * chi, chi], **ns_extra[(b, d * chi, chi)],
+        library_call="torch.linalg.svd then U @ Vh (two calls)",
+        digital_shape=dict(shape=[nd, d * cd, cd], **ns_extra[(nd, d * cd, cd)]),
+    )
 
-    # kernel B at the two-site (n = d^2 chi^2) and one-site (n = d chi^2) solves
-    ep_err, ep_times = 0.0, {}
+    # lanczos_epilogue at the two-site (n = d^2 chi^2) and one-site (n = d chi^2) solves
+    ep_err, ep_extra = 0.0, {}
     for n in (d * d * chi * chi, d * chi * chi):
         alphas = torch.randn((b, k), generator=gen, device=dev)
         betas = torch.randn((b, k), generator=gen, device=dev).abs()
@@ -134,21 +272,92 @@ def phase_kernels(dev):
             torch.cuda.synchronize()
             err = rel_err(got, ref)
             log(f"[phase 3] lanczos_epilogue (B={b}, k={k}, n={n}, coeff={coeff}): rel err {err:.3e}")
-            check(err <= EPILOGUE_TOL, f"lanczos_epilogue disagrees with its plain version: {err} > {EPILOGUE_TOL}")
+            check(err <= KERNEL_TOL, f"lanczos_epilogue disagrees with its plain version: {err} > {KERNEL_TOL}")
             check(torch.equal(got[3], x[3]), "lanczos_epilogue did not pass x through where nrm == 0")
             ep_err = max(ep_err, (got - ref).abs().max().item())
-        ep_times[n] = (
-            time_ms(lambda: lanczos_epilogue(alphas, betas, -0.05j, v, nrm, x)),
-            time_ms(lambda: lanczos_epilogue_plain(alphas, betas, -0.05j, v, nrm, x)),
+        ct = (-0.05j * tridiag(alphas, betas)).to(torch.complex64)
+        ep_extra[n] = timings(
+            f"lanczos_epilogue (B={b}, k={k}, n={n})",
+            lambda a=alphas, bt=betas, v=v, nrm=nrm, x=x: lanczos_epilogue(a, bt, -0.05j, v, nrm, x),
+            lambda a=alphas, bt=betas, v=v, nrm=nrm, x=x: lanczos_epilogue_plain(a, bt, -0.05j, v, nrm, x),
+            lambda ct=ct, v=v: torch.bmm(torch.linalg.matrix_exp(ct)[:, :, :1].mT, v),
+            ("lanczos_epilogue",), (b * k * n + 2 * b * n) * C64 + 3 * b * k * 4, b * k * n * CMAC_FLOPS,
         )
-        log(f"[phase 3] lanczos_epilogue n={n}: kernel {ep_times[n][0]:.4f} ms, plain {ep_times[n][1]:.4f} ms")
     n_two = d * d * chi * chi
-    rows.append(dict(
-        name="lanczos_epilogue", route="cuda", source="yaqs_tpu_torch/kernels/csrc/lanczos_epilogue.cu",
-        replaces="yaqs_tpu/ops/krylov.py:108", max_abs_err=ep_err, ms=ep_times[n_two][0],
-        plain_ms=ep_times[n_two][1], shape=[b, k, n_two],
-        one_site_ms=ep_times[d * chi * chi][0], one_site_plain_ms=ep_times[d * chi * chi][1],
-    ))
+    rows["lanczos_epilogue"] = dict(
+        source="yaqs_tpu_torch/kernels/csrc/lanczos_epilogue.cu", replaces="yaqs_tpu/ops/krylov.py:108",
+        max_abs_err=ep_err, shape=[b, k, n_two], **ep_extra[n_two],
+        library_call="torch.linalg.matrix_exp then torch.bmm (two calls)",
+        one_site=dict(shape=[b, k, d * chi * chi], **ep_extra[d * chi * chi]),
+    )
+
+    # bond_gate on strided site views of a digital-shape state, as the sweep passes them
+    state = random_mps(gen, dev, nd, ld, cd)
+    gate = randc(4, 4)
+    a, bb = state[:, 3], state[:, 4]
+    got = bond_gate(a, bb, gate)
+    ref = bond_gate_plain(a, bb, gate)
+    torch.cuda.synchronize()
+    err = rel_err(got, ref)
+    log(f"[phase 3] bond_gate (B={nd}, chi={cd}): rel err {err:.3e}")
+    check(err <= KERNEL_TOL, f"bond_gate disagrees with its plain version: {err} > {KERNEL_TOL}")
+    g4 = gate.reshape(2, 2, 2, 2)
+    rows["bond_gate"] = dict(
+        source="yaqs_tpu_torch/kernels/csrc/bond_gate.cu", replaces="yaqs_tpu/digital/engine.py:76",
+        max_abs_err=(got - ref).abs().max().item(), shape=[nd, d, cd, cd],
+        library_call="torch.einsum('stuv,zulm,zvmr->zsltr') (one call)",
+        **timings(
+            f"bond_gate (B={nd}, chi={cd})", lambda: bond_gate(a, bb, gate), lambda: bond_gate_plain(a, bb, gate),
+            lambda: torch.einsum("stuv,zulm,zvmr->zsltr", g4, a, bb), ("bond_gate",),
+            (2 * nd * d * cd * cd + nd * d * d * cd * cd + 16) * C64,
+            nd * (d * d * cd**3 + d**4 * cd * cd) * CMAC_FLOPS,
+        ),
+    )
+
+    # moment_scan at the digital and at the analog shape
+    ms_err, ms_extra = 0.0, {}
+    for bm, lm, cm in ((nd, ld, cd), (b, BENCH["length"], chi)):
+        t = random_mps(gen, dev, bm, lm, cm)
+        moments, n2 = site_moment_matrices(t)
+        ref_m, ref_n2 = site_moment_matrices_plain(t)
+        torch.cuda.synchronize()
+        err = max(rel_err(moments, ref_m), rel_err(n2, ref_n2))
+        log(f"[phase 3] moment_scan (B={bm}, L={lm}, chi={cm}): rel err {err:.3e}")
+        check(err <= KERNEL_TOL, f"moment_scan disagrees with its plain version: {err} > {KERNEL_TOL}")
+        ms_err = max(ms_err, (moments - ref_m).abs().max().item())
+        ms_extra[bm] = timings(
+            f"moment_scan (B={bm}, L={lm}, chi={cm})", lambda t=t: site_moment_matrices(t),
+            lambda t=t: site_moment_matrices_plain(t), None, ("gram_scan_kernel", "moments_kernel"),
+            bm * lm * d * cm * cm * C64 + bm * lm * d * d * C64 + bm * 4,
+            6 * bm * lm * d * cm**3 * CMAC_FLOPS,
+        )
+    rows["moment_scan"] = dict(
+        source="yaqs_tpu_torch/kernels/csrc/moment_scan.cu", replaces="yaqs_tpu/core/mps_ops.py:396",
+        max_abs_err=ms_err, shape=[nd, ld, d, cd, cd], **ms_extra[nd], library_call="none",
+        analog_shape=dict(shape=[b, BENCH["length"], d, chi, chi], **ms_extra[b]),
+    )
+
+    # sample_shots: one shot from each of 512 trajectories, and 4096 shots of one
+    ss_extra = {}
+    for bm, sm, lm, cm in ((nd, 1, ld, cd), (1, 4096, 4, cd)):
+        canon, _ = normalize_canonical(random_mps(gen, dev, bm, lm, cm))
+        u = torch.rand((bm, sm, lm, d), generator=gen, device=dev).clamp_(min=torch.finfo(torch.float32).tiny)
+        g = -torch.log(-torch.log(u))
+        got = sample_shots(canon, g)
+        same = torch.equal(got, sample_shots_plain(canon, g))
+        log(f"[phase 3] sample_shots (B={bm}, S={sm}, L={lm}, chi={cm}): identical outcomes {same}")
+        check(same, "sample_shots picked other outcomes than its plain version")
+        ss_extra[bm] = timings(
+            f"sample_shots (B={bm}, S={sm}, L={lm}, chi={cm})", lambda c=canon, g=g: sample_shots(c, g),
+            lambda c=canon, g=g: sample_shots_plain(c, g), None, ("sample_shots",),
+            bm * lm * d * cm * cm * C64 + bm * sm * lm * (d + 1) * 4,
+            bm * sm * lm * d * cm * cm * CMAC_FLOPS,
+        )
+    rows["sample_shots"] = dict(
+        source="yaqs_tpu_torch/kernels/csrc/sample_shots.cu", replaces="yaqs_tpu/digital/engine.py:624",
+        max_abs_err=0.0, shape=[nd, 1, ld, d], **ss_extra[nd], library_call="none",
+        noiseless_shape=dict(shape=[1, 4096, 4, d], **ss_extra[1]),
+    )
     return rows
 
 
@@ -208,8 +417,8 @@ def phase_slice(dev):
     check(bool(torch.isfinite(res).all()), "non-finite observable in the slice run")
     check(res[:, :, 0].abs().max().item() < 1e-6, "t=0 column differs from <Z>=0 of the x+ state")
     check(res.abs().max().item() <= 1.0 + 1e-3, "an observable left [-1, 1]")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched by the slice run")
+    for name in ANALOG_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the analog slice run")
     out["mean_z_final"] = res[:, :, -1].mean().item()
     return out
 
@@ -244,6 +453,151 @@ def phase_cpu_parity(dev, length=32, chi=32, steps=10):
     return dict(max_abs_dz=dz, card_seconds=t_card, cpu_seconds=t_cpu)
 
 
+def brickwork_qasm(n, layers):
+    """The JAX bench's digital circuit: per layer rx(0.3 + 0.01 q) on every
+    qubit, then cx on alternating bonds; all qubits measured."""
+    lines = ["OPENQASM 2.0;", 'include "qelib1.inc";', f"qreg q[{n}];", f"creg c[{n}];"]
+    for layer in range(layers):
+        lines += [f"rx({0.3 + 0.01 * q}) q[{q}];" for q in range(n)]
+        lines += [f"cx q[{q}],q[{q + 1}];" for q in range(layer % 2, n - 1, 2)]
+    lines.append("measure q -> c;")
+    return "\n".join(lines)
+
+
+def digital_config(chi, knobs):
+    import yaqs_tpu_torch as yt
+
+    return yt.TDVPConfig(krylov_dim=12, trunc_mode="discarded_weight", threshold=1e-6, max_bond_dim=chi, **knobs)
+
+
+def phase_digital(dev):
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch import kernels
+
+    n, chi, b, shots = DIGITAL["qubits"], DIGITAL["chi"], DIGITAL["num_traj"], DIGITAL["shots"]
+    circ = yt.load_circuit(brickwork_qasm(n, DIGITAL["layers"]))
+    circ.ops.insert(len(circ.ops) // 2, yt.GateOp("barrier", (), label="SAMPLE_OBSERVABLES"))
+    noise = yt.compile_noise(
+        yt.NoiseModel([{"name": "lowering", "sites": [i], "strength": DIGITAL["gamma"]} for i in range(n)]), n
+    )
+    obs = yt.compile_observables([yt.Observable("z", i) for i in range(n)], n, 2)
+    t0 = yt.named_product_state("zeros", n, chi)
+    kw = dict(max_bond_dim=chi, sample_layers=True, gate_mode="swaps", config=digital_config(chi, FAST),
+              device=dev, dtype=torch.complex64)
+    # warm-up: a small batch with another seed (cuBLAS handles, allocator)
+    yt.run_digital_batch(circ, t0, noise, obs, num_traj=8, shots=8, seed=DIGITAL["seed"] + 1, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # three timed runs of the same work (the host's pace varies between
+    # them); each is a main-path run with the launch counts reset before it
+    runs = []
+    for _ in range(3):
+        kernels.reset_launch_counts()
+        t_start = time.perf_counter()
+        res = yt.run_digital_batch(circ, t0, noise, obs, num_traj=b, shots=shots, seed=DIGITAL["seed"], **kw)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t_start)
+        launches = kernels.launch_counts()
+        for name in DIGITAL_KERNELS:
+            check(launches[name] > 0, f"kernel {name} was not launched by the digital slice run")
+    seconds = statistics.median(runs)
+    peak = torch.cuda.max_memory_allocated()
+    z = res.trajectories
+    out = dict(seconds=seconds, seconds_each=runs, traj_per_s=b / seconds, peak_bytes=peak, launches=launches,
+               mean_z=z.mean(dim=(0, 1)).tolist(), distinct_outcomes=len(res.counts))
+    log(f"[phase 7] digital n={n} chi={chi} B={b} {shots} shots: median {seconds:.4f} s of {runs}, "
+        f"{out['traj_per_s']:.2f} traj/s, peak {peak / 2**20:.1f} MiB, launches {launches}, "
+        f"mean <Z> per column {out['mean_z']}")
+    out["profile"] = profile_digital(lambda: yt.run_digital_batch(
+        circ, t0, noise, obs, num_traj=b, shots=shots, seed=DIGITAL["seed"], **kw))
+    check(tuple(z.shape) == (b, n, 3), f"unexpected result shape {tuple(z.shape)}")
+    check(bool(torch.isfinite(z).all()), "non-finite observable in the digital run")
+    check(z.abs().max().item() <= 1.0 + 1e-3, "an observable left [-1, 1]")
+    check((z[:, :, 0] - 1.0).abs().max().item() <= 1e-5, "column 0 differs from <Z> = +1 of |0...0>")
+    check(sum(res.counts.values()) == shots, f"counts sum to {sum(res.counts.values())}, not {shots}")
+    check(all(0 <= key < 2**n for key in res.counts), "a count key lies outside [0, 2^n)")
+    check(tuple(res.measurements.shape) == (shots, n), f"measurements have shape {res.measurements.shape}")
+    return out
+
+
+def profile_digital(run):
+    """One more digital run under ``torch.profiler``: the device time by
+    kernel, and the device's busy share of the profiled wall time (the
+    profiler slows the host, so the share is a lower bound on the unprofiled
+    run's).  The tracer may drop a few percent of the launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t_start = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+    rows = sorted((r for r in prof.key_averages() if r.device_type == DeviceType.CUDA),
+                  key=lambda r: -r.self_device_time_total)
+    device_s = sum(r.self_device_time_total for r in rows) / 1e6
+    top = [dict(kernel=r.key[:80], ms=r.self_device_time_total / 1e3, count=r.count) for r in rows[:10]]
+    log(f"[phase 7] profiled run: wall {wall:.4f} s, device time {device_s:.4f} s "
+        f"({100 * device_s / wall:.1f}% busy), {sum(r.count for r in rows)} device events")
+    for row in top:
+        log(f"[phase 7]   {row['ms']:10.3f} ms {100 * row['ms'] / 1e3 / device_s:5.1f}% {row['count']:6d}x  {row['kernel']}")
+    return dict(wall_s=wall, device_s=device_s, top=top)
+
+
+def statevector(circ):
+    """Dense state of a circuit from |0...0>, one axis per qubit."""
+    psi = np.zeros((2,) * circ.num_qubits, dtype=np.complex128)
+    psi[(0,) * circ.num_qubits] = 1.0
+    for op in circ.ops:
+        if op.name in {"barrier", "measure"}:
+            continue
+        k = len(op.qubits)
+        u = op.resolved_matrix().reshape((2,) * (2 * k))
+        psi = np.tensordot(u, psi, axes=(list(range(k, 2 * k)), list(op.qubits)))
+        psi = np.moveaxis(psi, list(range(k)), list(op.qubits))
+    return psi
+
+
+def phase_digital_oracle(dev):
+    import yaqs_tpu_torch as yt
+
+    n, chi = 10, 32
+    text = brickwork_qasm(n, 8)
+    p = np.abs(statevector(yt.load_circuit(text))) ** 2
+    z_exact = np.array([p.take(0, axis=q).sum() - p.take(1, axis=q).sum() for q in range(n)])
+    obs = yt.compile_observables([yt.Observable("z", i) for i in range(n)], n, 2)
+    t0 = yt.named_product_state("zeros", n, chi)
+    out = {}
+    for name, knobs in (("fast", FAST), ("exact", EXACT)):
+        res = yt.run_digital_batch(text, t0, None, obs, max_bond_dim=chi, gate_mode="swaps",
+                                   config=digital_config(chi, knobs), device=dev, dtype=torch.complex64)
+        z = res.trajectories[0, :, -1].double().cpu().numpy()
+        dz = float(np.abs(z - z_exact).max())
+        log(f"[phase 8] noiseless n={n} 8 layers chi={chi}, {name} knob set: max|d<Z>| = {dz:.3e} "
+            f"(limit {ORACLE_TOL})")
+        check(np.isfinite(z).all() and dz <= ORACLE_TOL, f"digital oracle guard ({name}) failed: {dz}")
+        out[f"max_abs_dz_{name}"] = dz
+
+    shots, nq = 4096, 4
+    text = "\n".join([
+        "OPENQASM 2.0;", 'include "qelib1.inc";', f"qreg q[{nq}];",
+        "h q[0];", "cx q[0],q[1];", "ry(0.7) q[2];", "cx q[1],q[2];", "rx(0.4) q[3];", "cx q[2],q[3];",
+    ])
+    p = np.abs(statevector(yt.load_circuit(text))) ** 2
+    exact = p.transpose(tuple(range(nq - 1, -1, -1))).reshape(-1)  # index with qubit 0 least significant
+    res = yt.run_digital_batch(text, yt.named_product_state("zeros", nq, chi), None, None, shots=shots, seed=11,
+                               max_bond_dim=chi, gate_mode="swaps", config=digital_config(chi, FAST),
+                               device=dev, dtype=torch.complex64)
+    emp = np.zeros(2**nq)
+    for key, count in res.counts.items():
+        emp[key] = count / shots
+    tv = 0.5 * float(np.abs(emp - exact).sum())
+    log(f"[phase 8] {shots} noiseless shots of a {nq}-qubit circuit: total variation {tv:.4f} (limit {TV_TOL})")
+    check(tv <= TV_TOL, f"shot distribution off by total variation {tv}")
+    out["total_variation"] = tv
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -265,20 +619,29 @@ def main() -> None:
     for line in ptxas:
         log(f"[phase 2]   {line}")
 
-    kernel_rows = phase_kernels(dev)
-    slice_out = phase_slice(dev)
-    guard_out = phase_guard(dev)
-    parity_out = phase_cpu_parity(dev)
+    phases = {}
+    t_phase = time.perf_counter()
+    for name, fn in (("kernels", phase_kernels), ("analog", phase_slice), ("guard", phase_guard),
+                     ("cpu_parity", phase_cpu_parity), ("digital", phase_digital),
+                     ("digital_oracle", phase_digital_oracle)):
+        phases[name] = fn(dev)
+        log(f"[time] phase {name}: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
 
-    for row in kernel_rows:
-        row["launches"] = slice_out["launches"][row["name"]]
+    rows = phases["kernels"]
+    for name, row in rows.items():
+        row["launches"] = phases[TABLE_PATH[name]]["launches"][name]
+        row["launches_analog"] = phases["analog"]["launches"][name]
+        row["launches_digital"] = phases["digital"]["launches"][name]
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(dict(card=card, build_seconds=seconds, ptxas=ptxas, kernels=kernel_rows,
-                           slice=slice_out, guard=guard_out, cpu_parity=parity_out), f, indent=1)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")
+            json.dump(dict(card=card, build_seconds=seconds, ptxas=ptxas, kernels=rows,
+                           **{k: v for k, v in phases.items() if k != "kernels"}), f, indent=1)
+    keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    table = [{"name": name, **{k: ("cuda" if k == "route" else row[k]) for k in keys}} for name, row in rows.items()]
     log(card)
-    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernel_rows]}))
+    print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -70,7 +70,7 @@ def test_noiseless_slice_matches_jax():
     w, t0, co, _, plan = _setup()
     ref = _jax_batch(w, t0, co, None, plan, [0])
     tco = convert.compiled_observables(co)
-    got = run_tjm_batch(t0, w, None, tco, convert.trajectory_plan(plan), batch=1)
+    got = run_tjm_batch(t0, w, None, tco, convert.trajectory_plan(plan), batch=1, device="cpu")
     assert got.shape == ref.shape == (1, L + 1, STEPS + 1)
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-10, rtol=0)
     # noiseless TFIM from x+ keeps <Z> = 0 by spin-flip symmetry, up to the
@@ -79,7 +79,7 @@ def test_noiseless_slice_matches_jax():
     # sampling only at the end runs the same operations for the last column
     # (as in the JAX package), so it equals the sampled run's last column
     final_only = convert.trajectory_plan(dataclasses.replace(plan, sample_timesteps=False))
-    last = run_tjm_batch(t0, w, None, tco, final_only, batch=1)
+    last = run_tjm_batch(t0, w, None, tco, final_only, batch=1, device="cpu")
     assert last.shape == (1, L + 1, 1)
     np.testing.assert_allclose(last.numpy()[..., 0], got.numpy()[..., -1], atol=1e-12, rtol=0)
 
@@ -124,7 +124,7 @@ def test_noisy_slice_with_injected_draws_matches_jax(monkeypatch):
     decisions = _recording_stochastic_process(monkeypatch)
     got = run_tjm_batch(
         t0, w, convert.compiled_noise(noise), convert.compiled_observables(co),
-        convert.trajectory_plan(plan), traj_indices=indices, draws=draws,
+        convert.trajectory_plan(plan), traj_indices=indices, draws=draws, device="cpu",
     )
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-8, rtol=0)
     jumps = torch.stack(decisions).sum().item()
@@ -133,7 +133,7 @@ def test_noisy_slice_with_injected_draws_matches_jax(monkeypatch):
     final_only = convert.trajectory_plan(dataclasses.replace(plan, sample_timesteps=False))
     last = run_tjm_batch(
         t0, w, convert.compiled_noise(noise), convert.compiled_observables(co),
-        final_only, traj_indices=indices, draws=draws,
+        final_only, traj_indices=indices, draws=draws, device="cpu",
     )
     np.testing.assert_allclose(last.numpy()[..., 0], got.numpy()[..., -1], atol=1e-12, rtol=0)
 
@@ -141,10 +141,10 @@ def test_noisy_slice_with_injected_draws_matches_jax(monkeypatch):
 def test_trajectory_result_independent_of_batch():
     w, t0, co, noise, plan = _setup(length=6, gamma=0.2)
     args = (t0, w, convert.compiled_noise(noise), convert.compiled_observables(co), convert.trajectory_plan(plan))
-    three = run_tjm_batch(*args, traj_indices=[0, 1, 2], seed=7)
-    one = run_tjm_batch(*args, traj_indices=[1], seed=7)
+    three = run_tjm_batch(*args, traj_indices=[0, 1, 2], seed=7, device="cpu")
+    one = run_tjm_batch(*args, traj_indices=[1], seed=7, device="cpu")
     np.testing.assert_allclose(one[0].numpy(), three[1].numpy(), atol=1e-12, rtol=0)
-    other_seed = run_tjm_batch(*args, traj_indices=[1], seed=8)
+    other_seed = run_tjm_batch(*args, traj_indices=[1], seed=8, device="cpu")
     assert torch.isfinite(other_seed).all()
 
 
@@ -154,4 +154,14 @@ def test_unported_plans_raise():
     for change in (dict(order=1), dict(evolution_mode="bug"), dict(record_diagnostics=True)):
         bad = ttjm.TrajectoryPlan(**{**convert.trajectory_plan(plan).__dict__, **change})
         with pytest.raises(NotImplementedError):
-            run_tjm_batch(t0, w, None, tco, bad, batch=1)
+            run_tjm_batch(t0, w, None, tco, bad, batch=1, device="cpu")
+
+
+def test_entry_point_defaults_to_the_card():
+    """Without ``device`` the run goes to the card; where there is none it
+    raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    w, t0, co, _, plan = _setup()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_tjm_batch(t0, w, None, convert.compiled_observables(co), convert.trajectory_plan(plan), batch=1)

@@ -9,8 +9,10 @@ synchronization inside a time step.  The hand-written CUDA kernels live in
 ``kernels/`` and are built on first use; importing the package needs neither
 ``nvcc`` nor a card, and never imports JAX.
 
-The ported slice is the order-2 TJM trajectory path
-(:func:`yaqs_tpu_torch.analog.run.run_tjm_batch`).
+The ported slices are the order-2 TJM trajectory path
+(:func:`yaqs_tpu_torch.analog.run.run_tjm_batch`) and the noisy digital TEBD
+path (:func:`yaqs_tpu_torch.digital.run.run_digital_batch`).  Both run on the
+card unless the caller passes another ``device``.
 """
 
 from __future__ import annotations
@@ -21,9 +23,14 @@ from .core.mpo_builders import heisenberg_mpo, ising_mpo
 from .core.mps_ops import named_product_state
 from .core.noise_model import NoiseModel, compile_noise
 from .core.observables import Observable, compile_observables
+from .digital.circuit import Circuit, GateOp, load_circuit
+from .digital.run import DigitalRun, run_digital_batch
 from .methods.tdvp import TDVPConfig
 
 __all__ = [
+    "Circuit",
+    "DigitalRun",
+    "GateOp",
     "NoiseModel",
     "Observable",
     "TDVPConfig",
@@ -32,6 +39,8 @@ __all__ = [
     "compile_observables",
     "heisenberg_mpo",
     "ising_mpo",
+    "load_circuit",
     "named_product_state",
+    "run_digital_batch",
     "run_tjm_batch",
 ]

@@ -14,7 +14,7 @@ from ..core.noise_model import CompiledNoise
 from ..core.observables import CompiledObservables
 from .tjm import GeneratorDraws, TrajectoryPlan, tjm_trajectory
 
-__all__ = ["run_tjm_batch", "full_precision_matmuls"]
+__all__ = ["run_tjm_batch", "full_precision_matmuls", "check_device", "resolve_dtype"]
 
 
 def full_precision_matmuls() -> None:
@@ -24,6 +24,23 @@ def full_precision_matmuls() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def check_device(device) -> None:
+    """Refuse a CUDA device where none is present: the entry points run on
+    the card unless the caller asks for another device, and never fall back
+    to the CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        msg = "no CUDA device is available; pass device='cpu' to run on the CPU"
+        raise RuntimeError(msg)
+
+
+def resolve_dtype(device, dtype: torch.dtype | None) -> torch.dtype:
+    """``dtype``, or by default complex64 on a CUDA device (the kernels'
+    type) and complex128 elsewhere."""
+    if dtype is not None:
+        return dtype
+    return torch.complex64 if torch.device(device).type == "cuda" else torch.complex128
+
+
 def run_tjm_batch(
     tensors0,
     mpo,
@@ -31,8 +48,8 @@ def run_tjm_batch(
     observables: CompiledObservables,
     plan: TrajectoryPlan,
     *,
-    device="cpu",
-    dtype: torch.dtype = torch.complex128,
+    device="cuda",
+    dtype: torch.dtype | None = None,
     seed: int = 0,
     traj_indices=None,
     batch: int | None = None,
@@ -47,8 +64,13 @@ def run_tjm_batch(
     ``range(batch)``); trajectory ``i`` draws from generators seeded by
     ``(seed, stream, i)`` unless ``draws`` supplies the draws.
 
-    Returns the observables ``(B, n_obs, T)`` as a real tensor on ``device``.
+    Runs on the card unless ``device`` says otherwise (no CPU fallback);
+    ``dtype`` defaults to complex64 on a CUDA device and complex128
+    elsewhere.  Returns the observables ``(B, n_obs, T)`` as a real tensor on
+    ``device``.
     """
+    check_device(device)
+    dtype = resolve_dtype(device, dtype)
     full_precision_matmuls()
     if traj_indices is None:
         if batch is None:

@@ -16,6 +16,8 @@ import torch
 from .analog.tjm import TrajectoryPlan
 from .core.noise_model import CompiledNoise
 from .core.observables import CompiledObservables
+from .digital.compile import CompiledCircuit, CompiledSegment, GateStage, SegmentPlan
+from .digital.engine import InjectedDigitalDraws
 from .methods.tdvp import TDVPConfig
 
 __all__ = [
@@ -26,6 +28,8 @@ __all__ = [
     "compiled_observables",
     "tdvp_config",
     "trajectory_plan",
+    "compiled_circuit",
+    "digital_draws",
 ]
 
 
@@ -79,3 +83,39 @@ def trajectory_plan(plan) -> TrajectoryPlan:
     fields = {f.name: getattr(plan, f.name) for f in dataclasses.fields(TrajectoryPlan)}
     fields["evolution"] = tdvp_config(plan.evolution)
     return TrajectoryPlan(**fields)
+
+
+def _stage(stage):
+    if hasattr(stage, "kind"):
+        return GateStage(stage.kind, np.array(stage.mpo), int(stage.w0), tuple(int(s) for s in stage.noise_sites))
+    return CompiledSegment(
+        np.array(stage.mats1q),
+        np.array(stage.bond_mats),
+        np.array(stage.noise_site_mask),
+        [[tuple(int(s) for s in scope) for scope in scopes] for scopes in stage.gate_scopes],
+    )
+
+
+def compiled_circuit(cc) -> CompiledCircuit:
+    """The JAX package's ``CompiledCircuit`` as the port's (numpy arrays)."""
+    return CompiledCircuit(
+        int(cc.num_qubits),
+        [SegmentPlan([_stage(st) for st in plan.stages]) for plan in cc.segments],
+        [int(q) for q in cc.measured_qubits],
+    )
+
+
+def digital_draws(jumps: dict, shot_noise=None, device="cpu", dtype: torch.dtype = torch.float64) -> InjectedDigitalDraws:
+    """Pre-drawn values for the digital engine, as real ``dtype`` tensors on
+    ``device``.
+
+    ``jumps[(stage, half_layer)] = (u (B, G), gumbel (B, G, nc))``: the
+    decision uniforms and the channel Gumbel noise of one half-layer's jump
+    loop (a gate stage is half-layer 0 with ``G = 1``); ``shot_noise (B, S,
+    L, d)``: the shot sampler's Gumbel noise.
+    """
+    table = {
+        tuple(key): (to_torch(u, device, dtype), to_torch(g, device, dtype)) for key, (u, g) in jumps.items()
+    }
+    shots = None if shot_noise is None else to_torch(shot_noise, device, dtype)
+    return InjectedDigitalDraws(table, shots)

@@ -1,6 +1,7 @@
 """Host-side MPO construction (numpy), producing fixed-shape padded arrays.
 
-Port of ``yaqs_tpu.core.mpo_builders`` (the parts the TJM slice needs): an MPO
+Port of ``yaqs_tpu.core.mpo_builders`` (the parts the TJM and digital slices
+need): an MPO
 over ``L`` sites is ``w: (L, d, d, Dw, Dw)`` complex, index order
 ``(out, in, wl, wr)``, with the boundary bond vectors absorbed at index 0 and
 interior bonds smaller than ``Dw`` zero padded.  The finite-state-machine
@@ -14,7 +15,7 @@ import numpy as np
 
 from ..models.operators import PAULI
 
-__all__ = ["mpo_from_terms", "ising_mpo", "heisenberg_mpo"]
+__all__ = ["gate_product_terms", "mpo_from_terms", "ising_mpo", "heisenberg_mpo"]
 
 
 def _op_matrix(op, d: int) -> np.ndarray:
@@ -37,6 +38,40 @@ def _op_key(op) -> object:
     if isinstance(op, str):
         return op.upper()
     return np.asarray(op).tobytes()
+
+
+def gate_product_terms(
+    matrix: np.ndarray, k: int, d: int = 2, tol: float = 1e-14
+) -> list[list[np.ndarray]]:
+    """Decompose a k-site operator into a sum of per-site product factors.
+
+    ``matrix`` is ``(d^k, d^k)`` with the first site as the most significant
+    index; returns factor lists ``[f_1..f_k]`` with
+    ``matrix = sum_terms kron(f_1, ..., f_k)``.  Recursive operator-Schmidt
+    (SVD across the first site vs the rest), so the term count is the product
+    of the successive Schmidt ranks (<= d^2 per cut — 4 for a 2-qubit gate,
+    16 for 3 qubits).  Reference parity: gate_library.extend_gate /
+    mpo_utils long-range gate decomposition semantics at arbitrary k.
+    """
+    m = np.asarray(matrix, dtype=np.complex128)
+    if m.shape != (d**k, d**k):
+        msg = f"matrix shape {m.shape} != ({d**k},{d**k}) for k={k}"
+        raise ValueError(msg)
+    if k == 1:
+        return [[m]]
+    rest = d ** (k - 1)
+    # group (out_1, in_1 | out_rest, in_rest) and SVD across the cut
+    t = m.reshape(d, rest, d, rest).transpose(0, 2, 1, 3).reshape(d * d, rest * rest)
+    u, s, vh = np.linalg.svd(t, full_matrices=False)
+    out: list[list[np.ndarray]] = []
+    for idx in range(len(s)):
+        if s[idx] <= tol * s[0]:
+            break
+        f1 = (u[:, idx] * s[idx]).reshape(d, d)
+        tail = vh[idx].reshape(rest, rest)
+        for factors in gate_product_terms(tail, k - 1, d, tol):
+            out.append([f1] + factors)
+    return out
 
 
 def mpo_from_terms(

@@ -19,7 +19,13 @@ import functools
 import numpy as np
 import torch
 
-from ..ops.decomp import orthonormalize
+from ..kernels.moment_scan import (
+    left_gram_environments,
+    right_gram_environments,
+    transfer_right,
+)
+from ..kernels.moment_scan import site_moment_matrices as _moment_scan
+from ..ops.decomp import merge_two_site, orthonormalize, split_two_site_truncated
 
 __all__ = [
     "product_state_tensors",
@@ -27,6 +33,8 @@ __all__ = [
     "transfer_right",
     "norm_squared_center0",
     "canonicalize_right",
+    "shift_center_right",
+    "compress",
     "zero_boundary_pads",
     "normalize_canonical",
     "left_gram_environments",
@@ -102,14 +110,8 @@ def named_product_state(
 
 
 # ---------------------------------------------------------------------------
-# Transfer / norm
+# Norm
 # ---------------------------------------------------------------------------
-
-
-def transfer_right(env: torch.Tensor, a_bra: torch.Tensor, a_ket: torch.Tensor) -> torch.Tensor:
-    """``env'[rb, rk] = sum conj(Ab[s,lb,rb]) env[lb,lk] Ak[s,lk,rk]`` per trajectory."""
-    tmp = torch.einsum("zlm,zsmr->zslr", env, a_ket)
-    return torch.einsum("zslb,zslr->zbr", a_bra.conj(), tmp)
 
 
 def norm_squared_center0(tensors: torch.Tensor) -> torch.Tensor:
@@ -196,49 +198,67 @@ def normalize_canonical(tensors: torch.Tensor, method: str = "qr") -> tuple[torc
     return canon, nrm
 
 
+def shift_center_right(tensors: torch.Tensor, n: int) -> torch.Tensor:
+    """Move the canonical center from site 0 to site ``n`` (host ``n``).
+
+    Sites ``0..n-1`` become left-orthonormal via QR (with the complex64 noise
+    floor of :func:`canonicalize_right`); the leftover factor is absorbed
+    rightward.  Returns a new tensor.
+    """
+    if n <= 0:
+        return tensors
+    b, _, d, chi, _ = tensors.shape
+    out = tensors.clone()
+    for i in range(n):
+        a = out[:, i].reshape(b, d * chi, chi)
+        if tensors.dtype == torch.complex64:
+            a = a + _qr_noise_floor(a)
+        q, r = torch.linalg.qr(a)
+        out[:, i] = q.reshape(b, d, chi, chi)  # in place: out is ours
+        out[:, i + 1] = torch.einsum("zlm,zsmr->zslr", r, out[:, i + 1])
+    return out
+
+
+def compress(
+    tensors: torch.Tensor,
+    *,
+    mode: str = "discarded_weight",
+    threshold: float = 0.0,
+    max_bond_dim: int | None = None,
+    chi_out: int | None = None,
+) -> torch.Tensor:
+    """Canonicalize, then truncate every bond with one L->R SVD sweep, then
+    return the center to site 0; ``chi_out`` slices the padded bond
+    dimension down (kept directions occupy the leading slots)."""
+    _, length, _, chi, _ = tensors.shape
+    out = canonicalize_right(tensors)
+    if length > 1:
+        cap = chi if max_bond_dim is None else min(max_bond_dim, chi)
+        for i in range(length - 1):
+            a, b, _, _ = split_two_site_truncated(
+                merge_two_site(out[:, i], out[:, i + 1]), chi, mode=mode, threshold=threshold,
+                max_bond_dim=cap, min_keep=1, svd_distribution="right",
+            )
+            out[:, i] = a  # in place: canonicalize_right returned a fresh tensor
+            out[:, i + 1] = b
+        out = canonicalize_right(out)
+    if chi_out is not None and chi_out < chi:
+        out = out[:, :, :, :chi_out, :chi_out]
+    return out
+
+
 # ---------------------------------------------------------------------------
-# Gram environments, moments, expectations
+# Moments, expectations
 # ---------------------------------------------------------------------------
-
-
-def left_gram_environments(tensors: torch.Tensor) -> torch.Tensor:
-    """Left Gram environments before each site, ``(B, L, chi, chi)``."""
-    b, length, _, chi, _ = tensors.shape
-    envs = tensors.new_empty((b, length, chi, chi))
-    env = torch.eye(chi, dtype=tensors.dtype, device=tensors.device).expand(b, chi, chi)
-    for i in range(length):
-        envs[:, i] = env
-        env = transfer_right(env, tensors[:, i], tensors[:, i])
-    return envs
-
-
-def right_gram_environments(tensors: torch.Tensor) -> torch.Tensor:
-    """Right Gram environments of the sites after each site, ``(B, L, chi, chi)``
-    (``out[:, i]`` applies to the right leg of site ``i``)."""
-    b, length, _, chi, _ = tensors.shape
-    envs = tensors.new_empty((b, length, chi, chi))
-    env = torch.eye(chi, dtype=tensors.dtype, device=tensors.device).expand(b, chi, chi)
-    for i in range(length - 1, -1, -1):
-        envs[:, i] = env
-        a = tensors[:, i]
-        tmp = torch.einsum("zslt,zrt->zslr", a, env)
-        env = torch.einsum("zslr,zsmr->zlm", a.conj(), tmp)
-    return envs
 
 
 def site_moment_matrices(tensors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Gauge-free per-site moments ``T_i[b,k] = <psi|(|b><k|)_i|psi>``.
 
-    Returns ``(T (B, L, d, d), norm2 (B,))`` from one left and one right
-    transfer scan; the state may be in any gauge and unnormalized.
+    Returns ``(T (B, L, d, d), norm2 (B,))``; the state may be in any gauge
+    and unnormalized.  Kernel K7 (``kernels/moment_scan.py``) on the card.
     """
-    left_envs = left_gram_environments(tensors)
-    full = transfer_right(left_envs[:, -1], tensors[:, -1], tensors[:, -1])
-    right_envs = right_gram_environments(tensors)
-    tmp = torch.einsum("zilm,zikms->zikls", left_envs, tensors)
-    tmp = torch.einsum("zikls,zirs->ziklr", tmp, right_envs)
-    moments = torch.einsum("ziblr,ziklr->zibk", tensors.conj(), tmp)
-    return moments, torch.diagonal(full, dim1=-2, dim2=-1).sum(-1).real
+    return _moment_scan(tensors.resolve_conj().contiguous())
 
 
 def site_expectations(tensors: torch.Tensor, ops: torch.Tensor, sites: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,13 @@ __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts"]
 
 #: kernel launches since the last reset, by kernel name (only the wrappers'
 #: kernel branch increments these)
-LAUNCHES: dict[str, int] = {"ns_polar": 0, "lanczos_epilogue": 0}
+LAUNCHES: dict[str, int] = {
+    "ns_polar": 0,
+    "lanczos_epilogue": 0,
+    "bond_gate": 0,
+    "moment_scan": 0,
+    "sample_shots": 0,
+}
 
 
 def reset_launch_counts() -> None:

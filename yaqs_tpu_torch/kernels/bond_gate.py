@@ -1,0 +1,82 @@
+"""Kernel K10: the two-site gate merge of a TEBD bond (``csrc/bond_gate.cu``).
+
+Replaces ``yaqs_tpu.digital.engine._apply_bond_gate`` with
+``yaqs_tpu.ops.decomp.merge_two_site`` and the permute that lays the merged
+block out as the split's input matrix: for site tensors ``a (B, d, l, m)``,
+``b (B, d, m, r)`` and a gate ``(d^2, d^2)`` shared by the batch,
+
+    ``M[s1*l + x, s2*r + y] = sum G[s1 s2, t1 t2] sum_m a[t1, x, m] b[t2, m, y]``,
+
+``M (B, d*l, d*r)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import LAUNCHES
+from .build import check, load_library
+
+__all__ = ["bond_gate", "bond_gate_plain"]
+
+MAX_CHI = 64
+
+
+def bond_gate_plain(a: torch.Tensor, b: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: merge, gate, permute (the JAX chain)."""
+    bsz, d, l, _ = a.shape
+    r = b.shape[-1]
+    theta = torch.einsum("zalm,zbmr->zablr", a, b).reshape(bsz, d * d, l, r)
+    theta = torch.einsum("pq,zqlr->zplr", gate.to(theta.dtype), theta).reshape(bsz, d, d, l, r)
+    return theta.permute(0, 1, 3, 2, 4).reshape(bsz, d * l, d * r)
+
+
+def _inner_contiguous(t: torch.Tensor) -> bool:
+    _, d, rows, cols = t.shape
+    return t.stride()[1:] == (rows * cols, cols, 1) and not t.is_conj()
+
+
+def bond_gate(a: torch.Tensor, b: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """The gated two-site block of each trajectory as the ``(B, d*l, d*r)``
+    split matrix.
+
+    A CPU tensor takes the plain version.  A CUDA tensor launches
+    ``bond_gate``, which takes complex64, ``d = 2``, ``l, m, r <= 64``, site
+    tensors whose ``(d, rows, cols)`` blocks are contiguous (any stride
+    between trajectories, so ``tensors[:, i]`` goes in without a copy) and a
+    contiguous ``(4, 4)`` gate; anything else raises ``ValueError``.
+    """
+    if a.device.type == "cpu":
+        return bond_gate_plain(a, b, gate)
+    if a.device.type != "cuda":
+        msg = f"bond_gate: unsupported device {a.device}"
+        raise ValueError(msg)
+    if a.dim() != 4 or b.dim() != 4:
+        msg = f"bond_gate takes a (B, d, l, m) and b (B, d, m, r), got {tuple(a.shape)}, {tuple(b.shape)}"
+        raise ValueError(msg)
+    bsz, d, l, m = a.shape
+    r = b.shape[-1]
+    if tuple(b.shape) != (bsz, d, m, r) or d != 2 or tuple(gate.shape) != (4, 4):
+        msg = f"bond_gate takes d = 2 and matching shapes, got {tuple(a.shape)}, {tuple(b.shape)}, {tuple(gate.shape)}"
+        raise ValueError(msg)
+    for name, t in (("a", a), ("b", b), ("gate", gate)):
+        if t.dtype != torch.complex64 or t.device != a.device:
+            msg = f"bond_gate: {name} must be complex64 on {a.device}, got {t.dtype} on {t.device}"
+            raise ValueError(msg)
+    if not (_inner_contiguous(a) and _inner_contiguous(b) and gate.is_contiguous() and not gate.is_conj()):
+        msg = "bond_gate takes site tensors with contiguous (d, rows, cols) blocks and a contiguous gate"
+        raise ValueError(msg)
+    if not (1 <= l <= MAX_CHI and 1 <= m <= MAX_CHI and 1 <= r <= MAX_CHI):
+        msg = f"bond_gate takes l, m, r <= {MAX_CHI}, got ({l}, {m}, {r})"
+        raise ValueError(msg)
+    out = a.new_empty((bsz, d * l, d * r))
+    if bsz == 0:
+        return out
+    lib = load_library()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = lib.bond_gate_launch(
+        a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), gate.data_ptr(), out.data_ptr(), bsz, l, m, r, stream
+    )
+    check(err, "bond_gate")
+    LAUNCHES["bond_gate"] += 1
+    return out

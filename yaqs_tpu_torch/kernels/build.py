@@ -1,10 +1,12 @@
 """Build the CUDA sources in ``csrc/`` into one shared library and load it.
 
 The library has a plain C interface (no PyTorch headers), so ``nvcc`` builds
-it in seconds:
+it in seconds.  Each source compiles to an object in its own ``nvcc``
+process, all started together, and one more call links them:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/libyaqs_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -Xptxas -v -c -o _build/<name>.o csrc/<name>.cu        (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o _build/libyaqs_kernels_<hash>.so _build/*.o
 
 The file name carries a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded from ``_build/``.  Nothing is built at
@@ -27,27 +29,25 @@ __all__ = ["load_library", "build_library", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = [
-    "-gencode",
-    "arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "-O3",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-    "-Xptxas",
-    "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 # C signatures: every function returns the cudaError_t of its launch
 _SIGNATURES = {
     # (in, out, batch, m, n, stream)
     "ns_polar_launch": [_P, _P, _I, _I, _I, _P],
     # (alphas, betas, coeff_re, coeff_im, V, nrm, x, out, batch, k, n, stream)
     "lanczos_epilogue_launch": [_P, _P, _F, _F, _P, _P, _P, _P, _I, _I, _I, _P],
+    # (a, stride_a, b, stride_b, gate, out, batch, l, m, r, stream)
+    "bond_gate_launch": [_P, _LL, _P, _LL, _P, _P, _I, _I, _I, _I, _P],
+    # (tensors, envs scratch, moments, norm2, batch, L, d, chi, stream)
+    "moment_scan_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (tensors, gumbel, out, batch, shots, L, d, chi, stream)
+    "sample_shots_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -91,20 +91,32 @@ def build_library() -> tuple[Path, float, str]:
     if lib.exists():
         return lib, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            msg = f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{src.stem}.o" for src in sources]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(sources, objs)
+        ]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [f"{src.name} ({proc.returncode}):\n{out}" for src, proc, out in zip(sources, procs, logs) if proc.returncode]
+        if failed:
+            msg = "nvcc failed for " + "\n".join(failed)
+            raise RuntimeError(msg)
+        tmp = Path(tmpdir) / lib.name
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True, check=False,
+        )
+        if link.returncode != 0:
+            msg = f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}"
             raise RuntimeError(msg)
         os.replace(tmp, lib)  # atomic: a concurrent build sees no partial file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, time.perf_counter() - t0, proc.stdout + proc.stderr
+    return lib, time.perf_counter() - t0, "".join(logs) + link.stdout + link.stderr
 
 
 @functools.cache
