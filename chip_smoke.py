@@ -6,16 +6,22 @@ Phases (any failure raises and exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the hand-written kernels from ``yaqs_tpu_torch/kernels/csrc``;
-3. each kernel against its plain PyTorch version at the slices' shapes: the
+3. each kernel against its plain PyTorch version at the paths' shapes: the
    error, the device time per call from ``torch.profiler`` device rows (the
    kernel's own time over its launch count, 20 calls), the host-paced time
    per call (CUDA events around 20 back-to-back calls), the host-paced time
    of the nearest PyTorch library call, and the bound (bytes over 3.35 TB/s
-   or FP32 operations over 67 TFLOP/s, the larger);
+   or FP32 operations over 67 TFLOP/s, the larger); the TDVP kernels at the
+   analog shape (B=32, chi=64, Dw=3), the XXZ shape (B=16, Dw=5) and the
+   gate-window shape (B=512, chi=32, Dw=1), the Lanczos step in both variants with identical breakdown
+   masks, the epilogue also at k=25;
 4. the analog slice, order-2 TJM at the benchmark shape (TFIM L=100, chi=64,
    B=32, z + lowering noise 0.05, 10 steps of dt=0.1, complex64, fast knob
-   set): trajectories/s, ms per step, peak memory, and proof that its three
-   kernels ran;
+   set): trajectories/s, ms per step, peak memory, proof that its seven
+   kernels ran, and a profiled 2-step run (device events per step, busy
+   share, device time by kernel);
+4b. the bench's XXZ point (Dw=5, B=16, otherwise as 4), through the same
+   kernels;
 5. the complex64 symmetric-Z guard: noiseless TFIM from x+ at L=48, chi=64
    keeps max|<Z>| < 1e-3 over 10 steps;
 6. noiseless L=32, chi=32 from a Neel state: the card's complex64 result
@@ -26,10 +32,16 @@ Phases (any failure raises and exits non-zero):
    shots, ``swaps`` mode, complex64, fast knob set: trajectories/s (median
    of three runs), peak memory, the result's checks, proof that its four
    kernels ran, and a profiled run's device time by kernel;
+7b. the same workload with ``gate_mode="full-tdvp"`` (76 TDVP windows, k=25):
+   trajectories/s, peak memory, proof that the TDVP kernels ran, and the
+   device time by kernel of one window stage (profiled);
 8. the digital oracle guard: a noiseless 10-qubit brickwork of 8 layers at
    chi=32 (exact there) against a numpy state vector, max|d<Z>| <= 1e-3 with
    the fast and with the exact knob set; 4096 noiseless shots of a 4-qubit
-   circuit within total variation 0.05 of the exact distribution.
+   circuit within total variation 0.05 of the exact distribution;
+9. window parity: a noiseless 10-qubit brickwork with a long-range ``cx``
+   and a ``ccx`` under ``tdvp`` and ``full-tdvp``, card complex64 against
+   CPU complex128, max|d<Z>| <= 1e-3.
 
 The last two lines of standard output are the kernel table and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come on
@@ -66,12 +78,19 @@ BENCH = dict(length=100, chi=64, batch=32, steps=10, dt=0.1, gamma=0.05, krylov_
 DIGITAL = dict(qubits=20, layers=8, chi=32, num_traj=512, shots=256, gamma=0.02, seed=3)
 FAST = dict(svd_method="subspace", subspace_iters=1, subspace_qr="newton", canon_method="newton", lanczos_reorth=False)
 EXACT = dict(svd_method="exact", subspace_iters=2, subspace_qr="householder", canon_method="qr", lanczos_reorth=True)
-ANALOG_KERNELS = ("ns_polar", "lanczos_epilogue", "moment_scan")
+XXZ = dict(batch=16, jx=1.0, jy=1.0, jz=0.5, h=0.2)  # bench.py analog_run(model="heisenberg"), Dw=5
+TDVP_KERNELS = ("heff2", "heff1", "lanczos_step", "env_update")
+ANALOG_KERNELS = ("ns_polar", "lanczos_epilogue", "moment_scan", *TDVP_KERNELS)
 DIGITAL_KERNELS = ("bond_gate", "moment_scan", "sample_shots", "ns_polar")
 # the path whose run gives a kernel's launch count in the kernel table: the
-# slice that ported it
+# slice that ported it, or the analog path for the TDVP kernels
 TABLE_PATH = dict(ns_polar="analog", lanczos_epilogue="analog", bond_gate="digital", moment_scan="digital",
-                  sample_shots="digital")
+                  sample_shots="digital", heff2="analog", heff1="analog", lanczos_step="analog", env_update="analog")
+# kernel shapes of the TDVP kernels: (B, chi, Dw) of the analog TFIM path, of
+# the analog XXZ path and of the digital gate window
+TDVP_SHAPES = {"analog": (BENCH["batch"], BENCH["chi"], 3), "xxz": (XXZ["batch"], BENCH["chi"], 5),
+               "window": (DIGITAL["num_traj"], DIGITAL["chi"], 1)}
+BREAKDOWN_TOL = 100 * float(np.finfo(np.float32).eps)
 
 
 def log(msg: str) -> None:
@@ -291,6 +310,27 @@ def phase_kernels(dev):
         one_site=dict(shape=[b, k, d * chi * chi], **ep_extra[d * chi * chi]),
     )
 
+    # lanczos_epilogue at k = 25, the gate window's solves (B=512, n = d^2 chi^2 = 4096)
+    bw, kw, nw = nd, 25, 4 * cd * cd
+    alphas = torch.randn((bw, kw), generator=gen, device=dev)
+    betas = torch.randn((bw, kw), generator=gen, device=dev).abs()
+    betas[:, -1] = 0.0
+    v, x = randc(bw, kw, nw), randc(bw, nw)
+    nrm = torch.rand((bw,), generator=gen, device=dev) + 0.1
+    got = lanczos_epilogue(alphas, betas, -1.0j, v, nrm, x)
+    ref = lanczos_epilogue_plain(alphas, betas, -1.0j, v, nrm, x)
+    torch.cuda.synchronize()
+    err = rel_err(got, ref)
+    log(f"[phase 3] lanczos_epilogue (B={bw}, k={kw}, n={nw}, coeff=-1j): rel err {err:.3e}")
+    check(err <= KERNEL_TOL, f"lanczos_epilogue at k={kw} disagrees with its plain version: {err} > {KERNEL_TOL}")
+    ct = (-1.0j * tridiag(alphas, betas)).to(torch.complex64)
+    rows["lanczos_epilogue"]["k25"] = dict(shape=[bw, kw, nw], max_abs_err=(got - ref).abs().max().item(), **timings(
+        f"lanczos_epilogue (B={bw}, k={kw}, n={nw})", lambda: lanczos_epilogue(alphas, betas, -1.0j, v, nrm, x),
+        lambda: lanczos_epilogue_plain(alphas, betas, -1.0j, v, nrm, x),
+        lambda: torch.bmm(torch.linalg.matrix_exp(ct)[:, :, :1].mT, v), ("lanczos_epilogue",),
+        (bw * kw * nw + 2 * bw * nw) * C64 + 3 * bw * kw * 4, bw * kw * nw * CMAC_FLOPS,
+    ))
+
     # bond_gate on strided site views of a digital-shape state, as the sweep passes them
     state = random_mps(gen, dev, nd, ld, cd)
     gate = randc(4, 4)
@@ -358,7 +398,111 @@ def phase_kernels(dev):
         max_abs_err=0.0, shape=[nd, 1, ld, d], **ss_extra[nd], library_call="none",
         noiseless_shape=dict(shape=[1, 4096, 4, d], **ss_extra[1]),
     )
+    rows.update(tdvp_kernel_rows(dev, randc, gen))
     return rows
+
+
+def tdvp_kernel_rows(dev, randc, gen):
+    """``heff2``, ``heff1``, ``env_update`` and ``lanczos_step`` against
+    their plain versions and timed, at the analog TFIM shape (the table's
+    row), the XXZ shape (Dw=5) and the gate-window shape; the environments
+    and sites are strided views, as the sweep passes them."""
+    from yaqs_tpu_torch.kernels.env_update import (
+        env_update_left, env_update_left_plain, env_update_right, env_update_right_plain,
+    )
+    from yaqs_tpu_torch.kernels.heff import heff1, heff1_plain, heff2, heff2_plain
+    from yaqs_tpu_torch.kernels.lanczos_step import lanczos_step, lanczos_step_plain
+
+    rows = {name: dict(max_abs_err=0.0) for name in TDVP_KERNELS}
+    for path, (b, chi, dw) in TDVP_SHAPES.items():
+        envs = randc(b, 3, chi, dw, chi)
+        f, g = envs[:, 0], envs[:, 2]
+        sites = randc(b, 2, 2, chi, chi) / np.sqrt(chi)
+        a = sites[:, 1]
+        theta = randc(b, 2, 2, chi, chi)
+        w12, wm, w = randc(dw * 4, 4 * dw), randc(dw * 2, 2 * dw), randc(2, 2, dw, dw)
+        env_bytes = (2 * b * chi * dw * chi + b * 2 * chi * chi + 4 * dw * dw) * C64
+        env_flops = b * (4 * dw * chi**3 + 4 * dw * dw * chi * chi) * CMAC_FLOPS
+        cases = {
+            "heff2": (lambda: heff2(f, w12, g, theta), lambda: heff2_plain(f, w12, g, theta),
+                      lambda: torch.einsum("zawp,zstpq,wstxyu,zbuq->zxyab", f, theta,
+                                           w12.reshape(dw, 2, 2, 2, 2, dw), g),
+                      "torch.einsum over f, theta, W12, g (one call)", 4),
+            "heff1": (lambda: heff1(f, wm, g, a), lambda: heff1_plain(f, wm, g, a),
+                      lambda: torch.einsum("zawp,zspq,wstv,zbvq->ztab", f, a, wm.reshape(dw, 2, 2, dw), g),
+                      "torch.einsum over f, a, Wm, g (one call)", 2),
+            "env_update": (lambda: env_update_left(f, a, a, w), lambda: env_update_left_plain(f, a, a, w),
+                           lambda: torch.einsum("ztam,tswv,zsbk,zawb->zmvk", a.conj(), w, a, f),
+                           "torch.einsum over conj(A), W, A, F (one call)", 0),
+        }
+        for name, (kernel_fn, plain_fn, library_fn, library_call, p) in cases.items():
+            got, ref = kernel_fn(), plain_fn()
+            torch.cuda.synchronize()
+            err = rel_err(got, ref)
+            checks = [err]
+            if name == "env_update":  # the right update, written into a strided slot
+                out = torch.zeros_like(envs)
+                env_update_right(g, a, a, w, out=out[:, 1])
+                checks.append(rel_err(out[:, 1], env_update_right_plain(g, a, a, w)))
+            log(f"[phase 3] {name} (B={b}, chi={chi}, Dw={dw}): rel err {max(checks):.3e}")
+            check(max(checks) <= KERNEL_TOL, f"{name} disagrees with its plain version: {checks} > {KERNEL_TOL}")
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], (got - ref).abs().max().item())
+            if p:
+                nbytes = (2 * b * p * chi * chi + 2 * b * chi * dw * chi + (p * dw) ** 2) * C64
+                flops = b * (2 * p * dw * chi**3 + (p * dw) ** 2 * chi * chi) * CMAC_FLOPS
+            else:
+                nbytes, flops = env_bytes, env_flops
+            t = timings(f"{name} (B={b}, chi={chi}, Dw={dw})", kernel_fn, plain_fn, library_fn, (name,), nbytes, flops)
+            rows[name][path] = dict(shape=[b, chi, dw], library_call=library_call, **t)
+
+        # lanczos_step: the analog solves (n = d^2 chi^2, k = 4) and the window's (k = 25)
+        n, k = 4 * chi * chi, (25 if path == "window" else BENCH["krylov_dim"])
+        j = k // 2
+        for reorth in (False, True):
+            basis = torch.zeros((b, k, n), dtype=torch.complex64, device=dev)
+            basis[:, : j + 1] = torch.linalg.qr(randc(b, n, j + 1))[0].mT
+            q, q_prev = basis[:, j].clone(), basis[:, j - 1].clone()
+            w_vec = randc(b, n)
+            w_vec[2] = basis[2, : j + 1].sum(dim=0)  # inside the span: breaks down when reorthogonalizing
+            alive = torch.ones(b, dtype=torch.bool, device=dev)
+            alive[1] = False
+            q[1] = 0
+            basis[1, j] = 0
+            scal = [torch.rand((b, k), generator=gen, device=dev), torch.rand((b, k), generator=gen, device=dev),
+                    torch.rand((b,), generator=gen, device=dev)]
+            state = [w_vec, q, q_prev, basis, *scal, alive]
+            mine, ref_state = [x.clone() for x in state], [x.clone() for x in state]
+            got = lanczos_step(*mine, j, reorth, BREAKDOWN_TOL)
+            ref = lanczos_step_plain(*ref_state, j, reorth, BREAKDOWN_TOL)
+            torch.cuda.synchronize()
+            same_mask = torch.equal(mine[-1], ref_state[-1])
+            err = max(rel_err(got, ref), rel_err(mine[0], ref_state[0]), rel_err(mine[4], ref_state[4]),
+                      rel_err(mine[5], ref_state[5]))
+            variant = "reorth" if reorth else "three-term"
+            log(f"[phase 3] lanczos_step {variant} (B={b}, k={k}, n={n}, j={j}): rel err {err:.3e}, "
+                f"identical alive masks {same_mask} ({int(mine[-1].sum())} of {b} alive)")
+            check(err <= KERNEL_TOL and same_mask, f"lanczos_step ({variant}) disagrees with its plain version")
+            check(bool(mine[-1][2]) != reorth, "the in-span trajectory's breakdown was not detected")
+            rows["lanczos_step"]["max_abs_err"] = max(rows["lanczos_step"]["max_abs_err"], (got - ref).abs().max().item())
+            # timed with q_prev = 0, so repeated calls stay a projection of w
+            timed = [x.clone() for x in state]
+            timed[2].zero_()
+            vecs = (j + 6) if reorth else 6
+            flops = b * n * ((4 * (j + 1) + 2) if reorth else 4) * CMAC_FLOPS
+            t = timings(f"lanczos_step {variant} (B={b}, k={k}, n={n})",
+                        lambda: lanczos_step(*timed, j, reorth, BREAKDOWN_TOL),
+                        lambda: lanczos_step_plain(*timed, j, reorth, BREAKDOWN_TOL), None, ("lanczos_step",),
+                        vecs * b * n * C64 + b * (2 * k + 2) * 4, flops)
+            rows["lanczos_step"][f"{path}_{variant}"] = dict(shape=[b, k, n, j], library_call="none", **t)
+
+    sources = dict(heff2="heff.cu", heff1="heff.cu", lanczos_step="lanczos_step.cu", env_update="env_update.cu")
+    replaces = dict(heff2="yaqs_tpu/methods/tdvp.py:173", heff1="yaqs_tpu/methods/tdvp.py:188",
+                    lanczos_step="yaqs_tpu/ops/krylov.py:74", env_update="yaqs_tpu/methods/tdvp.py:98")
+    out = {}
+    for name, row in rows.items():
+        main = row["analog_three-term"] if name == "lanczos_step" else row["analog"]
+        out[name] = dict(source=f"yaqs_tpu_torch/kernels/csrc/{sources[name]}", replaces=replaces[name], **main, **row)
+    return out
 
 
 def tfim_inputs(length, chi, state, gamma=None):
@@ -420,6 +564,43 @@ def phase_slice(dev):
     for name in ANALOG_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched by the analog slice run")
     out["mean_z_final"] = res[:, :, -1].mean().item()
+    out["profile"] = profile_run("phase 4", lambda: run_tjm_batch(
+        t0, w, noise, obs, plan_for(2, chi), device=dev, dtype=torch.complex64, batch=b), steps=2)
+    log(f"[phase 4] before the TDVP kernels (PERF.md, same card model): 2.1282 traj/s, 1503.6 ms/step, ~70,850 device events "
+        f"per step, ~21% busy; this run: {out['traj_per_s']:.4f} traj/s, {out['ms_per_step']:.1f} ms/step, "
+        f"{out['profile']['events_per_step']:.0f} events per step, {100 * out['profile']['busy']:.1f}% busy")
+    return out
+
+
+def phase_xxz(dev):
+    """The bench's Dw=5 point: XXZ ``heisenberg_mpo(100, 1, 1, 0.5, 0.2)``,
+    chi=64, B=16, 10 steps, the TFIM phase's start, noise and observables."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch import kernels
+    from yaqs_tpu_torch.analog.run import run_tjm_batch
+
+    length, chi, b, steps = BENCH["length"], BENCH["chi"], XXZ["batch"], BENCH["steps"]
+    _, t0, obs, noise = tfim_inputs(length, chi, "x+", BENCH["gamma"])
+    w = yt.heisenberg_mpo(length, XXZ["jx"], XXZ["jy"], XXZ["jz"], XXZ["h"])
+    check(w.shape[-1] == 5, f"the XXZ MPO has Dw={w.shape[-1]}, not 5")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    res = run_tjm_batch(t0, w, noise, obs, plan_for(steps, chi), device=dev, dtype=torch.complex64, batch=b)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+    out = dict(seconds=seconds, traj_per_s=b / seconds, ms_per_step=1e3 * seconds / steps,
+               peak_bytes=torch.cuda.max_memory_allocated(), launches=launches)
+    log(f"[phase 4b] XXZ (Dw=5) L={length} chi={chi} B={b} {steps} steps: {seconds:.3f} s, "
+        f"{out['traj_per_s']:.4f} traj/s, {out['ms_per_step']:.1f} ms/step, peak {out['peak_bytes'] / 2**20:.1f} MiB, "
+        f"launches {launches}")
+    check(tuple(res.shape) == (b, length, steps + 1), f"unexpected XXZ result shape {tuple(res.shape)}")
+    check(bool(torch.isfinite(res).all()), "non-finite observable in the XXZ run")
+    check(res.abs().max().item() <= 1.0 + 1e-3, "an XXZ observable left [-1, 1]")
+    for name in ANALOG_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the XXZ run")
+    out["mean_z_final"] = res[:, :, -1].mean().item()
     return out
 
 
@@ -475,13 +656,7 @@ def phase_digital(dev):
     from yaqs_tpu_torch import kernels
 
     n, chi, b, shots = DIGITAL["qubits"], DIGITAL["chi"], DIGITAL["num_traj"], DIGITAL["shots"]
-    circ = yt.load_circuit(brickwork_qasm(n, DIGITAL["layers"]))
-    circ.ops.insert(len(circ.ops) // 2, yt.GateOp("barrier", (), label="SAMPLE_OBSERVABLES"))
-    noise = yt.compile_noise(
-        yt.NoiseModel([{"name": "lowering", "sites": [i], "strength": DIGITAL["gamma"]} for i in range(n)]), n
-    )
-    obs = yt.compile_observables([yt.Observable("z", i) for i in range(n)], n, 2)
-    t0 = yt.named_product_state("zeros", n, chi)
+    circ, noise, obs, t0 = digital_bench_inputs(n, chi)
     kw = dict(max_bond_dim=chi, sample_layers=True, gate_mode="swaps", config=digital_config(chi, FAST),
               device=dev, dtype=torch.complex64)
     # warm-up: a small batch with another seed (cuBLAS handles, allocator)
@@ -508,7 +683,7 @@ def phase_digital(dev):
     log(f"[phase 7] digital n={n} chi={chi} B={b} {shots} shots: median {seconds:.4f} s of {runs}, "
         f"{out['traj_per_s']:.2f} traj/s, peak {peak / 2**20:.1f} MiB, launches {launches}, "
         f"mean <Z> per column {out['mean_z']}")
-    out["profile"] = profile_digital(lambda: yt.run_digital_batch(
+    out["profile"] = profile_run("phase 7", lambda: yt.run_digital_batch(
         circ, t0, noise, obs, num_traj=b, shots=shots, seed=DIGITAL["seed"], **kw))
     check(tuple(z.shape) == (b, n, 3), f"unexpected result shape {tuple(z.shape)}")
     check(bool(torch.isfinite(z).all()), "non-finite observable in the digital run")
@@ -520,11 +695,115 @@ def phase_digital(dev):
     return out
 
 
-def profile_digital(run):
-    """One more digital run under ``torch.profiler``: the device time by
-    kernel, and the device's busy share of the profiled wall time (the
-    profiler slows the host, so the share is a lower bound on the unprofiled
-    run's).  The tracer may drop a few percent of the launches."""
+def digital_bench_inputs(n, chi):
+    """The digital bench circuit with its mid-circuit barrier, lowering noise,
+    one-site Z observables and the |0...0> start."""
+    import yaqs_tpu_torch as yt
+
+    circ = yt.load_circuit(brickwork_qasm(n, DIGITAL["layers"]))
+    circ.ops.insert(len(circ.ops) // 2, yt.GateOp("barrier", (), label="SAMPLE_OBSERVABLES"))
+    noise = yt.compile_noise(
+        yt.NoiseModel([{"name": "lowering", "sites": [i], "strength": DIGITAL["gamma"]} for i in range(n)]), n
+    )
+    obs = yt.compile_observables([yt.Observable("z", i) for i in range(n)], n, 2)
+    return circ, noise, obs, yt.named_product_state("zeros", n, chi)
+
+
+def phase_digital_window(dev):
+    """The digital bench workload with ``gate_mode="full-tdvp"``: every ``cx``
+    becomes a TDVP window stage of 3 or 4 sites (Dw=1, k=25)."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch import kernels
+    from yaqs_tpu_torch.digital.compile import compile_circuit
+
+    n, chi, b, shots = DIGITAL["qubits"], DIGITAL["chi"], DIGITAL["num_traj"], DIGITAL["shots"]
+    circ, noise, obs, t0 = digital_bench_inputs(n, chi)
+    stages = [st for plan in compile_circuit(circ, "full-tdvp").segments for st in plan.stages
+              if getattr(st, "kind", None) == "window"]
+    widths = sorted({st.mpo.shape[0] for st in stages})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    res = yt.run_digital_batch(circ, t0, noise, obs, num_traj=b, shots=shots, seed=DIGITAL["seed"], max_bond_dim=chi,
+                               sample_layers=True, gate_mode="full-tdvp", config=digital_config(chi, FAST),
+                               device=dev, dtype=torch.complex64)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+    z = res.trajectories
+    out = dict(seconds=seconds, traj_per_s=b / seconds, peak_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches, window_stages=len(stages), window_widths=widths, mean_z=z.mean(dim=(0, 1)).tolist())
+    log(f"[phase 7b] digital full-tdvp n={n} chi={chi} B={b} {shots} shots, {len(stages)} window stages of "
+        f"{widths} sites: {seconds:.4f} s, {out['traj_per_s']:.2f} traj/s, peak {out['peak_bytes'] / 2**20:.1f} MiB, "
+        f"launches {launches}, mean <Z> per column {out['mean_z']}")
+    check(len(stages) == 76 and set(widths) <= {3, 4}, f"expected 76 window stages of 3 or 4 sites: {widths}")
+    check(tuple(z.shape) == (b, n, 3) and bool(torch.isfinite(z).all()), "non-finite or misshaped window result")
+    check(z.abs().max().item() <= 1.0 + 1e-3, "an observable of the window run left [-1, 1]")
+    check(sum(res.counts.values()) == shots, f"window run counts sum to {sum(res.counts.values())}")
+    for name in TDVP_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the digital window run")
+    # one real stage whose window starts at the mean start (the center shift's
+    # cost grows with it), profiled: device time by kernel
+    mean_w0 = sum(st.w0 for st in stages) / len(stages)
+    stage = min(stages, key=lambda st: abs(st.w0 - mean_w0))
+    out["stage_profile"] = dict(w0=stage.w0, width=stage.mpo.shape[0], mean_w0=mean_w0,
+                                **profile_window_stage(dev, stage, noise, n, chi, b))
+    return out
+
+
+def profile_window_stage(dev, stage, noise, n, chi, b):
+    """One ``apply_gate_stage`` call on a random canonical state of the run's
+    shape, under ``profile_run``."""
+    from yaqs_tpu_torch.core.mps_ops import normalize_canonical
+    from yaqs_tpu_torch.digital import engine
+
+    tables = engine.GateStageTables.build(stage, noise, n, dev, torch.complex64)
+    noise_t = noise.to(dev, torch.complex64)
+    draws = engine.DigitalGeneratorDraws(0, range(b), dev, torch.float32)
+    state, _ = normalize_canonical(random_mps(torch.Generator(device=dev).manual_seed(7), dev, b, n, chi))
+    cfg = digital_config(chi, FAST)
+
+    def run():
+        engine.apply_gate_stage(state, tables, cfg, noise_t, draws, 0)
+
+    run()  # warm-up
+    torch.cuda.synchronize()
+    return profile_run(f"phase 7b, one window stage w0={stage.w0}, {stage.mpo.shape[0]} sites", run)
+
+
+def phase_window_parity(dev):
+    """Noiseless 10-qubit brickwork (4 layers, plus ``cx q[0],q[9]`` and a
+    ``ccx``) at chi=32 under both TDVP gate modes: the card's complex64 run
+    against the port's complex128 run on the CPU (the route is approximate
+    at gate times, so the state vector is not its oracle)."""
+    import yaqs_tpu_torch as yt
+
+    n, chi = 10, 32
+    lines = brickwork_qasm(n, 4).splitlines()
+    text = "\n".join(lines[:-1] + ["cx q[0],q[9];", "ccx q[3],q[4],q[5];", lines[-1]])
+    obs = yt.compile_observables([yt.Observable("z", i) for i in range(n)], n, 2)
+    t0 = yt.named_product_state("zeros", n, chi)
+    out = {}
+    for mode in ("tdvp", "full-tdvp"):
+        runs = {}
+        for device, dtype in ((dev, torch.complex64), ("cpu", torch.complex128)):
+            res = yt.run_digital_batch(text, t0, None, obs, max_bond_dim=chi, gate_mode=mode,
+                                       config=digital_config(chi, FAST), device=device, dtype=dtype)
+            runs[str(device)] = res.trajectories[0, :, -1].double().cpu()
+        dz = (runs[str(dev)] - runs["cpu"]).abs().max().item()
+        log(f"[phase 9] window parity n={n} chi={chi} {mode}: card c64 vs CPU c128 max|d<Z>| = {dz:.3e} "
+            f"(limit {CPU_PARITY_TOL})")
+        check(bool(torch.isfinite(runs[str(dev)]).all()) and dz <= CPU_PARITY_TOL, f"window parity ({mode}): {dz}")
+        out[f"max_abs_dz_{mode}"] = dz
+    return out
+
+
+def profile_run(label, run, steps=1):
+    """One more run under ``torch.profiler``: the device time by kernel, the
+    device events per step, and the device's busy share of the profiled wall
+    time (the profiler slows the host, so the share is a lower bound on the
+    unprofiled run's).  The tracer may drop a few percent of the launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -537,11 +816,13 @@ def profile_digital(run):
                   key=lambda r: -r.self_device_time_total)
     device_s = sum(r.self_device_time_total for r in rows) / 1e6
     top = [dict(kernel=r.key[:80], ms=r.self_device_time_total / 1e3, count=r.count) for r in rows[:10]]
-    log(f"[phase 7] profiled run: wall {wall:.4f} s, device time {device_s:.4f} s "
-        f"({100 * device_s / wall:.1f}% busy), {sum(r.count for r in rows)} device events")
+    events = sum(r.count for r in rows)
+    log(f"[{label}] profiled run: wall {wall:.4f} s, device time {device_s:.4f} s "
+        f"({100 * device_s / wall:.1f}% busy), {events} device events ({events / steps:.0f} per step)")
     for row in top:
-        log(f"[phase 7]   {row['ms']:10.3f} ms {100 * row['ms'] / 1e3 / device_s:5.1f}% {row['count']:6d}x  {row['kernel']}")
-    return dict(wall_s=wall, device_s=device_s, top=top)
+        log(f"[{label}]   {row['ms']:10.3f} ms {100 * row['ms'] / 1e3 / device_s:5.1f}% {row['count']:6d}x  {row['kernel']}")
+    return dict(wall_s=wall, device_s=device_s, busy=device_s / wall, events=events, events_per_step=events / steps,
+                top=top)
 
 
 def statevector(circ):
@@ -621,9 +902,10 @@ def main() -> None:
 
     phases = {}
     t_phase = time.perf_counter()
-    for name, fn in (("kernels", phase_kernels), ("analog", phase_slice), ("guard", phase_guard),
-                     ("cpu_parity", phase_cpu_parity), ("digital", phase_digital),
-                     ("digital_oracle", phase_digital_oracle)):
+    for name, fn in (("kernels", phase_kernels), ("analog", phase_slice), ("analog_xxz", phase_xxz),
+                     ("guard", phase_guard), ("cpu_parity", phase_cpu_parity), ("digital", phase_digital),
+                     ("digital_window", phase_digital_window), ("digital_oracle", phase_digital_oracle),
+                     ("window_parity", phase_window_parity)):
         phases[name] = fn(dev)
         log(f"[time] phase {name}: {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
@@ -633,6 +915,8 @@ def main() -> None:
         row["launches"] = phases[TABLE_PATH[name]]["launches"][name]
         row["launches_analog"] = phases["analog"]["launches"][name]
         row["launches_digital"] = phases["digital"]["launches"][name]
+        row["launches_xxz"] = phases["analog_xxz"]["launches"][name]
+        row["launches_digital_window"] = phases["digital_window"]["launches"][name]
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, build_seconds=seconds, ptxas=ptxas, kernels=rows,

@@ -5,8 +5,8 @@ Run them on a GPU machine with
 (``--noconftest``: ``tests/conftest.py`` imports JAX, which that machine need
 not have; this file imports none of it).
 
-- One noisy half-layer runs on the card with no host synchronization
-  (``torch.cuda.set_sync_debug_mode("error")``).
+- One noisy half-layer, and one TDVP gate-window sweep (k = 25), run on the
+  card with no host synchronization (``torch.cuda.set_sync_debug_mode("error")``).
 - A noisy draw-injected run on the card (complex64, each knob set) agrees
   with the same run on the CPU (complex128): observables within 1e-3, the
   complex64 working accuracy, and identical shots.
@@ -83,6 +83,40 @@ def test_noisy_half_layer_has_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
     counts = kernels.launch_counts()
     assert all(counts[name] > 0 for name in ("bond_gate", "moment_scan", "ns_polar"))
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.filterwarnings("ignore:Synchronization debug mode is a prototype:UserWarning")
+def test_window_sweep_has_no_host_sync(cuda):
+    """The window route's sweep (gate generator MPO, Dw = 1, k = 25, the fast
+    knob set) through heff2, heff1, lanczos_step, env_update and the
+    epilogue, all with no host synchronization."""
+    from yaqs_tpu_torch.digital.compile import compile_circuit as compile_port
+    from yaqs_tpu_torch.methods.tdvp import sweep_2site
+
+    circ = yt.load_circuit("OPENQASM 2.0;\ninclude \"qelib1.inc\";\nqreg q[4];\ncx q[1],q[2];")
+    stage = compile_port(circ, "full-tdvp").segments[0].stages[0]
+    assert stage.kind == "window"
+    mpo = torch.as_tensor(stage.mpo).to(cuda, torch.complex64)
+    rng = np.random.default_rng(9)
+    shape = (B, mpo.shape[0], 2, CHI, CHI)
+    t = torch.tensor(rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).to(cuda, torch.complex64)
+    t[:, 0, :, 1:, :] = 0
+    t[:, -1, :, :, 1:] = 0
+    window, _ = engine.normalize_canonical(t)
+    cfg = yt.TDVPConfig(krylov_dim=25, threshold=1e-6, max_bond_dim=CHI, lanczos_reorth=True, **KNOBS["fast"])
+    sweep_2site(window, mpo, 1.0, cfg)  # warm-up: kernel library, cuBLAS handles
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        out = sweep_2site(window, mpo, 1.0, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = kernels.launch_counts()
+    assert all(counts[name] > 0 for name in ("heff2", "heff1", "lanczos_step", "env_update", "lanczos_epilogue"))
+    assert counts["lanczos_step"] == 25 * (counts["lanczos_epilogue"])
     assert bool(torch.isfinite(out).all())
 
 

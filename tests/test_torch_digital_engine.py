@@ -29,7 +29,8 @@ from yaqs_tpu_torch import convert
 from yaqs_tpu_torch.core import mps_ops as tm
 from yaqs_tpu_torch.digital import engine as teng
 from yaqs_tpu_torch.digital.compile import GateStage
-from yaqs_tpu_torch.kernels.bond_gate import _inner_contiguous, bond_gate_plain
+from yaqs_tpu_torch.kernels import inner_contiguous
+from yaqs_tpu_torch.kernels.bond_gate import bond_gate_plain
 from yaqs_tpu_torch.kernels.moment_scan import site_moment_matrices_plain
 from yaqs_tpu_torch.methods.mpo_ops import mpo_apply_mps_zipup
 
@@ -52,7 +53,7 @@ def _random_mps(seed, batch=B, length=L, chi=CHI):
 
 
 def _canonical_mps(seed, **kw):
-    out, _ = jax.vmap(lambda t: jm.normalize_canonical(t))(jnp.asarray(_random_mps(seed, **kw)))
+    out, _ = jax.jit(jax.vmap(jm.normalize_canonical))(jnp.asarray(_random_mps(seed, **kw)))
     return np.asarray(out)
 
 
@@ -112,7 +113,7 @@ def test_bond_sweeps_match_jax(knob_set, monkeypatch):
 
     def layout_checked(a, b, gate):
         # the layout kernel K10 takes on the card, where it raises otherwise
-        assert _inner_contiguous(a) and _inner_contiguous(b) and gate.is_contiguous()
+        assert inner_contiguous(a) and inner_contiguous(b) and gate.is_contiguous()
         return bond_gate_plain(a, b, gate)
 
     monkeypatch.setattr(teng, "bond_gate", layout_checked)
@@ -230,5 +231,8 @@ def test_gate_stage_tables_and_unported_window_stage(noise):
     site_mask, _, ch_mask = jeng._gate_stage_noise_masks(stage, L, noise)
     np.testing.assert_array_equal(tables.site_mask.numpy(), site_mask)
     np.testing.assert_array_equal(tables.scope.masks.numpy(), ch_mask)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        teng.apply_gate_stage(convert.to_torch(_canonical_mps(10)), tables, convert.tdvp_config(_cfg(EXACT)))
+    # window stages run now (tests/test_torch_digital_window.py); a stage of
+    # an unknown kind is refused
+    bogus = teng.GateStageTables("bogus", tables.mpo, tables.w0)
+    with pytest.raises(ValueError, match="unknown gate stage kind"):
+        teng.apply_gate_stage(convert.to_torch(_canonical_mps(10)), bogus, convert.tdvp_config(_cfg(EXACT)))

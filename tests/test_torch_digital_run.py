@@ -96,21 +96,25 @@ def _jax_draws(cc, nc, num_traj, shots_per):
 
         return jax.vmap(per)(jax.random.split(key, n_gates))
 
+    # jitted once each (the same bits as eager, without a dispatch per op)
+    stage_keys = jax.jit(lambda s: jax.vmap(lambda i: jax.random.fold_in(jax.random.fold_in(base, s), i))(idx))
+    split_keys = jax.jit(jax.vmap(jax.random.split, (0, None)), static_argnums=1)
+    batch_draws = jax.jit(jax.vmap(gate_draws, (0, None)), static_argnums=1)
     jumps = {}
     stage_idx = 0
     for plan in cc.segments:
         for stage in plan.stages:
-            keys = jax.vmap(lambda i, s=stage_idx: jax.random.fold_in(jax.random.fold_in(base, s), i))(idx)
+            keys = stage_keys(stage_idx)
             if isinstance(stage, CompiledSegment):
                 n_hl = stage.mats1q.shape[0]
-                hl_keys = jax.vmap(lambda k, n=n_hl: jax.random.split(k, n))(keys)
+                hl_keys = split_keys(keys, n_hl)
                 for h in range(n_hl):
-                    jumps[(stage_idx, h)] = jax.vmap(lambda k: gate_draws(k, g_max))(hl_keys[:, h])
+                    jumps[(stage_idx, h)] = batch_draws(hl_keys[:, h], g_max)
             else:
-                jumps[(stage_idx, 0)] = jax.vmap(lambda k: gate_draws(k, 1))(keys)
+                jumps[(stage_idx, 0)] = batch_draws(keys, 1)
             stage_idx += 1
-    shot_keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.fold_in(base, 999983), i))(idx)
-    shots = jax.vmap(lambda k: _shot_noise(k, shots_per, cc.num_qubits))(shot_keys)
+    shot_keys = stage_keys(999983)
+    shots = jax.jit(jax.vmap(lambda k: _shot_noise(k, shots_per, cc.num_qubits)))(shot_keys)
     return convert.digital_draws({k: (np.asarray(u), np.asarray(g)) for k, (u, g) in jumps.items()}, np.asarray(shots))
 
 

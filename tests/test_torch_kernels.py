@@ -8,8 +8,11 @@ them on a GPU machine with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``
 (``tests/conftest.py`` imports JAX, which that machine need not have).
 Tolerances on the card: 1e-5 relative (complex64 with another summation
-order), an isometry defect below 1e-4 for the polar factor, and identical
-outcomes for the shot sampler fed the same Gumbel noise.
+order), an isometry defect below 1e-4 for the polar factor, identical
+outcomes for the shot sampler fed the same Gumbel noise, and identical
+breakdown masks for the Lanczos step; the default TDVP configuration
+(k = 25) on the card agrees with the CPU complex128 run within 1e-3, the
+complex64 working accuracy.
 """
 
 from __future__ import annotations
@@ -22,7 +25,15 @@ from yaqs_tpu_torch import kernels
 from yaqs_tpu_torch.core.mps_ops import normalize_canonical
 from yaqs_tpu_torch.kernels import build
 from yaqs_tpu_torch.kernels.bond_gate import bond_gate, bond_gate_plain
+from yaqs_tpu_torch.kernels.env_update import (
+    env_update_left,
+    env_update_left_plain,
+    env_update_right,
+    env_update_right_plain,
+)
+from yaqs_tpu_torch.kernels.heff import heff1, heff1_plain, heff2, heff2_plain
 from yaqs_tpu_torch.kernels.lanczos_epilogue import lanczos_epilogue, lanczos_epilogue_plain
+from yaqs_tpu_torch.kernels.lanczos_step import lanczos_step, lanczos_step_plain
 from yaqs_tpu_torch.kernels.moment_scan import site_moment_matrices, site_moment_matrices_plain
 from yaqs_tpu_torch.kernels.ns_polar import newton_schulz_orthogonalize, newton_schulz_orthogonalize_plain
 from yaqs_tpu_torch.kernels.sample_shots import sample_shots, sample_shots_plain
@@ -52,6 +63,41 @@ def _random_mps(rng, batch, length, chi, d=2, device="cpu"):
     return t.to(device)
 
 
+def _tdvp_inputs(rng, batch, chi, dw, device="cpu"):
+    """Environments and site tensors as the sweep passes them: views with a
+    stride between trajectories (``r_envs[:, i]``, ``tensors[:, i]``)."""
+    envs = _complex(rng, (batch, 3, chi, dw, chi)).to(device)
+    sites = _complex(rng, (batch, 3, 2, chi, chi)).to(device) / np.sqrt(chi)
+    w = _complex(rng, (2, 2, dw, dw)).to(device)
+    theta = _complex(rng, (batch, 2, 2, chi, chi)).to(device)
+    w12 = _complex(rng, (dw * 4, 4 * dw)).to(device)
+    wm = _complex(rng, (dw * 2, 2 * dw)).to(device)
+    return envs[:, 0], envs[:, 2], sites, w, theta, w12, wm
+
+
+def _step_inputs(rng, batch, k, n, j, device="cpu"):
+    """Lanczos state at iteration ``j``: orthonormal basis rows 0..j (zero
+    beyond), trajectory 1 already broken down (q = 0), trajectory 2 about to
+    break down (w inside the span of the basis)."""
+    z = _complex(rng, (batch, n, j + 1)).to(torch.complex128)
+    qs, _ = torch.linalg.qr(z)
+    basis = torch.zeros((batch, k, n), dtype=torch.complex128)
+    basis[:, : j + 1] = qs.mT
+    q = basis[:, j].clone()
+    q_prev = basis[:, j - 1].clone() if j > 0 else torch.zeros_like(q)
+    w = _complex(rng, (batch, n)).to(torch.complex128)
+    alive = torch.ones(batch, dtype=torch.bool)
+    alive[1] = False
+    basis[1, j] = 0
+    q[1] = 0
+    w[2] = basis[2, : j + 1].sum(dim=0) * 0.5
+    alphas = torch.tensor(rng.standard_normal((batch, k)), dtype=torch.float32)
+    betas = torch.tensor(np.abs(rng.standard_normal((batch, k))), dtype=torch.float32)
+    beta_prev = torch.tensor(np.abs(rng.standard_normal(batch)), dtype=torch.float32)
+    vecs = [t.to(torch.complex64).to(device) for t in (w, q, q_prev, basis)]
+    return [*vecs, alphas.to(device), betas.to(device), beta_prev.to(device), alive.to(device)]
+
+
 def _gumbel(rng, shape, device="cpu"):
     u = rng.uniform(np.finfo(np.float32).tiny, 1.0, shape)
     return torch.tensor(-np.log(-np.log(u)), dtype=torch.float32).to(device)
@@ -73,7 +119,23 @@ def test_wrappers_take_plain_path_on_cpu_without_building():
     g = _gumbel(rng, (2, 3, 4, 2))
     canon, _ = normalize_canonical(t)
     assert torch.equal(sample_shots(canon, g), sample_shots_plain(canon, g))
-    assert set(kernels.launch_counts()) == {"ns_polar", "lanczos_epilogue", "bond_gate", "moment_scan", "sample_shots"}
+    f, g, sites, w, theta, w12, wm = _tdvp_inputs(rng, 2, 5, 3)
+    torch.testing.assert_close(heff2(f, w12, g, theta), heff2_plain(f, w12, g, theta), rtol=0, atol=0)
+    torch.testing.assert_close(heff1(f, wm, g, sites[:, 0]), heff1_plain(f, wm, g, sites[:, 0]), rtol=0, atol=0)
+    left = env_update_left(f, sites[:, 0], sites[:, 1], w)
+    torch.testing.assert_close(left, env_update_left_plain(f, sites[:, 0], sites[:, 1], w), rtol=0, atol=0)
+    right = env_update_right(g, sites[:, 0], sites[:, 1], w)
+    torch.testing.assert_close(right, env_update_right_plain(g, sites[:, 0], sites[:, 1], w), rtol=0, atol=0)
+    state = _step_inputs(rng, 3, 6, 40, 2)
+    copy = [t.clone() for t in state]
+    q_next = lanczos_step(*state, 2, True, 1e-5)
+    torch.testing.assert_close(q_next, lanczos_step_plain(*copy, 2, True, 1e-5), rtol=0, atol=0)
+    for got, ref in zip(state, copy):
+        assert torch.equal(got, ref)
+    assert set(kernels.launch_counts()) == {
+        "ns_polar", "lanczos_epilogue", "bond_gate", "moment_scan", "sample_shots", "heff2", "heff1",
+        "lanczos_step", "env_update",
+    }
     assert not any(kernels.launch_counts().values())
     assert build.load_library.cache_info().currsize == 0  # nothing was built
 
@@ -92,6 +154,18 @@ def test_wrappers_refuse_non_cuda_devices():
         site_moment_matrices(t)
     with pytest.raises(ValueError, match="unsupported device"):
         sample_shots(t, t.real[:, :, :, :, 0].reshape(2, 1, 3, 2 * 4))
+    env = torch.empty((2, 4, 3, 4), dtype=torch.complex64, device="meta")
+    w12 = torch.empty((12, 12), dtype=torch.complex64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        heff2(env, w12, env, t[:, :2].reshape(2, 2, 2, 4, 4))
+    with pytest.raises(ValueError, match="unsupported device"):
+        heff1(env, w12[:6, :6], env, t[:, 0])
+    for update in (env_update_left, env_update_right):
+        with pytest.raises(ValueError, match="unsupported device"):
+            update(env, t[:, 0], t[:, 1], w12[:4, :9].reshape(2, 2, 3, 3))
+    w = v[:, 0]
+    with pytest.raises(ValueError, match="unsupported device"):
+        lanczos_step(w, w, w, v, v.real[:, :, 0], v.real[:, :, 0], v.real[:, 0, 0], v.real[:, 0, 0] > 0, 0, True, 1e-5)
 
 
 @pytest.fixture
@@ -124,7 +198,10 @@ def test_ns_polar_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize(("batch", "k", "n"), [(32, 4, 16384), (32, 4, 8192), (3, 7, 1000)])
+@pytest.mark.parametrize(
+    ("batch", "k", "n"),
+    [(32, 4, 16384), (32, 4, 8192), (3, 7, 1000), (512, 25, 4096), (32, 25, 16384), (3, 37, 1000)],
+)
 def test_lanczos_epilogue_kernel_matches_plain(cuda, batch, k, n):
     a, b, v, nrm, x = _epilogue_inputs(np.random.default_rng(2), batch, k, n, cuda)
     for coeff in (-0.05j, -0.1j, 0.2 - 3.0j):
@@ -135,6 +212,10 @@ def test_lanczos_epilogue_kernel_matches_plain(cuda, batch, k, n):
         ref = lanczos_epilogue_plain(a, b, coeff, v, nrm, x)
         assert _rel_err(got, ref) <= 1e-5
         assert torch.equal(got[1], x[1])
+    if k > 16:  # the k limit is 64
+        a2, b2, v2, nrm2, x2 = _epilogue_inputs(np.random.default_rng(2), 2, 65, 8, cuda)
+        with pytest.raises(ValueError, match="k <= 64"):
+            lanczos_epilogue(a2, b2, -0.1j, v2, nrm2, x2)
 
 
 @pytest.mark.cuda
@@ -180,3 +261,83 @@ def test_sample_shots_kernel_matches_plain(cuda, batch, shots, length, chi):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["sample_shots"] == 1
     assert torch.equal(got, sample_shots_plain(canon, g))
+
+
+# the path's shapes: analog TFIM (B=32, chi=64, Dw=3), XXZ (B=16, Dw=5), the
+# gate window (B=512, chi=32, Dw=1), and an odd small one
+TDVP_SHAPES = [(32, 64, 3), (16, 64, 5), (512, 32, 1), (3, 5, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("batch", "chi", "dw"), TDVP_SHAPES)
+def test_heff_kernels_match_plain(cuda, batch, chi, dw):
+    f, g, sites, _, theta, w12, wm = _tdvp_inputs(np.random.default_rng(6), batch, chi, dw, cuda)
+    kernels.reset_launch_counts()
+    two = heff2(f, w12, g, theta)
+    one = heff1(f, wm, g, sites[:, 1])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["heff2"] == 1 and kernels.launch_counts()["heff1"] == 1
+    assert _rel_err(two, heff2_plain(f, w12, g, theta)) <= 1e-5
+    assert _rel_err(one, heff1_plain(f, wm, g, sites[:, 1])) <= 1e-5
+    with pytest.raises(ValueError):
+        heff2(f.to(torch.complex128), w12.to(torch.complex128), g.to(torch.complex128), theta.to(torch.complex128))
+    with pytest.raises(ValueError):
+        heff1(f, wm, g, sites[:, 1].mT)  # not contiguous inside a trajectory
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("batch", "chi", "dw"), TDVP_SHAPES)
+def test_env_update_kernel_matches_plain(cuda, batch, chi, dw):
+    f, g, sites, w, *_ = _tdvp_inputs(np.random.default_rng(7), batch, chi, dw, cuda)
+    out = torch.zeros((batch, 3, chi, dw, chi), dtype=torch.complex64, device=cuda)
+    kernels.reset_launch_counts()
+    left = env_update_left(f, sites[:, 0], sites[:, 2], w)
+    right = env_update_right(g, sites[:, 0], sites[:, 2], w, out=out[:, 1])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["env_update"] == 2
+    assert _rel_err(left, env_update_left_plain(f, sites[:, 0], sites[:, 2], w)) <= 1e-5
+    assert _rel_err(out[:, 1], env_update_right_plain(g, sites[:, 0], sites[:, 2], w)) <= 1e-5
+    assert right.data_ptr() == out[:, 1].data_ptr() and not out[:, 0].any() and not out[:, 2].any()
+    with pytest.raises(ValueError):
+        env_update_left(f, sites[:, 0].conj(), sites[:, 2], w)  # a conjugated view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reorth", [False, True], ids=["three-term", "reorth"])
+@pytest.mark.parametrize(("batch", "k", "n", "j"), [(32, 4, 16384, 2), (512, 25, 4096, 17), (3, 37, 999, 36)])
+def test_lanczos_step_kernel_matches_plain(cuda, batch, k, n, j, reorth):
+    state = _step_inputs(np.random.default_rng(8), batch, k, n, j, cuda)
+    copy = [t.clone() for t in state]
+    kernels.reset_launch_counts()
+    got = lanczos_step(*state, j, reorth, 1.1920929e-05)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["lanczos_step"] == 1
+    ref = lanczos_step_plain(*copy, j, reorth, 1.1920929e-05)
+    w, _, _, basis, alphas, betas, beta_prev, alive = state
+    rw, _, _, rbasis, ralphas, rbetas, rbeta_prev, ralive = copy
+    assert torch.equal(alive, ralive)  # identical breakdown masks
+    assert not alive[1] and (reorth == (not alive[2].item()))  # w of trajectory 2 lies in the basis span
+    assert _rel_err(got, ref) <= 1e-5 and _rel_err(basis, rbasis) <= 1e-5 and _rel_err(w, rw) <= 1e-5
+    for a, b in ((alphas, ralphas), (betas, rbetas), (beta_prev, rbeta_prev)):
+        assert _rel_err(a, b) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_default_tdvp_config_runs_on_card(cuda):
+    """``TDVPConfig()`` (k = 25, reorthogonalizing, exact split) on the card
+    against the CPU complex128 run, noiseless TFIM from a Neel state."""
+    import yaqs_tpu_torch as yt
+
+    length, chi = 8, 8
+    w = yt.ising_mpo(length, 1.0, 0.5)
+    t0 = yt.named_product_state("Neel", length, chi)
+    obs = yt.compile_observables([yt.Observable("z", i) for i in range(length)], length, 2)
+    plan = yt.TrajectoryPlan(dt=0.1, num_steps=4, order=2, sample_timesteps=True,
+                             evolution=yt.TDVPConfig(max_bond_dim=chi))
+    assert plan.evolution.krylov_dim == 25 and plan.evolution.lanczos_reorth
+    kernels.reset_launch_counts()
+    card = yt.run_tjm_batch(t0, w, None, obs, plan, batch=2, device=cuda).cpu()
+    counts = kernels.launch_counts()
+    cpu = yt.run_tjm_batch(t0, w, None, obs, plan, batch=2, device="cpu")
+    assert all(counts[name] > 0 for name in ("heff2", "heff1", "lanczos_step", "env_update", "lanczos_epilogue"))
+    assert (card.double() - cpu).abs().max().item() <= 1e-3

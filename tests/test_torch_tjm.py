@@ -7,7 +7,9 @@
   package's own random draws handed to the port: the same jump decisions, so
   the observables agree to 1e-8 in complex128;
 - with the port's generators, a trajectory index gives the same result in a
-  batch of one and in a batch of three.
+  batch of one and in a batch of three;
+- noiseless XXZ (the bench's ``heisenberg_mpo(L, 1, 1, 0.5, 0.2)``, Dw=5)
+  from x+ with the exact knob set at k=25: observables agree to 1e-10.
 
 Every input reaches the port through ``yaqs_tpu_torch.convert``.
 """
@@ -24,7 +26,7 @@ import torch
 
 from yaqs_tpu.analog import tjm as jtjm
 from yaqs_tpu.core import mps_ops as jm
-from yaqs_tpu.core.mpo_builders import ising_mpo
+from yaqs_tpu.core.mpo_builders import heisenberg_mpo, ising_mpo
 from yaqs_tpu.core.noise_model import NoiseModel, compile_noise
 from yaqs_tpu.core.observables import compile_observables
 from yaqs_tpu.core.sim_params import Observable
@@ -136,6 +138,19 @@ def test_noisy_slice_with_injected_draws_matches_jax(monkeypatch):
         final_only, traj_indices=indices, draws=draws, device="cpu",
     )
     np.testing.assert_allclose(last.numpy()[..., 0], got.numpy()[..., -1], atol=1e-12, rtol=0)
+
+
+def test_noiseless_xxz_matches_jax():
+    length = 6
+    _, t0, co, _, plan = _setup(length=length)
+    w = heisenberg_mpo(length, 1.0, 1.0, 0.5, 0.2)
+    assert w.shape[-1] == 5
+    plan = dataclasses.replace(plan, num_steps=2, evolution=TDVPConfig(krylov_dim=25, threshold=1e-10, max_bond_dim=CHI))
+    ref = _jax_batch(w, t0, co, None, plan, [0])
+    got = run_tjm_batch(t0, w, None, convert.compiled_observables(co), convert.trajectory_plan(plan), batch=1, device="cpu")
+    assert got.shape == ref.shape == (1, length + 1, 3)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-10, rtol=0)
+    assert np.abs(ref[0, length, -1] - ref[0, length, 0]) > 1e-4  # <X_0> moved
 
 
 def test_trajectory_result_independent_of_batch():

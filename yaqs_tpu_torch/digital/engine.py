@@ -16,7 +16,9 @@ half-layer (:func:`half_layer_step`) applies
    followed by one more renormalization, in the JAX package's order.
 
 Gate stages (long-range or multi-qubit gates) run the gate's MPO over its
-window by zip-up; the TDVP window stages (``kind="window"``) are not ported.
+window by zip-up (``kind="mpo"``) or, in the ``tdvp`` and ``full-tdvp``
+gate modes, one 2TDVP sweep with ``dt = 1`` of the gate's generator over its
+window (``kind="window"``, kernels K1, K2, K3, K8).
 Shots come from kernel K11.  The random draws are injected (see
 :class:`DigitalGeneratorDraws` and ``convert.digital_draws``).
 """
@@ -41,7 +43,7 @@ from ..kernels.bond_gate import bond_gate
 from ..kernels.sample_shots import sample_shots
 from ..methods.mpo_ops import mpo_apply_mps_zipup
 from ..methods.stochastic import WEIGHT_FLOOR, _apply_channel, channel_weights
-from ..methods.tdvp import TDVPConfig
+from ..methods.tdvp import TDVPConfig, sweep_2site
 from ..ops.decomp import split_matrix_subspace, split_matrix_truncated
 from .circuit import Circuit
 from .compile import CompiledSegment, GateStage
@@ -348,18 +350,30 @@ def apply_gate_stage(
     stage_idx: int = 0,
 ) -> torch.Tensor:
     """Apply one long-range or multi-qubit gate stage (canonical-at-0 in and
-    out): shift the center to the window, zip the gate's MPO over it,
-    renormalize, then the gate-scoped noise with ``dt = 1``."""
-    if tables.kind != "mpo":
-        msg = f"gate stages of kind {tables.kind!r} (the tdvp gate modes) are not ported"
-        raise NotImplementedError(msg)
+    out): shift the center to the window, evolve the window, renormalize,
+    then the gate-scoped noise with ``dt = 1``.
+
+    ``kind="window"``: ``cfg.sweeps`` two-site TDVP sweeps of ``1 / sweeps``
+    under the gate's generator MPO (Dw = 1), with at least 25 Krylov vectors
+    (dt = 1 with a generator norm up to pi; the JAX package's choice).
+    ``kind="mpo"``: zip-up of the gate's MPO over its support window.
+    """
     w0, w = tables.w0, tables.mpo.shape[0]
     shifted = shift_center_right(tensors, w0)
-    window = mpo_apply_mps_zipup(
-        tables.mpo, shifted[:, w0 : w0 + w], mode=cfg.trunc_mode, threshold=cfg.threshold,
-        max_bond_dim=cfg.max_bond_dim, svd_method=cfg.svd_method, subspace_iters=cfg.subspace_iters,
-        subspace_qr=cfg.subspace_qr,
-    )
+    if tables.kind == "window":
+        win_cfg = dataclasses.replace(cfg, krylov_dim=max(cfg.krylov_dim, 25))
+        window = shifted[:, w0 : w0 + w]
+        for _ in range(win_cfg.sweeps):
+            window = sweep_2site(window, tables.mpo, 1.0 / win_cfg.sweeps, win_cfg)
+    elif tables.kind == "mpo":
+        window = mpo_apply_mps_zipup(
+            tables.mpo, shifted[:, w0 : w0 + w], mode=cfg.trunc_mode, threshold=cfg.threshold,
+            max_bond_dim=cfg.max_bond_dim, svd_method=cfg.svd_method, subspace_iters=cfg.subspace_iters,
+            subspace_qr=cfg.subspace_qr,
+        )
+    else:
+        msg = f"unknown gate stage kind {tables.kind!r}"
+        raise ValueError(msg)
     tensors = torch.cat([shifted[:, :w0], window, shifted[:, w0 + w :]], dim=1)
     tensors, _ = normalize_canonical(tensors, method=cfg.canon_method)
     if noise is not None:

@@ -16,7 +16,7 @@ Importing this package needs neither ``nvcc`` nor a card.
 
 from __future__ import annotations
 
-__all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts"]
+__all__ = ["LAUNCHES", "inner_contiguous", "launch_counts", "on_card", "reset_launch_counts"]
 
 #: kernel launches since the last reset, by kernel name (only the wrappers'
 #: kernel branch increments these)
@@ -26,6 +26,10 @@ LAUNCHES: dict[str, int] = {
     "bond_gate": 0,
     "moment_scan": 0,
     "sample_shots": 0,
+    "heff2": 0,
+    "heff1": 0,
+    "lanczos_step": 0,
+    "env_update": 0,
 }
 
 
@@ -36,3 +40,27 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def inner_contiguous(t) -> bool:
+    """Whether each trajectory's block ``t[z]`` is contiguous (any stride
+    between trajectories) with its conjugation resolved: the layout the
+    kernels take for per-trajectory inputs such as ``tensors[:, i]``."""
+    step = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size != 1 and stride != step:
+            return False
+        step *= size
+    return not t.is_conj()
+
+
+def on_card(name: str, t) -> bool:
+    """Whether wrapper ``name`` launches its kernel for ``t``: True on a CUDA
+    device, False on the CPU (the plain version runs); any other device
+    raises ``ValueError``."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        msg = f"{name}: unsupported device {t.device}"
+        raise ValueError(msg)
+    return True

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, inner_contiguous, on_card
 from .build import check, load_library
 
 __all__ = ["bond_gate", "bond_gate_plain"]
@@ -31,11 +31,6 @@ def bond_gate_plain(a: torch.Tensor, b: torch.Tensor, gate: torch.Tensor) -> tor
     return theta.permute(0, 1, 3, 2, 4).reshape(bsz, d * l, d * r)
 
 
-def _inner_contiguous(t: torch.Tensor) -> bool:
-    _, d, rows, cols = t.shape
-    return t.stride()[1:] == (rows * cols, cols, 1) and not t.is_conj()
-
-
 def bond_gate(a: torch.Tensor, b: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
     """The gated two-site block of each trajectory as the ``(B, d*l, d*r)``
     split matrix.
@@ -46,11 +41,8 @@ def bond_gate(a: torch.Tensor, b: torch.Tensor, gate: torch.Tensor) -> torch.Ten
     between trajectories, so ``tensors[:, i]`` goes in without a copy) and a
     contiguous ``(4, 4)`` gate; anything else raises ``ValueError``.
     """
-    if a.device.type == "cpu":
+    if not on_card("bond_gate", a):
         return bond_gate_plain(a, b, gate)
-    if a.device.type != "cuda":
-        msg = f"bond_gate: unsupported device {a.device}"
-        raise ValueError(msg)
     if a.dim() != 4 or b.dim() != 4:
         msg = f"bond_gate takes a (B, d, l, m) and b (B, d, m, r), got {tuple(a.shape)}, {tuple(b.shape)}"
         raise ValueError(msg)
@@ -63,7 +55,7 @@ def bond_gate(a: torch.Tensor, b: torch.Tensor, gate: torch.Tensor) -> torch.Ten
         if t.dtype != torch.complex64 or t.device != a.device:
             msg = f"bond_gate: {name} must be complex64 on {a.device}, got {t.dtype} on {t.device}"
             raise ValueError(msg)
-    if not (_inner_contiguous(a) and _inner_contiguous(b) and gate.is_contiguous() and not gate.is_conj()):
+    if not (inner_contiguous(a) and inner_contiguous(b) and gate.is_contiguous() and not gate.is_conj()):
         msg = "bond_gate takes site tensors with contiguous (d, rows, cols) blocks and a contiguous gate"
         raise ValueError(msg)
     if not (1 <= l <= MAX_CHI and 1 <= m <= MAX_CHI and 1 <= r <= MAX_CHI):

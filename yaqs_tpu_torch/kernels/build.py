@@ -48,6 +48,12 @@ _SIGNATURES = {
     "moment_scan_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (tensors, gumbel, out, batch, shots, L, d, chi, stream)
     "sample_shots_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (f, stride_f, v, stride_v, W, g, stride_g, out, batch, chi, dw, p, stream)
+    "heff_launch": [_P, _LL, _P, _LL, _P, _P, _LL, _P, _I, _I, _I, _I, _P],
+    # (f, stride_f, a_bra, stride_bra, a_ket, stride_ket, W, out, stride_out, batch, chi, dw, right, stream)
+    "env_update_launch": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _LL, _I, _I, _I, _I, _P],
+    # (w, q, q_prev, basis, alphas, betas, beta_prev, alive, q_next, batch, k, n, j, reorth, tol, stream)
+    "lanczos_step_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
 
 

@@ -5,7 +5,8 @@
 // Replaces: yaqs_tpu/ops/krylov.py _expm_col_tridiag (float32 branch) and the
 // combination (small @ V) * nrm at the end of lanczos_expm_apply (XLA chain
 // K3).  On the TJM slice it ends every two-site solve (n = d^2 chi^2 = 16384)
-// and every one-site back-evolution (n = d chi^2 = 8192), with k = 4.
+// and every one-site back-evolution (n = d chi^2 = 8192), with k = 4, and
+// the digital TDVP gate windows with k = 25.
 //
 // What it computes, exactly as krylov.py:123-142: A = coeff T;
 // s = clip(ceil(log2(max(||A||_1, 1e-30) / 0.5)), 0, 12); 10 Taylor terms of
@@ -19,17 +20,22 @@
 // tiny launches) before the combination.
 //
 // Design: grid (chunks of n, B).  Every block first recomputes its
-// trajectory's small exponential in shared memory with k*k threads (one
-// output entry each, so the squaring count s is a per-block loop bound and
-// never leaves the chip), then streams its chunk of V with coalesced
-// loads, kColsPerThread columns per thread.
+// trajectory's small exponential in dynamic shared memory (3 k^2 complex
+// values, 96 KB at k = 64): each thread owns the entries tid, tid + 256, ...
+// of every k x k product and keeps them in registers until the block has
+// read both factors, so the squaring count s is a per-block loop bound and
+// never leaves the chip.  The entries per thread are a template parameter
+// (1 for k <= 16, 4 for k <= 32, 16 for k <= 64), so the analog path's
+// k = 4 holds one register pair, not sixteen.  Then the block streams its
+// chunk of V with coalesced loads, kColsPerThread columns per thread.  k runs
+// from 1 to 64 (the window route of the digital path runs k = 25).
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxK = 16;  // k * k <= kThreads
+constexpr int kMaxK = 64;
 constexpr int kColsPerThread = 4;
 constexpr int kTaylorTerms = 10;
 constexpr int kMaxSquarings = 12;
@@ -38,10 +44,9 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
-// dst = lhs @ rhs for k x k complex matrices in shared memory; thread tid < k*k
-// computes entry (tid / k, tid % k).  Callers synchronize around it.
-__device__ __forceinline__ float2 small_matmul_entry(const float2* lhs, const float2* rhs, int k, int tid) {
-  const int i = tid / k, j = tid % k;
+// Entry e = (i, j) of lhs @ rhs for k x k complex matrices in shared memory.
+__device__ __forceinline__ float2 small_matmul_entry(const float2* lhs, const float2* rhs, int k, int e) {
+  const int i = e / k, j = e % k;
   float2 acc = make_float2(0.f, 0.f);
   for (int l = 0; l < k; ++l) {
     const float2 p = cmul(lhs[i * k + l], rhs[l * k + j]);
@@ -51,23 +56,38 @@ __device__ __forceinline__ float2 small_matmul_entry(const float2* lhs, const fl
   return acc;
 }
 
+// Every entry of lhs @ rhs, held by its owning thread (entries tid + r * kThreads).
+template <int kEntries>
+__device__ __forceinline__ void small_matmul(const float2* lhs, const float2* rhs, int k, int tid,
+                                             float2 (&e)[kEntries]) {
+#pragma unroll
+  for (int r = 0; r < kEntries; ++r) {
+    const int idx = tid + r * kThreads;
+    e[r] = idx < k * k ? small_matmul_entry(lhs, rhs, k, idx) : make_float2(0.f, 0.f);
+  }
+}
+
+// kEntries: entries of each k x k product per thread, k * k <= kEntries * kThreads.
+template <int kEntries>
 __global__ void __launch_bounds__(kThreads)
 lanczos_epilogue_kernel(const float* __restrict__ alphas, const float* __restrict__ betas, float cre,
                         float cim, const float2* __restrict__ v, const float* __restrict__ nrm,
                         const float2* __restrict__ x, float2* __restrict__ out, int k, int n) {
-  __shared__ float2 sa[kMaxK * kMaxK];    // A / 2^s
-  __shared__ float2 sm[kMaxK * kMaxK];    // A^p / 2^(s p)
-  __shared__ float2 sacc[kMaxK * kMaxK];  // Taylor sum, then its squarings
-  __shared__ float2 small[kMaxK];         // column 0
-  __shared__ int ssq;                     // squaring count s
-  __shared__ float sscale;                // 2^s
+  extern __shared__ float2 smem[];
+  __shared__ float2 small[kMaxK];  // column 0
+  __shared__ float colsum[kMaxK];  // column sums of |A|
+  __shared__ int ssq;              // squaring count s
+  __shared__ float sscale;         // 2^s
+  const int kk = k * k;
+  float2* sa = smem;               // A / 2^s
+  float2* sm = sa + kk;            // A^p / 2^(s p)
+  float2* sacc = sm + kk;          // Taylor sum, then its squarings
 
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
-  const int kk = k * k;
 
-  if (tid < kk) {
-    const int i = tid / k, j = tid % k;
+  for (int e = tid; e < kk; e += kThreads) {
+    const int i = e / k, j = e % k;
     float t = 0.f;
     if (i == j) {
       t = alphas[b * k + i];
@@ -76,47 +96,56 @@ lanczos_epilogue_kernel(const float* __restrict__ alphas, const float* __restric
     } else if (i == j + 1) {
       t = betas[b * k + j];
     }
-    sa[tid] = make_float2(cre * t, cim * t);  // complex coeff times real T
+    sa[e] = make_float2(cre * t, cim * t);  // complex coeff times real T
+  }
+  __syncthreads();
+  if (tid < k) {
+    float col = 0.f;
+    for (int i = 0; i < k; ++i) col += hypotf(sa[i * k + tid].x, sa[i * k + tid].y);
+    colsum[tid] = col;
   }
   __syncthreads();
   if (tid == 0) {
     float norm1 = 0.f;
-    for (int j = 0; j < k; ++j) {
-      float col = 0.f;
-      for (int i = 0; i < k; ++i) col += hypotf(sa[i * k + j].x, sa[i * k + j].y);
-      norm1 = fmaxf(norm1, col);
-    }
+    for (int j = 0; j < k; ++j) norm1 = fmaxf(norm1, colsum[j]);
     const float s = fminf(fmaxf(ceilf(log2f(fmaxf(norm1, 1e-30f) / 0.5f)), 0.f), float(kMaxSquarings));
     ssq = static_cast<int>(s);
     sscale = exp2f(s);
   }
   __syncthreads();
-  if (tid < kk) {
+  for (int e = tid; e < kk; e += kThreads) {
     const float p = sscale;
-    sa[tid] = make_float2(sa[tid].x / p, sa[tid].y / p);
-    const float one = (tid / k == tid % k) ? 1.f : 0.f;
-    sm[tid] = make_float2(one, 0.f);
-    sacc[tid] = make_float2(one, 0.f);
+    sa[e] = make_float2(sa[e].x / p, sa[e].y / p);
+    const float one = (e / k == e % k) ? 1.f : 0.f;
+    sm[e] = make_float2(one, 0.f);
+    sacc[e] = make_float2(one, 0.f);
   }
   __syncthreads();
+  float2 ent[kEntries];
   float fact = 1.f;
   for (int term = 1; term <= kTaylorTerms; ++term) {
-    float2 e = make_float2(0.f, 0.f);
-    if (tid < kk) e = small_matmul_entry(sm, sa, k, tid);
+    small_matmul<kEntries>(sm, sa, k, tid, ent);
     __syncthreads();
     fact *= static_cast<float>(term);
-    if (tid < kk) {
-      sm[tid] = e;
-      sacc[tid] = make_float2(sacc[tid].x + e.x / fact, sacc[tid].y + e.y / fact);
+#pragma unroll
+    for (int r = 0; r < kEntries; ++r) {
+      const int idx = tid + r * kThreads;
+      if (idx < kk) {
+        sm[idx] = ent[r];
+        sacc[idx] = make_float2(sacc[idx].x + ent[r].x / fact, sacc[idx].y + ent[r].y / fact);
+      }
     }
     __syncthreads();
   }
   const int nsq = ssq;
   for (int q = 0; q < nsq; ++q) {
-    float2 e = make_float2(0.f, 0.f);
-    if (tid < kk) e = small_matmul_entry(sacc, sacc, k, tid);
+    small_matmul<kEntries>(sacc, sacc, k, tid, ent);
     __syncthreads();
-    if (tid < kk) sacc[tid] = e;
+#pragma unroll
+    for (int r = 0; r < kEntries; ++r) {
+      const int idx = tid + r * kThreads;
+      if (idx < kk) sacc[idx] = ent[r];
+    }
     __syncthreads();
   }
   if (tid < k) small[tid] = sacc[tid * k];
@@ -146,6 +175,22 @@ lanczos_epilogue_kernel(const float* __restrict__ alphas, const float* __restric
   }
 }
 
+template <int kEntries>
+int launch(const float* alphas, const float* betas, float cre, float cim, const float2* v, const float* nrm,
+           const float2* x, float2* out, int batch, int k, int n, cudaStream_t stream) {
+  constexpr size_t kMaxSmem = sizeof(float2) * 3 * kEntries * kThreads;
+  if constexpr (kMaxSmem > 48 * 1024) {  // above the default limit: raise it once per process
+    static const cudaError_t configured = cudaFuncSetAttribute(
+        lanczos_epilogue_kernel<kEntries>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kMaxSmem));
+    if (configured != cudaSuccess) return static_cast<int>(configured);
+  }
+  const int per_block = kThreads * kColsPerThread;
+  const dim3 grid((n + per_block - 1) / per_block, batch);
+  const size_t smem = sizeof(float2) * 3 * static_cast<size_t>(k) * k;
+  lanczos_epilogue_kernel<kEntries><<<grid, kThreads, smem, stream>>>(alphas, betas, cre, cim, v, nrm, x, out, k, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int lanczos_epilogue_launch(const void* alphas, const void* betas, float coeff_re, float coeff_im,
@@ -154,11 +199,14 @@ extern "C" int lanczos_epilogue_launch(const void* alphas, const void* betas, fl
   if (batch <= 0 || batch > 65535 || k <= 0 || k > kMaxK || n <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int per_block = kThreads * kColsPerThread;
-  const dim3 grid((n + per_block - 1) / per_block, batch);
-  lanczos_epilogue_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(alphas), static_cast<const float*>(betas), coeff_re, coeff_im,
-      static_cast<const float2*>(v), static_cast<const float*>(nrm), static_cast<const float2*>(x),
-      static_cast<float2*>(out), k, n);
-  return static_cast<int>(cudaGetLastError());
+  const auto a = static_cast<const float*>(alphas);
+  const auto bt = static_cast<const float*>(betas);
+  const auto vv = static_cast<const float2*>(v);
+  const auto nr = static_cast<const float*>(nrm);
+  const auto xx = static_cast<const float2*>(x);
+  const auto o = static_cast<float2*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (k * k <= kThreads) return launch<1>(a, bt, coeff_re, coeff_im, vv, nr, xx, o, batch, k, n, s);
+  if (k * k <= 4 * kThreads) return launch<4>(a, bt, coeff_re, coeff_im, vv, nr, xx, o, batch, k, n, s);
+  return launch<16>(a, bt, coeff_re, coeff_im, vv, nr, xx, o, batch, k, n, s);
 }

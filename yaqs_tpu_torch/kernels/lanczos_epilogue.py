@@ -12,12 +12,12 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, on_card
 from .build import check, load_library
 
 __all__ = ["expm_col_tridiag", "lanczos_epilogue", "lanczos_epilogue_plain"]
 
-MAX_K = 16
+MAX_K = 64  # the k x k exponential lives in one block's shared memory
 MAX_BATCH = 65535  # grid.y
 TAYLOR_TERMS = 10
 MAX_SQUARINGS = 12
@@ -90,13 +90,10 @@ def lanczos_epilogue(
     ``alphas, betas (B, k)`` real, ``v (B, k, n)``, ``nrm (B,)`` real,
     ``x (B, n)`` -> ``(B, n)``.  A CPU tensor takes the plain version; a CUDA
     tensor launches ``lanczos_epilogue`` (complex64 / float32 only,
-    ``k <= 16``, contiguous inputs), or raises ``ValueError``.
+    ``k <= 64``, contiguous inputs), or raises ``ValueError``.
     """
-    if v.device.type == "cpu":
+    if not on_card("lanczos_epilogue", v):
         return lanczos_epilogue_plain(alphas, betas, coeff, v, nrm, x)
-    if v.device.type != "cuda":
-        msg = f"lanczos_epilogue: unsupported device {v.device}"
-        raise ValueError(msg)
     if v.dim() != 3:
         msg = f"lanczos_epilogue takes V (B, k, n), got shape {tuple(v.shape)}"
         raise ValueError(msg)

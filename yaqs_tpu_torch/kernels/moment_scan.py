@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, on_card
 from .build import check, load_library
 
 __all__ = [
@@ -79,11 +79,8 @@ def site_moment_matrices(tensors: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     ``B <= 65535``; any view, made contiguous first), or raises
     ``ValueError``.
     """
-    if tensors.device.type == "cpu":
+    if not on_card("moment_scan", tensors):
         return site_moment_matrices_plain(tensors)
-    if tensors.device.type != "cuda":
-        msg = f"moment_scan: unsupported device {tensors.device}"
-        raise ValueError(msg)
     if tensors.dtype != torch.complex64 or tensors.dim() != 5:
         msg = f"moment_scan takes complex64 (B, L, d, chi, chi), got {tensors.dtype} {tuple(tensors.shape)}"
         raise ValueError(msg)

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, on_card
 from .build import check, load_library
 
 __all__ = ["newton_schulz_orthogonalize", "newton_schulz_orthogonalize_plain"]
@@ -56,11 +56,8 @@ def newton_schulz_orthogonalize(
     complex64, ``n <= 64``, ``m <= 128`` and the default ``passes=1,
     aggressive=4``; anything else raises ``ValueError``.
     """
-    if y.device.type == "cpu":
+    if not on_card("ns_polar", y):
         return newton_schulz_orthogonalize_plain(y, passes, aggressive)
-    if y.device.type != "cuda":
-        msg = f"ns_polar: unsupported device {y.device}"
-        raise ValueError(msg)
     if passes != 1 or aggressive != 4:
         msg = f"ns_polar supports passes=1, aggressive=4 only (got {passes}, {aggressive})"
         raise ValueError(msg)

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, on_card
 from .build import check, load_library
 
 __all__ = ["sample_shots", "sample_shots_plain"]
@@ -49,11 +49,8 @@ def sample_shots(tensors: torch.Tensor, gumbel: torch.Tensor) -> torch.Tensor:
     ``sample_shots`` (complex64 state, float32 noise, ``d <= 4``,
     ``chi <= 64``, contiguous inputs), or raises ``ValueError``.
     """
-    if tensors.device.type == "cpu":
+    if not on_card("sample_shots", tensors):
         return sample_shots_plain(tensors, gumbel)
-    if tensors.device.type != "cuda":
-        msg = f"sample_shots: unsupported device {tensors.device}"
-        raise ValueError(msg)
     if tensors.dim() != 5 or gumbel.dim() != 4:
         msg = f"sample_shots takes (B, L, d, chi, chi) and (B, S, L, d), got {tuple(tensors.shape)}, {tuple(gumbel.shape)}"
         raise ValueError(msg)

@@ -4,7 +4,9 @@ Port of ``yaqs_tpu.methods.tdvp`` (two-site mode).  The MPS batch is one
 ``(B, L, d, chi, chi)`` tensor, environments are ``(B, chi, Dw, chi)``, the
 MPO ``(L, d, d, Dw, Dw)`` is shared by the batch, and every local evolution
 is a fixed-iteration Lanczos ``exp(-i dt H_eff) v`` (:mod:`..ops.krylov`)
-with the merged-MPO matrix-free H_eff.  Sweep structure:
+with the merged-MPO matrix-free H_eff (kernels K1 ``heff2`` and K2
+``heff1``); the environment updates are kernel K8 (``env_update``).  Sweep
+structure:
 
 - L->R over bonds 0..L-3: evolve the merged block by ``+dt/2``, split with
   the singular values moving right, absorb the new left tensor into the left
@@ -19,6 +21,8 @@ import dataclasses
 
 import torch
 
+from ..kernels.env_update import env_update_left, env_update_right
+from ..kernels.heff import heff1, heff2
 from ..ops.decomp import merge_two_site, split_two_site_subspace, split_two_site_truncated
 from ..ops.krylov import lanczos_expm_apply
 
@@ -75,30 +79,22 @@ def left_boundary(batch: int, chi: int, dw: int, dtype, device) -> torch.Tensor:
 right_boundary = left_boundary
 
 
-def update_left_env(f, a_bra, a_ket, w):
-    """``F'[m, v, k] = sum conj(Ab[t,a,m]) W[t,s,w,v] Ak[s,b,k] F[a,w,b]``."""
-    tmp = torch.einsum("zawb,zsbk->zawsk", f, a_ket)
-    tmp = torch.einsum("zawsk,tswv->zatvk", tmp, w)
-    return torch.einsum("ztam,zatvk->zmvk", a_bra.conj(), tmp)
-
-
-def update_right_env(g, a_bra, a_ket, w):
-    """``G'[a, w, b] = sum conj(Ab[t,a,m]) W[t,s,w,v] Ak[s,b,k] G[m,v,k]``."""
-    tmp = torch.einsum("zmvk,zsbk->zmvsb", g, a_ket)
-    tmp = torch.einsum("zmvsb,tswv->zmtwb", tmp, w)
-    return torch.einsum("ztam,zmtwb->zawb", a_bra.conj(), tmp)
+# The JAX module's names for the environment updates and H_eff actions are the
+# kernel wrappers themselves (K8, K1's matvec, K2), so code and tests written
+# against ``yaqs_tpu.methods.tdvp`` find the same operations here.
+update_left_env = env_update_left
+update_right_env = env_update_right
 
 
 def right_environments(tensors: torch.Tensor, mpo: torch.Tensor) -> torch.Tensor:
-    """Right environments ``R[:, i]`` covering sites >= i, ``(B, L+1, chi, Dw, chi)``."""
+    """Right environments ``R[:, i]`` covering sites >= i, ``(B, L+1, chi, Dw, chi)``;
+    each update writes straight into its slot."""
     b, length, _, chi, _ = tensors.shape
     dw = mpo.shape[-1]
     envs = tensors.new_empty((b, length + 1, chi, dw, chi))
-    g = right_boundary(b, chi, dw, tensors.dtype, tensors.device)
-    envs[:, length] = g
+    envs[:, length] = right_boundary(b, chi, dw, tensors.dtype, tensors.device)
     for i in range(length - 1, -1, -1):
-        g = update_right_env(g, tensors[:, i], tensors[:, i], mpo[i])
-        envs[:, i] = g
+        env_update_right(envs[:, i + 1], tensors[:, i], tensors[:, i], mpo[i], out=envs[:, i])
     return envs
 
 
@@ -112,34 +108,17 @@ def merge_mpo_pair(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     are ``(n, d, d, Dw, Dw)`` stacks -> ``(n, Dw d^2, d^2 Dw)``."""
     n, d, _, dw, _ = w1.shape
     m = torch.einsum("nxswv,nytvu->nwstxyu", w1, w2)
-    return m.reshape(n, dw * d * d, d * d * dw)
+    return m.reshape(n, dw * d * d, d * d * dw).contiguous()
 
 
 def merge_mpo_site(w: torch.Tensor) -> torch.Tensor:
     """Site MPO tensors as matrices ``((wl, s), (t, wr))``, ``(L, Dw d, d Dw)``."""
     n, d, _, dw, _ = w.shape
-    return w.permute(0, 3, 2, 1, 4).reshape(n, dw * d, d * dw)
+    return w.permute(0, 3, 2, 1, 4).reshape(n, dw * d, d * dw).contiguous()
 
 
-def heff_two_site_merged(f, w12, g, theta):
-    """``H_eff theta`` for ``theta (B, d, d, chi, chi)``; ``w12`` from
-    :func:`merge_mpo_pair`.  The middle product is a plain matmul."""
-    b, d, _, chi, _ = theta.shape
-    dw = f.shape[2]
-    x = torch.einsum("zawp,zstpq->zawstq", f, theta)
-    xm = x.permute(0, 1, 5, 2, 3, 4).reshape(b, chi * chi, dw * d * d)
-    y = (xm @ w12).reshape(b, chi, chi, d, d, dw)  # (a, q, x, y, u)
-    return torch.einsum("zaqxyu,zbuq->zxyab", y, g)
-
-
-def heff_one_site_merged(f, wm, g, a):
-    """``H_eff a`` for ``a (B, d, chi, chi)``; ``wm`` from :func:`merge_mpo_site`."""
-    b, d, chi, _ = a.shape
-    dw = f.shape[2]
-    x = torch.einsum("zawp,zspq->zawsq", f, a)
-    xm = x.permute(0, 1, 4, 2, 3).reshape(b, chi * chi, dw * d)
-    y = (xm @ wm).reshape(b, chi, chi, d, dw)  # (a, q, t, v)
-    return torch.einsum("zaqtv,zbvq->ztab", y, g)
+heff_two_site_merged = heff2
+heff_one_site_merged = heff1
 
 
 # ---------------------------------------------------------------------------
@@ -178,7 +157,9 @@ def sweep_2site(tensors: torch.Tensor, mpo: torch.Tensor, dt: float, cfg: TDVPCo
     if length < 2:
         msg = "2-site TDVP requires length >= 2"
         raise ValueError(msg)
-    tensors = tensors.clone()  # updated in place below, site by site
+    # updated in place below, site by site; contiguous, so every site view
+    # tensors[:, i] has the per-trajectory layout the kernels take
+    tensors = tensors.clone(memory_format=torch.contiguous_format)
     r_envs = right_environments(tensors, mpo)
     half = -0.5j * dt
     kdim = cfg.krylov_dim
@@ -187,13 +168,13 @@ def sweep_2site(tensors: torch.Tensor, mpo: torch.Tensor, dt: float, cfg: TDVPCo
 
     def evolve_theta(f, w12, g, theta, coeff):
         return lanczos_expm_apply(
-            lambda th: heff_two_site_merged(f, w12, g, th), theta, coeff,
+            lambda th: heff2(f, w12, g, th), theta, coeff,
             k=kdim, reorthogonalize=cfg.lanczos_reorth,
         )
 
     def evolve_site(f, wm, g, a, coeff):
         return lanczos_expm_apply(
-            lambda x: heff_one_site_merged(f, wm, g, x), a, coeff,
+            lambda x: heff1(f, wm, g, x), a, coeff,
             k=kdim, reorthogonalize=cfg.lanczos_reorth,
         )
 
@@ -204,8 +185,8 @@ def sweep_2site(tensors: torch.Tensor, mpo: torch.Tensor, dt: float, cfg: TDVPCo
         theta = merge_two_site(tensors[:, i], tensors[:, i + 1])
         theta = evolve_theta(f_all[i], w12_all[i], g, theta, half)
         a_new, b_new, _, _ = _split_cfg(theta, chi, cfg, "right")
-        f_next = update_left_env(f_all[i], a_new, a_new, mpo[i])
         tensors[:, i] = a_new
+        f_next = env_update_left(f_all[i], tensors[:, i], tensors[:, i], mpo[i])
         tensors[:, i + 1] = evolve_site(f_next, wm_all[i + 1], g, b_new, -half)
         f_all.append(f_next)
 
@@ -216,8 +197,9 @@ def sweep_2site(tensors: torch.Tensor, mpo: torch.Tensor, dt: float, cfg: TDVPCo
     a_new, b_new, _, _ = _split_cfg(theta, chi, cfg, "left")
     tensors[:, i] = a_new
     tensors[:, i + 1] = b_new
-    g = update_right_env(
-        right_boundary(b, chi, dw, tensors.dtype, tensors.device), b_new, b_new, mpo[length - 1]
+    g = env_update_right(
+        right_boundary(b, chi, dw, tensors.dtype, tensors.device), tensors[:, i + 1], tensors[:, i + 1],
+        mpo[length - 1],
     )
 
     # R->L over bonds L-3..0
@@ -228,7 +210,7 @@ def sweep_2site(tensors: torch.Tensor, mpo: torch.Tensor, dt: float, cfg: TDVPCo
         a_new, b_new, _, _ = _split_cfg(theta, chi, cfg, "left")
         tensors[:, i] = a_new
         tensors[:, i + 1] = b_new
-        g = update_right_env(g, b_new, b_new, mpo[i + 1])
+        g = env_update_right(g, tensors[:, i + 1], tensors[:, i + 1], mpo[i + 1])
     return tensors
 
 

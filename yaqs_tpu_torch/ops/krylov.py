@@ -4,9 +4,10 @@ Port of ``yaqs_tpu.ops.krylov.lanczos_expm_apply`` (both the
 reorthogonalizing and the three-term variant): a fixed number ``k`` of
 iterations with per-trajectory breakdown masking (an ``alive`` mask over the
 batch axis in place of the JAX package's scalar one), so a trajectory whose
-Krylov space closed early keeps the exact result.  The epilogue — the small
-exponential ``exp(coeff T) e0`` and the basis combination — is kernel B
-(``kernels/lanczos_epilogue.py``).
+Krylov space closed early keeps the exact result.  Each iteration is the
+matvec, then kernel K1's recurrence step (``kernels/lanczos_step.py``); the
+epilogue — the small exponential ``exp(coeff T) e0`` and the basis
+combination — is kernel K3 (``kernels/lanczos_epilogue.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ..kernels.lanczos_epilogue import (
     lanczos_epilogue_plain,
     tridiag,
 )
+from ..kernels.lanczos_step import lanczos_step
 
 __all__ = [
     "DEFAULT_KRYLOV_DIM",
@@ -44,8 +46,9 @@ def lanczos_expm_apply(
     """``exp(coeff * A) @ v`` for Hermitian ``A``, per trajectory.
 
     ``v (B, ...)`` is flattened per trajectory; ``matvec`` maps ``(B, ...)``
-    to ``(B, ...)``.  Returns a tensor of ``v``'s shape.  A trajectory whose
-    ``beta`` falls to ``100 eps`` has closed its Krylov space (breakdown).
+    to a new ``(B, ...)`` tensor (the recurrence overwrites it).  Returns a
+    tensor of ``v``'s shape.  A trajectory whose ``beta`` falls to
+    ``100 eps`` has closed its Krylov space (breakdown).
     """
     shape = v.shape
     b = shape[0]
@@ -60,28 +63,18 @@ def lanczos_expm_apply(
     kk = min(k, n)
 
     basis = x.new_zeros((b, kk, n))
+    basis[:, 0] = q  # row j + 1 is written by step j
     alphas = nrm.new_zeros((b, kk))
     betas = nrm.new_zeros((b, kk))  # betas[:, j] couples j and j+1
     q_prev = torch.zeros_like(q)
     beta_prev = torch.zeros_like(nrm)
     alive = torch.ones(b, dtype=torch.bool, device=x.device)
     for j in range(kk):
-        basis[:, j] = q * alive.to(cdtype)[:, None]  # in place: row j is fresh
-        w = matvec(q.reshape(shape)).reshape(b, n)
-        alpha = (q.conj() * w).sum(dim=-1).real
-        if reorthogonalize:
-            for _ in range(2):
-                proj = torch.einsum("zkn,zn->zk", basis.conj(), w)
-                w = w - torch.einsum("zk,zkn->zn", proj, basis)
-        else:
-            w = w - alpha.to(cdtype)[:, None] * q - beta_prev.to(cdtype)[:, None] * q_prev
-        beta = torch.linalg.vector_norm(w, dim=-1)
-        alive_next = alive & (beta > breakdown_tol)
-        safe_beta = torch.where(alive_next, beta, torch.ones_like(beta))
-        q_next = torch.where(alive_next[:, None], w / safe_beta.to(cdtype)[:, None], torch.zeros_like(w))
-        alphas[:, j] = torch.where(alive, alpha, torch.zeros_like(alpha))
-        betas[:, j] = torch.where(alive_next, beta, torch.zeros_like(beta))
-        q_prev, q, beta_prev, alive = q, q_next, beta, alive_next
+        w = matvec(q.reshape(shape)).reshape(b, n).contiguous()
+        q_next = lanczos_step(
+            w, q, q_prev, basis, alphas, betas, beta_prev, alive, j, reorthogonalize, breakdown_tol
+        )
+        q_prev, q = q, q_next
 
     out = lanczos_epilogue(alphas, betas, coeff, basis, nrm, x.contiguous())
     return out.reshape(shape)
