@@ -41,7 +41,23 @@ Phases (any failure raises and exits non-zero):
    circuit within total variation 0.05 of the exact distribution;
 9. window parity: a noiseless 10-qubit brickwork with a long-range ``cx``
    and a ``ccx`` under ``tdvp`` and ``full-tdvp``, card complex64 against
-   CPU complex128, max|d<Z>| <= 1e-3.
+   CPU complex128, max|d<Z>| <= 1e-3;
+10. the MCWF state-vector path at full width, the local route of
+   ``run_mcwf_batch`` (TFIM L=20, Dw=3, from x+, z + lowering noise 0.05 on
+   every site, 10 steps of dt=0.1, one-site Z everywhere, B=16, complex64,
+   Arnoldi k=25): trajectories/s, ms per step, peak memory, the launches of
+   K12 and K13 against the loop structure's count, and a profiled step
+   (device time by kernel, busy share);
+11. the MCWF guards: noiseless L=10 from a Neel state, the card's local
+   route (complex64) against the CPU's dense route (complex128), max|dZ| <=
+   1e-3; noisy L=4 (z + lowering 0.1, B=4096, 10 steps) through both routes
+   on the card against the exact Lindblad evolution (numpy/scipy), every
+   (site, time) within 5 standard errors + 1e-3.
+
+Phase 3 also times the analog path's splits that are still PyTorch (K5
+``split_matrix_subspace``, K6 ``canonicalize_right(method="newton")``, K9
+``split_matrix_truncated``) at the analog shape, with their calls in the
+phase 4 run; they are not kernels yet and stay out of the kernel table.
 
 The last two lines of standard output are the kernel table and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come on
@@ -52,6 +68,7 @@ printing any of them.  It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -79,13 +96,17 @@ DIGITAL = dict(qubits=20, layers=8, chi=32, num_traj=512, shots=256, gamma=0.02,
 FAST = dict(svd_method="subspace", subspace_iters=1, subspace_qr="newton", canon_method="newton", lanczos_reorth=False)
 EXACT = dict(svd_method="exact", subspace_iters=2, subspace_qr="householder", canon_method="qr", lanczos_reorth=True)
 XXZ = dict(batch=16, jx=1.0, jy=1.0, jz=0.5, h=0.2)  # bench.py analog_run(model="heisenberg"), Dw=5
+MCWF = dict(length=20, batch=16, steps=10, dt=0.1, gamma=0.05, krylov_dim=25)
+MCWF_KERNELS = ("sv_mpo_matvec", "arnoldi_step", "arnoldi_epilogue")
+STAT_SIGMAS = 5.0  # the noisy MCWF guard: |mean - exact| <= 5 standard errors + GUARD_TOL
 TDVP_KERNELS = ("heff2", "heff1", "lanczos_step", "env_update")
 ANALOG_KERNELS = ("ns_polar", "lanczos_epilogue", "moment_scan", *TDVP_KERNELS)
 DIGITAL_KERNELS = ("bond_gate", "moment_scan", "sample_shots", "ns_polar")
 # the path whose run gives a kernel's launch count in the kernel table: the
 # slice that ported it, or the analog path for the TDVP kernels
 TABLE_PATH = dict(ns_polar="analog", lanczos_epilogue="analog", bond_gate="digital", moment_scan="digital",
-                  sample_shots="digital", heff2="analog", heff1="analog", lanczos_step="analog", env_update="analog")
+                  sample_shots="digital", heff2="analog", heff1="analog", lanczos_step="analog", env_update="analog",
+                  sv_mpo_matvec="mcwf", arnoldi_step="mcwf", arnoldi_epilogue="mcwf")
 # kernel shapes of the TDVP kernels: (B, chi, Dw) of the analog TFIM path, of
 # the analog XXZ path and of the digital gate window
 TDVP_SHAPES = {"analog": (BENCH["batch"], BENCH["chi"], 3), "xxz": (XXZ["batch"], BENCH["chi"], 5),
@@ -146,17 +167,18 @@ def single_call_ms(fn, calls: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 20, names: tuple[str, ...] = ()) -> tuple[float, float, str]:
+def device_ms(fn, calls: int = 20, names: tuple[str, ...] = (), per_call: int = 1) -> tuple[float, float, str]:
     """Device time per call from ``torch.profiler``'s device rows over
     ``calls`` calls; the device events per call; and the source.
 
     Without ``names``: the CUDA time of everything ``fn`` runs on the card,
     over ``calls``.  With ``names`` (the kernels of one wrapper, each launched
-    once a call): every device row must be one of them, and the time per call
-    is the sum over them of each kernel's own time over its recorded launch
-    count, so a launch the tracer drops does not shorten the figure.  Where
-    the profiler records no device row, one call at a time between CUDA
-    events (source ``"events"``)."""
+    ``per_call`` times a call: once, or once a site for ``sv_mpo_matvec``):
+    every device row must be one of them, and the time per call is the sum
+    over them of each kernel's own time over its recorded launch count,
+    times ``per_call``, so a launch the tracer drops does not shorten the
+    figure.  Where the profiler records no device row, one call at a time
+    between CUDA events (source ``"events"``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -176,7 +198,7 @@ def device_ms(fn, calls: int = 20, names: tuple[str, ...] = ()) -> tuple[float, 
         return sum(r.self_device_time_total for r in rows) / 1e3 / calls, events / calls, "profiler"
     strangers = [r.key for r in rows if not any(n in r.key for n in names)]
     check(not strangers, f"device rows other than {names}: {strangers}")
-    return sum(r.self_device_time_total / r.count for r in rows) / 1e3, events / calls, "profiler"
+    return per_call * sum(r.self_device_time_total / r.count for r in rows) / 1e3, events / calls, "profiler"
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -190,23 +212,23 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return ((got - ref).abs().max() / ref.abs().max()).item()
 
 
-def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops):
+def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops, per_call=1):
     """Every time of one kernel at one shape, printed on one line.  The
     kernel and its plain version: profiler device time and host-paced time.
     The library call, which may issue thousands of small launches and host
     syncs (the batched SVD does): host-paced over 3 windows of 3 calls, kept
     out of the profiler."""
-    ms, per_call, source = device_ms(kernel_fn, names=kernel_names)
+    ms, launches, source = device_ms(kernel_fn, names=kernel_names, per_call=per_call)
     plain_ms, plain_events, plain_source = device_ms(plain_fn)
     library_ms = None if library_fn is None else host_paced_ms(library_fn, windows=3, calls=3)
     bound_ms, bound_by = bound(nbytes, flops)
     out = dict(
-        ms=ms, ms_source=source, launches_per_call=per_call, host_ms=host_paced_ms(kernel_fn), plain_ms=plain_ms,
+        ms=ms, ms_source=source, launches_per_call=launches, host_ms=host_paced_ms(kernel_fn), plain_ms=plain_ms,
         plain_ms_source=plain_source, plain_events_per_call=plain_events, plain_host_ms=host_paced_ms(plain_fn),
         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
     )
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms (host-paced)"
-    log(f"[phase 3] {label}: device {ms:.4f} ms ({source}, {per_call:g} launches), "
+    log(f"[phase 3] {label}: device {ms:.4f} ms ({source}, {launches:g} launches), "
         f"host-paced {out['host_ms']:.4f} ms; plain device {plain_ms:.4f} ms ({plain_source}, "
         f"{plain_events:g} device events), host-paced {out['plain_host_ms']:.4f} ms; library {lib}; "
         f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
@@ -399,7 +421,209 @@ def phase_kernels(dev):
         noiseless_shape=dict(shape=[1, 4096, 4, d], **ss_extra[1]),
     )
     rows.update(tdvp_kernel_rows(dev, randc, gen))
+    rows.update(mcwf_kernel_rows(dev, randc, gen))
     return rows
+
+
+def mcwf_inputs(length, gamma=None, model="ising"):
+    """The MCWF configuration's host inputs: the MPO, the x+ vector, the z +
+    lowering noise on every site and one-site Z everywhere."""
+    import yaqs_tpu_torch as yt
+
+    w = yt.ising_mpo(length, 1.0, 0.5) if model == "ising" else yt.heisenberg_mpo(
+        length, XXZ["jx"], XXZ["jy"], XXZ["jz"], XXZ["h"])
+    noise = None
+    if gamma is not None:
+        noise = yt.NoiseModel(
+            [{"name": "z", "sites": [i], "strength": gamma} for i in range(length)]
+            + [{"name": "lowering", "sites": [i], "strength": gamma} for i in range(length)]
+        )
+    obs = [yt.Observable("z", i) for i in range(length)]
+    return w, yt.to_statevector(yt.named_product_state("x+", length, 1)), noise, obs
+
+
+def mcwf_kernel_rows(dev, randc, gen):
+    """K12 ``sv_mpo_matvec`` at the full-width MCWF shape (B=16, L=20) with
+    the TFIM MPO (Dw=3) and the XXZ MPO (Dw=5), each with the one-site terms
+    of z + lowering noise; K13 ``arnoldi_step`` at j = 0, 4, ..., 24 (one j
+    per row-count bucket; j = 0, 12, 24 timed) with identical breakdown
+    masks, and ``arnoldi_epilogue`` at k=25, both also at the noisy guard's
+    shape (B=4096, k=n=16)."""
+    from yaqs_tpu_torch.analog.mcwf import local_jump_channels, make_mcwf_local_context
+    from yaqs_tpu_torch.kernels.arnoldi import (
+        arnoldi_epilogue, arnoldi_epilogue_plain, arnoldi_step, arnoldi_step_plain, step_blocks,
+    )
+    from yaqs_tpu_torch.kernels.sv_mpo import sv_mpo_matvec, sv_mpo_matvec_plain
+
+    length, b, k = MCWF["length"], MCWF["batch"], MCWF["krylov_dim"]
+    n = 2**length
+    rows = {name: dict(max_abs_err=0.0) for name in MCWF_KERNELS}
+    for model, dw in (("ising", 3), ("heisenberg", 5)):
+        w, _, noise, _ = mcwf_inputs(length, MCWF["gamma"], model)
+        tab = make_mcwf_local_context(w, local_jump_channels(noise), [], MCWF["dt"]).tables(dev, torch.complex64)
+        check(tab.mpo.shape[-1] == dw, f"the {model} MPO has Dw={tab.mpo.shape[-1]}, not {dw}")
+        psi = randc(b, n) / np.sqrt(2 * n)
+        got = sv_mpo_matvec(tab.mpo, psi, tab.local)
+        ref = sv_mpo_matvec_plain(tab.mpo, psi, tab.local)
+        torch.cuda.synchronize()
+        err = rel_err(got, ref)
+        log(f"[phase 3] sv_mpo_matvec (B={b}, L={length}, Dw={dw}, one-site terms): rel err {err:.3e}")
+        check(err <= KERNEL_TOL, f"sv_mpo_matvec disagrees with its plain version: {err} > {KERNEL_TOL}")
+        rows["sv_mpo_matvec"]["max_abs_err"] = max(rows["sv_mpo_matvec"]["max_abs_err"], (got - ref).abs().max().item())
+        dws = [1] + [dw] * (length - 1) + [1]
+        cmacs = b * n * (2 * sum(dws[i] * dws[i + 1] for i in range(length)) + 1)  # + the diagonal one-site terms
+        t = timings(f"sv_mpo_matvec (B={b}, L={length}, Dw={dw})", lambda: sv_mpo_matvec(tab.mpo, psi, tab.local),
+                    lambda: sv_mpo_matvec_plain(tab.mpo, psi, tab.local), lambda: sv_mpo_matvec_plain(tab.mpo, psi),
+                    ("sv_mpo_site_kernel",), (2 * b * n + length * 4 * (dw * dw + 1)) * C64, cmacs * CMAC_FLOPS,
+                    per_call=length)
+        # the same passes without the one-site terms: what riding them on the last site's pass costs
+        bare_ms, _, _ = device_ms(lambda: sv_mpo_matvec(tab.mpo, psi), names=("sv_mpo_site_kernel",), per_call=length)
+        log(f"[phase 3] sv_mpo_matvec (B={b}, L={length}, Dw={dw}) without the one-site terms: device {bare_ms:.4f} ms")
+        rows["sv_mpo_matvec"][model] = dict(shape=[b, length, dw], library_call="torch.einsum per site (L calls)",
+                                            ms_without_local_terms=bare_ms, **t)
+
+    def step_state(bs, kk, nn, j):
+        basis = torch.zeros((bs, kk, nn), dtype=torch.complex64, device=dev)
+        basis[:, : j + 1] = torch.linalg.qr(randc(bs, nn, j + 1))[0].mT
+        hess = torch.zeros((bs, kk, kk), dtype=torch.complex64, device=dev)
+        w_vec = randc(bs, nn)
+        w_vec[2] = basis[2, : j + 1].sum(dim=0)  # inside the span: breaks down now
+        alive = torch.ones(bs, dtype=torch.bool, device=dev)
+        alive[1] = False  # broken down before: its row j and w are zero
+        basis[1, j] = 0
+        w_vec[1] = 0
+        return [w_vec, basis, hess, alive]
+
+    # at n = 16 the residual after j + 1 rows spans 15 - j directions: at j = 15
+    # it is rounding noise, and near it some of 4096 random vectors keep so
+    # little that dividing by beta lifts float32 rounding toward 1e-5 (j = 14
+    # read 9.2e-6), so the guard's shape is compared up to j = 12
+    for bs, kk, nn, js in ((b, k, n, range(0, k, 4)), (4096, 16, 16, (0, 9, 12))):
+        for j in js:
+            state = step_state(bs, kk, nn, j)
+            mine, ref_state = [x.clone() for x in state], [x.clone() for x in state]
+            arnoldi_step(*mine, j, BREAKDOWN_TOL)
+            arnoldi_step_plain(*ref_state, j, BREAKDOWN_TOL)
+            torch.cuda.synchronize()
+            same_mask = torch.equal(mine[-1], ref_state[-1])
+            err = max(rel_err(mine[i], ref_state[i]) for i in range(3))
+            log(f"[phase 3] arnoldi_step (B={bs}, k={kk}, n={nn}, j={j}): rel err {err:.3e}, identical alive masks "
+                f"{same_mask} ({int(mine[-1].sum())} of {bs} alive)")
+            check(err <= KERNEL_TOL and same_mask, f"arnoldi_step (j={j}) disagrees with its plain version")
+            check(not bool(mine[-1][1]) and not bool(mine[-1][2]), "a breakdown of arnoldi_step was not detected")
+            rows["arnoldi_step"]["max_abs_err"] = max(rows["arnoldi_step"]["max_abs_err"],
+                                                      max((a - r).abs().max().item() for a, r in zip(mine[:3], ref_state[:3])))
+            if bs == b and j in (0, 12, 24):
+                timed = [x.clone() for x in state]
+
+                def run(fn=arnoldi_step, timed=timed, j=j):  # repeated calls repeat the same passes
+                    fn(timed[0], timed[1], timed[2], timed[3], j, BREAKDOWN_TOL)
+
+                # w and rows 0..j in, row j + 1 out (none at the last j), and H's column
+                vectors = j + 2 + (j + 1 < kk)
+                t = timings(f"arnoldi_step (B={bs}, k={kk}, n={nn}, j={j}, {step_blocks(nn)} blocks a trajectory)",
+                            run, lambda run=run: run(arnoldi_step_plain), None,
+                            ("project_kernel", "subtract_project_kernel", "subtract_norm_kernel", "finish_kernel"),
+                            vectors * bs * nn * C64 + bs * (kk + 2) * C64, bs * nn * (4 * (j + 1) + 1) * CMAC_FLOPS)
+                rows["arnoldi_step"][f"j{j}"] = dict(shape=[bs, kk, nn, j], library_call="none", **t)
+
+    for bs, kk, nn in ((b, k, n), (4096, 16, 16)):
+        diag = 3 * torch.randn((bs, kk), generator=gen, device=dev)
+        off = 2 * torch.randn((bs, kk - 1), generator=gen, device=dev).abs()
+        hess = (torch.diag_embed(diag) + torch.diag_embed(off, 1) + torch.diag_embed(off, -1)).to(torch.complex64)
+        hess = hess + 0.01 * torch.triu(randc(bs, kk, kk), diagonal=2) - 0.05j * torch.eye(kk, device=dev)
+        hess[2, 5:], hess[2, :, 5:] = 0, 0  # a breakdown at j = 4
+        basis, x = randc(bs, kk, nn), randc(bs, nn)
+        nrm = torch.rand((bs,), generator=gen, device=dev) + 0.1
+        nrm[3] = 0.0  # a zero start vector passes x through
+        coeff = -1j * MCWF["dt"]
+        got = arnoldi_epilogue(hess, coeff, basis, nrm, x)
+        ref = arnoldi_epilogue_plain(hess, coeff, basis, nrm, x)
+        torch.cuda.synchronize()
+        err = rel_err(got, ref)
+        log(f"[phase 3] arnoldi_epilogue (B={bs}, k={kk}, n={nn}): rel err {err:.3e}")
+        check(err <= KERNEL_TOL, f"arnoldi_epilogue disagrees with its plain version: {err} > {KERNEL_TOL}")
+        check(torch.equal(got[3], x[3]), "arnoldi_epilogue did not pass x through where nrm == 0")
+        rows["arnoldi_epilogue"]["max_abs_err"] = max(rows["arnoldi_epilogue"]["max_abs_err"],
+                                                      (got - ref).abs().max().item())
+        if bs == b:
+            ch = (coeff * hess).to(torch.complex64)
+            # what this data needs: the rows with a nonzero coefficient (none past
+            # trajectory 2's breakdown) of the trajectories with nrm > 0, x of the
+            # one with nrm = 0, and the output
+            small = torch.linalg.matrix_exp(ch)[:, :, 0]
+            used_rows = int(((small != 0) & (nrm > 0)[:, None]).sum())
+            passed = int((nrm == 0).sum())
+            t = timings(f"arnoldi_epilogue (B={bs}, k={kk}, n={nn})",
+                        lambda: arnoldi_epilogue(hess, coeff, basis, nrm, x),
+                        lambda: arnoldi_epilogue_plain(hess, coeff, basis, nrm, x),
+                        lambda: torch.bmm(torch.linalg.matrix_exp(ch)[:, :, :1].mT, basis),
+                        ("arnoldi_small_kernel", "arnoldi_combine_kernel"),
+                        ((used_rows + passed + bs) * nn + bs * kk * kk) * C64,
+                        used_rows * nn * CMAC_FLOPS + bs * 26 * kk**3 * CMAC_FLOPS)
+            rows["arnoldi_epilogue"].update(shape=[bs, kk, nn], library_call="torch.linalg.matrix_exp then torch.bmm "
+                                            "(two calls)", **t)
+
+    sources = dict(sv_mpo_matvec="sv_mpo.cu", arnoldi_step="arnoldi.cu", arnoldi_epilogue="arnoldi.cu")
+    replaces = dict(sv_mpo_matvec="yaqs_tpu/analog/mcwf.py:229", arnoldi_step="yaqs_tpu/ops/krylov.py:145",
+                    arnoldi_epilogue="yaqs_tpu/ops/krylov.py:145")
+    main = dict(sv_mpo_matvec="ising", arnoldi_step="j12", arnoldi_epilogue=None)
+    out = {}
+    for name, row in rows.items():
+        extra = row[main[name]] if main[name] else {}
+        out[name] = dict(source=f"yaqs_tpu_torch/kernels/csrc/{sources[name]}", replaces=replaces[name], **extra, **row)
+    return out
+
+
+def unported_rows(dev):
+    """The analog path's splits that are still PyTorch, at the analog shape
+    (B=32, chi=64): K5 ``split_matrix_subspace`` and K9
+    ``split_matrix_truncated`` on the (2 chi, 2 chi) two-site matrix, K6
+    ``canonicalize_right(method="newton")`` over the L=100 chain.  Plain
+    device time and host-paced time, the library call host-paced, and the
+    bound."""
+    from yaqs_tpu_torch.core.mps_ops import canonicalize_right
+    from yaqs_tpu_torch.ops.decomp import split_matrix_subspace, split_matrix_truncated
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    b, chi, length, d = BENCH["batch"], BENCH["chi"], BENCH["length"], 2
+    m = torch.complex(torch.randn((b, d * chi, d * chi), generator=gen, device=dev),
+                      torch.randn((b, d * chi, d * chi), generator=gen, device=dev))
+    mps = random_mps(gen, dev, b, length, chi)
+    rows_m, cols_m = d * chi, d * chi
+    ns_cmacs = 22 * b * rows_m * chi * chi  # one Newton-Schulz polar factor of a (2 chi, chi) block
+    cases = {
+        "K5": ("split_matrix_subspace (newton, 1 iteration)",
+               lambda: split_matrix_subspace(m, chi, iters=1, qr_method="newton"),
+               lambda: torch.linalg.svd(m, full_matrices=False), "torch.linalg.svd on (2 chi, 2 chi)",
+               (b * rows_m * cols_m + 2 * b * rows_m * chi) * C64,
+               (3 * ns_cmacs + 4 * b * rows_m * cols_m * chi) * CMAC_FLOPS),
+        "K9": ("split_matrix_truncated (gesvd)",
+               lambda: split_matrix_truncated(m, chi, mode="discarded_weight", threshold=1e-6, max_bond_dim=chi),
+               lambda: torch.linalg.svd(m, full_matrices=False), "torch.linalg.svd on (2 chi, 2 chi)",
+               (b * rows_m * cols_m + 2 * b * rows_m * chi) * C64,
+               b * (4 * rows_m * cols_m**2 + 8 * cols_m**3) * CMAC_FLOPS),  # Golub-Kahan-Reinsch with U and V
+        "K6": ("canonicalize_right (newton)", lambda: canonicalize_right(mps, method="newton"),
+               lambda: canonicalize_right(mps, method="qr"), "the chain of batched torch.linalg.qr (one per site)",
+               2 * b * length * d * chi * chi * C64,
+               (length - 1) * (ns_cmacs + 2 * b * chi * chi * d * chi) * CMAC_FLOPS),
+    }
+    out = {}
+    for key, (label, plain_fn, library_fn, library_call, nbytes, flops) in cases.items():
+        if key == "K9":  # cuSOLVER's batched SVD stays out of the profiler (it lost device rows after it)
+            plain_ms, events, source = single_call_ms(plain_fn, calls=5), float("nan"), "events"
+        else:
+            plain_ms, events, source = device_ms(plain_fn, calls=5)
+        host_ms = host_paced_ms(plain_fn, windows=3, calls=3)
+        library_ms = host_paced_ms(library_fn, windows=3, calls=3)
+        bound_ms, bound_by = bound(nbytes, flops)
+        out[key] = dict(function=label, plain_ms=plain_ms, plain_ms_source=source, plain_events_per_call=events,
+                        plain_host_ms=host_ms, library_ms=library_ms, library_call=library_call, bound_ms=bound_ms,
+                        bound_by=bound_by, bytes=nbytes, flops=flops)
+        log(f"[phase 3] {key} {label} (B={b}, chi={chi}): plain device {plain_ms:.4f} ms ({source}, {events:g} "
+            f"device events), host-paced {host_ms:.4f} ms; library {library_ms:.4f} ms (host-paced, {library_call}); "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+    return out
 
 
 def tdvp_kernel_rows(dev, randc, gen):
@@ -544,16 +768,18 @@ def phase_slice(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    t_start = time.perf_counter()
-    res = run_tjm_batch(t0, w, noise, obs, plan_for(steps, chi), device=dev, dtype=torch.complex64, batch=b)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t_start
+    with counted_calls() as calls:
+        t_start = time.perf_counter()
+        res = run_tjm_batch(t0, w, noise, obs, plan_for(steps, chi), device=dev, dtype=torch.complex64, batch=b)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t_start
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     out = dict(
         seconds=seconds, traj_per_s=b / seconds, ms_per_step=1e3 * seconds / steps,
-        peak_bytes=peak, launches=launches,
+        peak_bytes=peak, launches=launches, unported_calls=dict(calls),
     )
+    log(f"[phase 4] calls of the splits that are still PyTorch: {dict(calls)}")
     log(f"[phase 4] TJM L={length} chi={chi} B={b} {steps} steps: {seconds:.3f} s, "
         f"{out['traj_per_s']:.4f} traj/s, {out['ms_per_step']:.1f} ms/step, peak {peak / 2**20:.1f} MiB, "
         f"launches {launches}")
@@ -570,6 +796,34 @@ def phase_slice(dev):
         f"per step, ~21% busy; this run: {out['traj_per_s']:.4f} traj/s, {out['ms_per_step']:.1f} ms/step, "
         f"{out['profile']['events_per_step']:.0f} events per step, {100 * out['profile']['busy']:.1f}% busy")
     return out
+
+
+@contextlib.contextmanager
+def counted_calls():
+    """Count the calls of K5 ``split_matrix_subspace``, K6
+    ``canonicalize_right`` and K9 ``split_matrix_truncated`` on the analog
+    path (their callers look them up in their own modules)."""
+    from yaqs_tpu_torch.core import mps_ops
+    from yaqs_tpu_torch.ops import decomp
+
+    calls = {"K5": 0, "K6": 0, "K9": 0}
+    patched = [(decomp, "split_matrix_subspace", "K5"), (mps_ops, "canonicalize_right", "K6"),
+               (decomp, "split_matrix_truncated", "K9")]
+    originals = [getattr(mod, name) for mod, name, _ in patched]
+
+    def counting(fn, key):
+        def wrapper(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for (mod, name, key), fn in zip(patched, originals):
+        setattr(mod, name, counting(fn, key))
+    try:
+        yield calls
+    finally:
+        for (mod, name, _), fn in zip(patched, originals):
+            setattr(mod, name, fn)
 
 
 def phase_xxz(dev):
@@ -799,6 +1053,116 @@ def phase_window_parity(dev):
     return out
 
 
+def phase_mcwf(dev):
+    """The MCWF state-vector path at full width: the local route of
+    ``run_mcwf_batch`` (TFIM L=20 from x+, z + lowering noise 0.05, B=16,
+    10 steps, complex64, k=25)."""
+    from yaqs_tpu_torch import kernels
+    from yaqs_tpu_torch.analog.run import run_mcwf_batch
+
+    length, b, steps, k = MCWF["length"], MCWF["batch"], MCWF["steps"], MCWF["krylov_dim"]
+    w, psi0, noise, obs = mcwf_inputs(length, MCWF["gamma"])
+    kw = dict(dt=MCWF["dt"], device=dev, dtype=torch.complex64)
+    # warm-up: one step, other trajectory indices (allocator, cuBLAS handles)
+    run_mcwf_batch(psi0, w, noise, obs, num_steps=1, traj_indices=range(b, 2 * b), **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    res = run_mcwf_batch(psi0, w, noise, obs, num_steps=steps, batch=b, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # one K12 matvec and one K13 step per Arnoldi iteration, one epilogue a step
+    expected = dict(sv_mpo_matvec=steps * k, arnoldi_step=steps * k, arnoldi_epilogue=steps)
+    out = dict(seconds=seconds, traj_per_s=b / seconds, ms_per_step=1e3 * seconds / steps, peak_bytes=peak,
+               launches=launches, expected_launches=expected)
+    log(f"[phase 10] MCWF local route L={length} (2^{length} amplitudes) B={b} {steps} steps k={k}: "
+        f"{seconds:.3f} s, {out['traj_per_s']:.4f} traj/s, {out['ms_per_step']:.1f} ms/step, "
+        f"peak {peak / 2**20:.1f} MiB, launches {launches} (the loop structure's count: {expected})")
+    check(tuple(res.shape) == (b, length, steps + 1), f"unexpected MCWF result shape {tuple(res.shape)}")
+    check(bool(torch.isfinite(res).all()), "non-finite observable in the MCWF run")
+    check(res.abs().max().item() <= 1.0 + 1e-3, "an MCWF observable left [-1, 1]")
+    check(res[:, :, 0].abs().max().item() < 1e-6, "t=0 column differs from <Z>=0 of the x+ state")
+    for name, count in expected.items():
+        check(launches[name] == count, f"{name} launched {launches[name]} times, the loop structure says {count}")
+    strays = {name: n for name, n in launches.items() if n and name not in expected}
+    check(not strays, f"the MCWF run launched other kernels: {strays}")
+    out["mean_z"] = res.mean(dim=(0, 1)).tolist()
+    out["profile"] = profile_run("phase 10, one step", lambda: run_mcwf_batch(
+        psi0, w, noise, obs, num_steps=1, batch=b, **kw), steps=1)
+    return out
+
+
+def exact_lindblad_z(h, jumps, psi0, dt, steps, length):
+    """<Z_i>(t) of the Lindblad evolution from |psi0><psi0|: the row-major
+    vec(rho) superoperator, vec(A rho B) = (A kron B^T) vec(rho), and its
+    exact step propagator."""
+    import scipy.linalg
+
+    from yaqs_tpu_torch.analog.embedding import embed_one_site
+
+    dim = h.shape[0]
+    eye = np.eye(dim)
+    liou = -1j * (np.kron(h, eye) - np.kron(eye, h.T))
+    for jump in jumps:
+        ldl = jump.conj().T @ jump
+        liou += np.kron(jump, jump.conj()) - 0.5 * (np.kron(ldl, eye) + np.kron(eye, ldl.T))
+    prop = scipy.linalg.expm(liou * dt)
+    zs = [embed_one_site(np.diag([1.0, -1.0]), i, length) for i in range(length)]
+    rho = np.outer(psi0, psi0.conj()).reshape(-1)
+    out = np.zeros((length, steps + 1))
+    for t in range(steps + 1):
+        r = rho.reshape(dim, dim)
+        out[:, t] = [np.trace(z @ r).real for z in zs]
+        rho = prop @ rho
+    return out
+
+
+def phase_mcwf_guards(dev):
+    """Noiseless L=10 from Neel: the card's local route (c64) against the
+    CPU's dense route (c128).  Noisy L=4 (z + lowering 0.1, B=4096): both
+    routes on the card against the exact Lindblad evolution."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch.analog.lindblad import noise_model_jump_ops
+    from yaqs_tpu_torch.analog.run import run_mcwf_batch
+
+    out = {}
+    length, steps, dt = 10, 10, MCWF["dt"]
+    w = yt.ising_mpo(length, 1.0, 0.5)
+    psi0 = yt.to_statevector(yt.named_product_state("Neel", length, 1))
+    obs = [yt.Observable("z", i) for i in range(length)]
+    card = run_mcwf_batch(psi0, w, None, obs, dt=dt, num_steps=steps, batch=1, device=dev, dtype=torch.complex64,
+                          route="local").cpu()
+    cpu = run_mcwf_batch(psi0, w, None, obs, dt=dt, num_steps=steps, batch=1, device="cpu", dtype=torch.complex128,
+                         route="dense")
+    dz = (card.double() - cpu).abs().max().item()
+    log(f"[phase 11] noiseless MCWF L={length} {steps} steps from Neel, card local route c64 vs CPU dense route "
+        f"c128: max|dZ| = {dz:.3e} (limit {GUARD_TOL})")
+    check(bool(torch.isfinite(card).all()) and dz <= GUARD_TOL, f"MCWF card vs CPU disagree: {dz}")
+    check(cpu[0, :, 0].abs().min().item() > 0.99, "Neel start should read |<Z>| = 1")
+    out["noiseless_max_abs_dz"] = dz
+
+    length, b, gamma = 4, 4096, 0.1
+    w, psi0, noise, obs = mcwf_inputs(length, gamma)
+    exact = exact_lindblad_z(yt.mpo_to_matrix(w), noise_model_jump_ops(noise, length), psi0, dt, steps, length)
+    for route in ("dense", "local"):
+        res = run_mcwf_batch(psi0, w, noise, obs, dt=dt, num_steps=steps, batch=b, seed=17, device=dev,
+                             dtype=torch.complex64, route=route).double().cpu().numpy()
+        mean = res.mean(axis=0)
+        se = res.std(axis=0, ddof=1) / np.sqrt(b)
+        excess = np.abs(mean - exact) - (STAT_SIGMAS * se + GUARD_TOL)
+        worst = float(np.max(np.abs(mean - exact) / (STAT_SIGMAS * se + GUARD_TOL)))
+        log(f"[phase 11] noisy MCWF L={length} B={b} {steps} steps, {route} route on the card vs exact Lindblad: "
+            f"max|mean - exact| = {np.abs(mean - exact).max():.3e}, largest share of the limit (5 SE + 1e-3) "
+            f"{worst:.3f}")
+        check(np.isfinite(res).all() and bool((excess <= 0).all()), f"noisy MCWF guard ({route}) failed: {worst}")
+        out[f"noisy_{route}_max_abs_d"] = float(np.abs(mean - exact).max())
+        out[f"noisy_{route}_limit_share"] = worst
+    return out
+
+
 def profile_run(label, run, steps=1):
     """One more run under ``torch.profiler``: the device time by kernel, the
     device events per step, and the device's busy share of the profiled wall
@@ -905,7 +1269,8 @@ def main() -> None:
     for name, fn in (("kernels", phase_kernels), ("analog", phase_slice), ("analog_xxz", phase_xxz),
                      ("guard", phase_guard), ("cpu_parity", phase_cpu_parity), ("digital", phase_digital),
                      ("digital_window", phase_digital_window), ("digital_oracle", phase_digital_oracle),
-                     ("window_parity", phase_window_parity)):
+                     ("window_parity", phase_window_parity), ("mcwf", phase_mcwf), ("mcwf_guards", phase_mcwf_guards),
+                     ("unported", unported_rows)):
         phases[name] = fn(dev)
         log(f"[time] phase {name}: {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
@@ -913,10 +1278,12 @@ def main() -> None:
     rows = phases["kernels"]
     for name, row in rows.items():
         row["launches"] = phases[TABLE_PATH[name]]["launches"][name]
-        row["launches_analog"] = phases["analog"]["launches"][name]
-        row["launches_digital"] = phases["digital"]["launches"][name]
-        row["launches_xxz"] = phases["analog_xxz"]["launches"][name]
-        row["launches_digital_window"] = phases["digital_window"]["launches"][name]
+        for path in ("analog", "digital", "analog_xxz", "digital_window", "mcwf"):
+            row[f"launches_{path}"] = phases[path]["launches"][name]
+    for key, row in phases["unported"].items():
+        row["calls_per_10_step_analog_run"] = phases["analog"]["unported_calls"][key]
+        log(f"[unported] {key} {row['function']}: {row['calls_per_10_step_analog_run']} calls a 10-step analog run, "
+            f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, build_seconds=seconds, ptxas=ptxas, kernels=rows,

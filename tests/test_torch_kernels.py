@@ -10,9 +10,9 @@ them on a GPU machine with
 Tolerances on the card: 1e-5 relative (complex64 with another summation
 order), an isometry defect below 1e-4 for the polar factor, identical
 outcomes for the shot sampler fed the same Gumbel noise, and identical
-breakdown masks for the Lanczos step; the default TDVP configuration
-(k = 25) on the card agrees with the CPU complex128 run within 1e-3, the
-complex64 working accuracy.
+breakdown masks for the Lanczos and Arnoldi steps; the default TDVP
+configuration (k = 25) and the MCWF local route on the card agree with the
+CPU complex128 runs within 1e-3, the complex64 working accuracy.
 """
 
 from __future__ import annotations
@@ -24,6 +24,12 @@ import torch
 from yaqs_tpu_torch import kernels
 from yaqs_tpu_torch.core.mps_ops import normalize_canonical
 from yaqs_tpu_torch.kernels import build
+from yaqs_tpu_torch.kernels.arnoldi import (
+    arnoldi_epilogue,
+    arnoldi_epilogue_plain,
+    arnoldi_step,
+    arnoldi_step_plain,
+)
 from yaqs_tpu_torch.kernels.bond_gate import bond_gate, bond_gate_plain
 from yaqs_tpu_torch.kernels.env_update import (
     env_update_left,
@@ -37,6 +43,7 @@ from yaqs_tpu_torch.kernels.lanczos_step import lanczos_step, lanczos_step_plain
 from yaqs_tpu_torch.kernels.moment_scan import site_moment_matrices, site_moment_matrices_plain
 from yaqs_tpu_torch.kernels.ns_polar import newton_schulz_orthogonalize, newton_schulz_orthogonalize_plain
 from yaqs_tpu_torch.kernels.sample_shots import sample_shots, sample_shots_plain
+from yaqs_tpu_torch.kernels.sv_mpo import sv_mpo_matvec, sv_mpo_matvec_plain
 
 
 def _complex(rng, shape, dtype=torch.complex64):
@@ -98,6 +105,58 @@ def _step_inputs(rng, batch, k, n, j, device="cpu"):
     return [*vecs, alphas.to(device), betas.to(device), beta_prev.to(device), alive.to(device)]
 
 
+def _randc(gen, shape, device):
+    """Complex64 normal entries drawn on ``device`` (the full-width shapes
+    are too large to draw on the host)."""
+    re = torch.randn(shape, generator=gen, device=device)
+    return torch.complex(re, torch.randn(shape, generator=gen, device=device))
+
+
+def _arnoldi_inputs(seed, batch, k, n, j, device="cpu"):
+    """Arnoldi state at iteration ``j``: orthonormal basis rows 0..j (zero
+    beyond), a Hessenberg ``H`` filled left of column j, trajectory 1
+    already broken down (its row j and ``w`` zero), trajectory 2's ``w`` in
+    the span of its rows (breaks down now)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    basis = torch.zeros((batch, k, n), dtype=torch.complex64, device=device)
+    q, _ = torch.linalg.qr(_randc(gen, (batch, n, j + 1), device))
+    basis[:, : j + 1] = q.mT
+    hess = torch.triu(_randc(gen, (batch, k, k), device), diagonal=-1)
+    hess[:, :, j:] = 0
+    w = _randc(gen, (batch, n), device)
+    alive = torch.ones(batch, dtype=torch.bool, device=device)
+    alive[1] = False
+    basis[1, j] = 0
+    w[1] = 0
+    w[2] = basis[2, : j + 1].sum(dim=0) * (1 + 0.5j)
+    return [w, basis, hess, alive]
+
+
+def _sv_inputs(seed, batch, length, dw, device="cpu", off_diagonal=True):
+    """A random MPO ``(L, 2, 2, Dw, Dw)``, state vectors as basis-row views
+    (a stride between trajectories) and per-site one-site terms (zero at
+    every third site)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = _randc(gen, (length, 2, 2, dw, dw), device) / dw
+    rows = _randc(gen, (batch, 2, 2**length), device)
+    local = _randc(gen, (length, 2, 2), device) * 0.3
+    local[::3] = 0
+    if not off_diagonal:
+        local = torch.diag_embed(torch.diagonal(local, dim1=-2, dim2=-1))
+    return w, rows[:, 1], local
+
+
+def _hessenberg(gen, batch, k, device):
+    """Hessenberg matrices shaped like the MCWF Arnoldi's: a real
+    tridiagonal part (the Hermitian H), small entries above it and a
+    damping ``-0.05j`` on the diagonal."""
+    diag = 3 * torch.randn((batch, k), generator=gen, device=device)
+    off = 2 * torch.randn((batch, k - 1), generator=gen, device=device).abs()
+    tri = torch.diag_embed(diag) + torch.diag_embed(off, 1) + torch.diag_embed(off, -1)
+    upper = 0.01 * torch.triu(_randc(gen, (batch, k, k), device), diagonal=2)
+    return tri.to(torch.complex64) + upper - 0.05j * torch.eye(k, device=device)
+
+
 def _gumbel(rng, shape, device="cpu"):
     u = rng.uniform(np.finfo(np.float32).tiny, 1.0, shape)
     return torch.tensor(-np.log(-np.log(u)), dtype=torch.float32).to(device)
@@ -132,9 +191,22 @@ def test_wrappers_take_plain_path_on_cpu_without_building():
     torch.testing.assert_close(q_next, lanczos_step_plain(*copy, 2, True, 1e-5), rtol=0, atol=0)
     for got, ref in zip(state, copy):
         assert torch.equal(got, ref)
+    wm, psi, local = _sv_inputs(0, 2, 5, 3)
+    torch.testing.assert_close(sv_mpo_matvec(wm, psi, local), sv_mpo_matvec_plain(wm, psi, local), rtol=0, atol=0)
+    state = _arnoldi_inputs(0, 3, 6, 40, 2)
+    copy = [t.clone() for t in state]
+    arnoldi_step(*state, 2, 1e-5)
+    arnoldi_step_plain(*copy, 2, 1e-5)
+    for got, ref in zip(state, copy):
+        assert torch.equal(got, ref)
+    _, basis, hess, _ = state
+    a, b, v, nrm, x = _epilogue_inputs(rng, 3, 6, 40)
+    out = arnoldi_epilogue(hess, -0.1j, basis, nrm, x)
+    torch.testing.assert_close(out, arnoldi_epilogue_plain(hess, -0.1j, basis, nrm, x), rtol=0, atol=0)
+    assert torch.equal(out[1], x[1])
     assert set(kernels.launch_counts()) == {
         "ns_polar", "lanczos_epilogue", "bond_gate", "moment_scan", "sample_shots", "heff2", "heff1",
-        "lanczos_step", "env_update",
+        "lanczos_step", "env_update", "sv_mpo_matvec", "arnoldi_step", "arnoldi_epilogue",
     }
     assert not any(kernels.launch_counts().values())
     assert build.load_library.cache_info().currsize == 0  # nothing was built
@@ -166,6 +238,14 @@ def test_wrappers_refuse_non_cuda_devices():
     w = v[:, 0]
     with pytest.raises(ValueError, match="unsupported device"):
         lanczos_step(w, w, w, v, v.real[:, :, 0], v.real[:, :, 0], v.real[:, 0, 0], v.real[:, 0, 0] > 0, 0, True, 1e-5)
+    hess = v[:, :, :4]
+    with pytest.raises(ValueError, match="unsupported device"):
+        arnoldi_step(w, v, hess, v.real[:, 0, 0] > 0, 0, 1e-5)
+    with pytest.raises(ValueError, match="unsupported device"):
+        arnoldi_epilogue(hess, -0.1j, v, v.real[:, 0, 0], w)
+    mpo = torch.empty((5, 2, 2, 3, 3), dtype=torch.complex64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        sv_mpo_matvec(mpo, w, None)
 
 
 @pytest.fixture
@@ -341,3 +421,99 @@ def test_default_tdvp_config_runs_on_card(cuda):
     cpu = yt.run_tjm_batch(t0, w, None, obs, plan, batch=2, device="cpu")
     assert all(counts[name] > 0 for name in ("heff2", "heff1", "lanczos_step", "env_update", "lanczos_epilogue"))
     assert (card.double() - cpu).abs().max().item() <= 1e-3
+
+
+# K12 at the MCWF shapes: the full-width TFIM (B=16, L=20, Dw=3) and XXZ
+# (Dw=5), a vector smaller than a block (L=4), L=1, and Dw=8
+SV_SHAPES = [(16, 20, 3), (16, 20, 5), (4096, 4, 3), (3, 1, 2), (5, 9, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("batch", "length", "dw"), SV_SHAPES)
+def test_sv_mpo_kernel_matches_plain(cuda, batch, length, dw):
+    w, psi, local = _sv_inputs(9, batch, length, dw, cuda, off_diagonal=length < 20)
+    for loc in (None, local):
+        kernels.reset_launch_counts()
+        got = sv_mpo_matvec(w, psi, loc)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["sv_mpo_matvec"] == 1
+        assert _rel_err(got, sv_mpo_matvec_plain(w, psi, loc)) <= 1e-5
+    with pytest.raises(ValueError):
+        sv_mpo_matvec(w, psi[:, : 2 ** length // 2], local)  # not 2^L entries
+    with pytest.raises(ValueError):
+        sv_mpo_matvec(w.to(torch.complex128), psi.to(torch.complex128), None)
+
+
+ARNOLDI_SHAPES = [(16, 25, 2**20, 0), (16, 25, 2**20, 12), (16, 25, 2**20, 24), (4096, 16, 16, 9), (3, 32, 1000, 31)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("batch", "k", "n", "j"), ARNOLDI_SHAPES)
+def test_arnoldi_step_kernel_matches_plain(cuda, batch, k, n, j):
+    state = _arnoldi_inputs(10, batch, k, n, j, cuda)
+    copy = [t.clone() for t in state]
+    kernels.reset_launch_counts()
+    arnoldi_step(*state, j, 1.1920929e-05)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["arnoldi_step"] == 1
+    arnoldi_step_plain(*copy, j, 1.1920929e-05)
+    w, basis, hess, alive = state
+    rw, rbasis, rhess, ralive = copy
+    assert torch.equal(alive, ralive)  # identical breakdown masks
+    assert not alive[1] and not alive[2] and bool(alive[0])
+    for got, ref in ((w, rw), (basis, rbasis), (hess, rhess)):
+        assert _rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("batch", "k", "n"), [(16, 25, 2**20), (4096, 16, 16), (3, 32, 1000)])
+def test_arnoldi_epilogue_kernel_matches_plain(cuda, batch, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    nrm = torch.rand((batch,), generator=gen, device=cuda) + 0.1
+    nrm[1] = 0.0  # zero start vector: x passes through
+    x = _randc(gen, (batch, n), cuda)
+    basis = _randc(gen, (batch, k, n), cuda)
+    hess = _hessenberg(gen, batch, k, cuda)
+    hess[2, 5:, :] = 0  # a breakdown at j = 4: rows 5.. of its basis unused
+    hess[2, :, 5:] = 0
+    for coeff in (-0.1j, -1.0j):
+        kernels.reset_launch_counts()
+        got = arnoldi_epilogue(hess, coeff, basis, nrm, x)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["arnoldi_epilogue"] == 1
+        assert _rel_err(got, arnoldi_epilogue_plain(hess, coeff, basis, nrm, x)) <= 1e-5
+        assert torch.equal(got[1], x[1])
+    big = torch.zeros((2, 33, 8), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match="k <= 32"):
+        arnoldi_epilogue(torch.zeros((2, 33, 33), dtype=torch.complex64, device=cuda), -0.1j, big, nrm[:2],
+                         big[:, 0].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.filterwarnings("ignore:Synchronization debug mode is a prototype:UserWarning")
+def test_mcwf_local_route_on_card(cuda):
+    """The local MCWF route on the card (complex64, kernels K12 and K13)
+    against the dense route on the CPU (complex128), noiseless TFIM from a
+    Neel state at L = 8, with no host sync inside a step's Arnoldi loop."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch.analog.mcwf import make_mcwf_local_context
+    from yaqs_tpu_torch.ops.krylov import arnoldi_expm_apply
+
+    length = 8
+    w = yt.ising_mpo(length, 1.0, 0.5)
+    psi0 = yt.to_statevector(yt.named_product_state("Neel", length, 1))
+    obs = [yt.Observable("z", i) for i in range(length)]
+    kernels.reset_launch_counts()
+    card = yt.run_mcwf_batch(psi0, w, None, obs, dt=0.1, num_steps=4, batch=2, device=cuda, route="local").cpu()
+    counts = kernels.launch_counts()
+    cpu = yt.run_mcwf_batch(psi0, w, None, obs, dt=0.1, num_steps=4, batch=1, device="cpu")
+    assert counts["sv_mpo_matvec"] == counts["arnoldi_step"] == 4 * 25 and counts["arnoldi_epilogue"] == 4
+    assert (card.double() - cpu).abs().max().item() <= 1e-3
+    tables = make_mcwf_local_context(w, [], [], 0.1).tables(cuda, torch.complex64)
+    v = torch.as_tensor(np.tile(psi0, (2, 1))).to(cuda, torch.complex64)
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        arnoldi_expm_apply(lambda q: sv_mpo_matvec(tables.mpo, q, None), v, -0.1j, k=25)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

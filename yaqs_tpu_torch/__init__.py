@@ -10,17 +10,18 @@ synchronization inside a time step.  The hand-written CUDA kernels live in
 ``nvcc`` nor a card, and never imports JAX.
 
 The ported slices are the order-2 TJM trajectory path
-(:func:`yaqs_tpu_torch.analog.run.run_tjm_batch`) and the noisy digital TEBD
-path (:func:`yaqs_tpu_torch.digital.run.run_digital_batch`).  Both run on the
-card unless the caller passes another ``device``.
+(:func:`yaqs_tpu_torch.analog.run.run_tjm_batch`), the noisy digital TEBD
+path (:func:`yaqs_tpu_torch.digital.run.run_digital_batch`) and the MCWF
+state-vector path (:func:`yaqs_tpu_torch.analog.run.run_mcwf_batch`).  All
+run on the card unless the caller passes another ``device``.
 """
 
 from __future__ import annotations
 
-from .analog.run import run_tjm_batch
+from .analog.run import run_mcwf_batch, run_tjm_batch
 from .analog.tjm import TrajectoryPlan
-from .core.mpo_builders import heisenberg_mpo, ising_mpo
-from .core.mps_ops import named_product_state
+from .core.mpo_builders import heisenberg_mpo, ising_mpo, mpo_to_matrix
+from .core.mps_ops import named_product_state, to_statevector
 from .core.noise_model import NoiseModel, compile_noise
 from .core.observables import Observable, compile_observables
 from .digital.circuit import Circuit, GateOp, load_circuit
@@ -40,7 +41,10 @@ __all__ = [
     "heisenberg_mpo",
     "ising_mpo",
     "load_circuit",
+    "mpo_to_matrix",
     "named_product_state",
     "run_digital_batch",
+    "run_mcwf_batch",
     "run_tjm_batch",
+    "to_statevector",
 ]

@@ -1,0 +1,433 @@
+"""Monte Carlo wavefunction (MCWF) trajectories on state vectors, over a batch.
+
+Port of ``yaqs_tpu.analog.mcwf`` (the two routes ``Simulator.run`` takes for
+``representation="vector"``) and of the simulator's table helpers
+(``_local_jump_channels``, ``_local_obs_rows``, ``_dense_observables``).
+One call runs a batch of ``B`` trajectories as a Python loop over time
+steps, with the effective Hamiltonian ``H_eff = H - (i/2) sum_c A_c^dag A_c``
+(``A_c = sqrt(gamma_c) L_c``):
+
+- dense route (:class:`MCWFContext`): the step propagator
+  ``exp(-i dt H_eff)`` is built on the host with ``scipy.linalg.expm`` and
+  applied as a matrix product; jump operators and observables are dense
+  embedded matrices, as in the JAX package;
+- local route (:class:`MCWFLocalContext`): each step runs Arnoldi
+  (kernel K13) around ``H_eff`` applied as the MPO across the reshaped state
+  vector plus the one-site ``A^dag A`` terms (kernel K12); no dense or sparse
+  operator is built.
+
+Per step, as in the JAX package: the jump acts on the pre-step state
+``psi``; ``dp = 1 - ||psi_evolved||^2`` and ``u < dp`` decides it; the
+channel weights ``||A_c psi||^2`` take the relative floor ``1e-5 sum(w)``
+(in float64 too); the channel is the Gumbel-max over ``log max(w, 1e-300)``;
+if every channel is dark the trajectory does not jump; the state is
+measured at t=0 and after each step.  The local route reads the weights of
+its one-site channels from each site's reduced matrix, ``Tr(A^dag A
+rho_s)``, and applies only the chosen channel (no ``(nc, B, 2^L)`` stack).
+
+Draws come from outside, as on the TJM path: ``draws(stream, j) -> (u (B,),
+gumbel (B, nc))`` for step ``j`` on the trajectory stream.  Only one-site
+processes and one-site observables are ported; anything else raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import scipy.linalg
+import torch
+
+from ..kernels.sv_mpo import apply_one_site, sv_mpo_matvec
+from ..methods.stochastic import WEIGHT_FLOOR
+from ..ops.krylov import arnoldi_expm_apply
+from .embedding import embed_one_site
+from .tjm import TRAJECTORY_STREAM
+
+__all__ = [
+    "MCWFContext",
+    "MCWFLocalContext",
+    "LocalTables",
+    "make_mcwf_context",
+    "make_mcwf_local_context",
+    "mcwf_trajectory",
+    "mcwf_trajectory_local",
+    "mpo_matvec_statevector",
+    "apply_local_sv",
+    "local_jump_channels",
+    "local_obs_rows",
+    "dense_observables",
+    "site_reduced_matrices",
+    "apply_one_site_each",
+]
+
+
+# ---------------------------------------------------------------------------
+# Host tables (numpy), from the port's NoiseModel / Observable objects or
+# anything with the same fields (``processes``; ``name``, ``matrix``,
+# ``site_list``)
+# ---------------------------------------------------------------------------
+
+
+def local_jump_channels(noise_model) -> list[list[tuple[int, np.ndarray]]]:
+    """Jump channels as lists of local ``(site, matrix)`` factors with
+    ``sqrt(gamma)`` folded in; one-site processes only."""
+    channels = []
+    if noise_model is None:
+        return channels
+    for proc in noise_model.processes:
+        gamma = float(proc["strength"])
+        if gamma == 0.0:
+            continue
+        sites = proc["sites"]
+        if len(sites) != 1:
+            msg = "two-site jump channels are not ported to the MCWF path (one-site only)"
+            raise NotImplementedError(msg)
+        channels.append([(int(sites[0]), np.sqrt(gamma) * np.asarray(proc["matrix"]))])
+    return channels
+
+
+def _one_site(obs) -> tuple[int, np.ndarray]:
+    sites = obs.site_list
+    if obs.name in {"pvm", "entropy", "schmidt_spectrum"} or len(sites) != 1:
+        msg = f"{obs!r}: only one-site observables are ported to the MCWF path"
+        raise NotImplementedError(msg)
+    return int(sites[0]), np.asarray(obs.matrix)
+
+
+def local_obs_rows(observables) -> list:
+    """Observables as ``("terms", [[(site, matrix)]])`` rows, in the given
+    order (one-site only)."""
+    return [("terms", [[_one_site(obs)]]) for obs in observables]
+
+
+def dense_observables(observables, length: int, d: int = 2) -> list[np.ndarray]:
+    """Dense embedded matrices of the observables, in the given order
+    (one-site only)."""
+    return [embed_one_site(m, site, length, d) for site, m in map(_one_site, observables)]
+
+
+# ---------------------------------------------------------------------------
+# State-vector operations
+# ---------------------------------------------------------------------------
+
+
+#: the JAX module's names: ``_apply_local_sv`` and the MPO matvec (kernel
+#: K12, which also adds each site's one-site term ``local (L, d, d)``)
+apply_local_sv = apply_one_site
+mpo_matvec_statevector = sv_mpo_matvec
+
+
+def site_reduced_matrices(psi: torch.Tensor, sites, length: int, d: int = 2) -> dict[int, torch.Tensor]:
+    """``rho_s[z, a, b] = sum psi[.., a at s, ..] conj(psi[.., b at s, ..])``
+    for each ``s`` in ``sites``: ``{s: (B, d, d)}`` (unnormalized).
+
+    Elementwise products and sums over the strided views: as one einsum the
+    contraction becomes a batched matrix product with a 2^(L-1)-long inner
+    dimension, which cuBLAS ran at about 20 ms a site at L = 20, B = 16 on an
+    H100 (PERF.md)."""
+    b = psi.shape[0]
+    out = {}
+    for s in sites:
+        view = psi.reshape(b, d ** (length - 1 - s), d, d**s)
+        rho = psi.new_empty((b, d, d))
+        for a in range(d):
+            rho[:, a, a] = (view[:, :, a].real.square() + view[:, :, a].imag.square()).sum(dim=(1, 2))
+            for c in range(a + 1, d):
+                off = (view[:, :, a] * view[:, :, c].conj()).sum(dim=(1, 2))
+                rho[:, a, c] = off
+                rho[:, c, a] = off.conj()
+        out[s] = rho
+    return out
+
+
+def apply_one_site_each(psi: torch.Tensor, ops: torch.Tensor, sites: torch.Tensor, d: int = 2) -> torch.Tensor:
+    """Apply ``ops[z] (d, d)`` at site ``sites[z]`` of trajectory ``z``'s
+    ``psi (B, d^L)`` for every ``z`` at once (gathers, no host sync)."""
+    b, n = psi.shape
+    idx = torch.arange(n, device=psi.device)
+    stride = (d ** sites.to(torch.int64))[:, None]  # (B, 1)
+    digit = torch.div(idx[None], stride, rounding_mode="floor") % d  # (B, n)
+    base = idx[None] - digit * stride
+    flat_ops = ops.reshape(b, d * d)
+    out = torch.zeros_like(psi)
+    for c in range(d):
+        coef = torch.gather(flat_ops, 1, digit * d + c)
+        out += coef * torch.gather(psi, 1, base + c * stride)
+    return out
+
+
+def _choose_channel(w: torch.Tensor, u: torch.Tensor, dp: torch.Tensor, gumbel: torch.Tensor):
+    """Floored weights, the Gumbel-max channel and the jump mask (no jump
+    where every channel is dark)."""
+    w = torch.where(w > WEIGHT_FLOOR * w.sum(dim=-1, keepdim=True), w, torch.zeros_like(w))
+    idx = torch.argmax(torch.log(torch.clamp(w, min=1e-300)) + gumbel, dim=-1)
+    jumped = (u < dp) & (w.sum(dim=-1) > 0)
+    return idx, jumped
+
+
+def _normalized(out: torch.Tensor) -> torch.Tensor:
+    nrm = torch.linalg.vector_norm(out, dim=-1)
+    return out / torch.where(nrm > 0, nrm, torch.ones_like(nrm)).to(out.dtype)[:, None]
+
+
+def _norm2(psi: torch.Tensor) -> torch.Tensor:
+    return (psi.conj() * psi).real.sum(dim=-1)
+
+
+def _check_draws(has_noise: bool, draws) -> None:
+    if has_noise and draws is None:
+        msg = "a noisy run needs a draw source"
+        raise ValueError(msg)
+
+
+# ---------------------------------------------------------------------------
+# Dense route
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MCWFContext:
+    """Dense operators for MCWF stepping: ``propagator`` ``exp(-i dt H_eff)``
+    ``(D, D)``, ``jump_ops (nc, D, D)`` embedded jump operators (rates not
+    folded in), ``gammas (nc,)`` and ``obs (n_obs, D, D)``; numpy from
+    :func:`make_mcwf_context`, torch after :meth:`to`."""
+
+    propagator: Any
+    jump_ops: Any
+    gammas: Any
+    obs: Any
+
+    def to(self, device, dtype: torch.dtype) -> MCWFContext:
+        """Tables as torch tensors on ``device`` (complex in ``dtype``, the
+        rates in its real counterpart)."""
+        rdtype = torch.empty((), dtype=dtype).real.dtype
+
+        def conv(x, dt):
+            return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dt)
+
+        return MCWFContext(
+            conv(self.propagator, dtype), conv(self.jump_ops, dtype), conv(self.gammas, rdtype), conv(self.obs, dtype)
+        )
+
+
+def make_mcwf_context(
+    h: np.ndarray,
+    jump_ops: list[np.ndarray],
+    gammas: list[float],
+    observables: list[np.ndarray],
+    dt: float,
+) -> MCWFContext:
+    """``H_eff = h - 0.5j sum gamma J^dag J`` and its step propagator, with
+    the jump operators and observables stacked (complex128 numpy)."""
+    heff = np.asarray(h, dtype=np.complex128).copy()
+    for gamma, jump in zip(gammas, jump_ops):
+        heff = heff - 0.5j * gamma * (jump.conj().T @ jump)
+    prop = scipy.linalg.expm(-1j * dt * heff)
+    dim = heff.shape[0]
+    jumps = np.stack(jump_ops).astype(np.complex128) if jump_ops else np.zeros((0, dim, dim), np.complex128)
+    return MCWFContext(
+        propagator=prop,
+        jump_ops=jumps,
+        gammas=np.asarray(gammas, dtype=np.float64).reshape(-1),
+        obs=np.asarray(np.stack(observables), dtype=np.complex128),
+    )
+
+
+def mcwf_trajectory(draws, psi0: torch.Tensor, ctx: MCWFContext, num_steps: int, return_state: bool = False):
+    """A batch of MCWF trajectories through the dense propagator.
+
+    ``psi0 (B, D)`` (device and dtype of the run); ``ctx`` is moved there.
+    Returns ``(B, n_obs, num_steps + 1)`` real values, and the final states
+    ``(B, D)`` with ``return_state``.
+    """
+    ctx = ctx.to(psi0.device, psi0.dtype)
+    has_noise = ctx.jump_ops.shape[0] > 0
+    _check_draws(has_noise, draws)
+
+    def measure(psi):
+        vals = torch.einsum("zi,kij,zj->zk", psi.conj(), ctx.obs, psi).real
+        return vals / _norm2(psi)[:, None]
+
+    psi = psi0
+    cols = [measure(psi)]
+    for j in range(num_steps):
+        psi_evolved = psi @ ctx.propagator.mT
+        n2 = _norm2(psi_evolved)
+        no_jump = psi_evolved / torch.sqrt(n2).to(psi.dtype)[:, None]
+        if has_noise:
+            u, gumbel = draws(TRAJECTORY_STREAM, j)
+            lpsi = torch.einsum("kij,zj->zki", ctx.jump_ops, psi)  # the pre-step state
+            w = ctx.gammas * _norm2(lpsi)
+            idx, jumped = _choose_channel(w, u, 1.0 - n2, gumbel)
+            chosen = lpsi[torch.arange(psi.shape[0], device=psi.device), idx]
+            psi = torch.where(jumped[:, None], _normalized(chosen), no_jump)
+        else:
+            psi = no_jump
+        cols.append(measure(psi))
+    out = torch.stack(cols, dim=-1)
+    return (out, psi) if return_state else out
+
+
+# ---------------------------------------------------------------------------
+# Local route
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MCWFLocalContext:
+    """Large-system MCWF context (host numpy), the JAX package's fields:
+    ``mpo (L, d, d, Dw, Dw)``; per channel, ``channels`` its ``(site,
+    matrix)`` factors with ``sqrt(gamma)`` folded in and ``ldl_channels``
+    the matching ``A^dag A``; ``obs_rows`` ``("terms", ((factors), ...))``
+    rows; and the chain length, ``d``, ``dt`` and the Krylov dimension."""
+
+    mpo: Any
+    channels: tuple
+    ldl_channels: tuple
+    obs_rows: tuple
+    length: int
+    d: int
+    dt: float
+    krylov_dim: int
+
+    def tables(self, device, dtype: torch.dtype) -> LocalTables:
+        """The device tables of the local route (one-site channels and
+        observables only; anything else raises ``NotImplementedError``)."""
+        d = self.d
+
+        def site_table(rows, what):
+            sites, mats = [], []
+            for factors in rows:
+                if len(factors) != 1:
+                    msg = f"multi-site {what} are not ported to the MCWF path (one-site only)"
+                    raise NotImplementedError(msg)
+                site, m = factors[0]
+                sites.append(int(site))
+                mats.append(np.asarray(m, dtype=np.complex128))
+            mats = np.stack(mats) if mats else np.zeros((0, d, d), np.complex128)
+            return sites, torch.as_tensor(mats).to(device=device, dtype=dtype)
+
+        obs_terms = []
+        for kind, payload in self.obs_rows:
+            if kind != "terms" or len(payload) != 1:
+                msg = "PVM and multi-term observable rows are not ported to the MCWF path (one-site only)"
+                raise NotImplementedError(msg)
+            obs_terms.append(payload[0])
+        ch_sites, ch_ops = site_table(self.channels, "jump channels")
+        _, ch_ldl = site_table(self.ldl_channels, "jump channels")
+        obs_sites, obs_ops = site_table(obs_terms, "observables")
+        local = np.zeros((self.length, d, d), dtype=np.complex128)
+        for (site, _), (_, ldl) in zip((f[0] for f in self.channels), (f[0] for f in self.ldl_channels)):
+            local[site] += -0.5j * np.asarray(ldl)
+        return LocalTables(
+            mpo=torch.as_tensor(np.asarray(self.mpo)).to(device=device, dtype=dtype).contiguous(),
+            local=torch.as_tensor(local).to(device=device, dtype=dtype) if self.channels else None,
+            ch_sites=ch_sites,
+            ch_site=torch.as_tensor(ch_sites, dtype=torch.int64, device=device),
+            ch_op=ch_ops,
+            ch_ldl=ch_ldl,
+            obs_sites=obs_sites,
+            obs_op=obs_ops,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalTables:
+    """Device tables of the local route: the MPO, each site's summed
+    ``-0.5j A^dag A`` (None without noise), and the one-site channels' and
+    observables' sites (host lists; ``ch_site`` also on the device) and
+    matrices."""
+
+    mpo: torch.Tensor
+    local: torch.Tensor | None
+    ch_sites: list
+    ch_site: torch.Tensor
+    ch_op: torch.Tensor
+    ch_ldl: torch.Tensor
+    obs_sites: list
+    obs_op: torch.Tensor
+
+
+def make_mcwf_local_context(
+    mpo: np.ndarray,
+    channels: list[list[tuple[int, np.ndarray]]],
+    obs_rows: list,
+    dt: float,
+    krylov_dim: int = 25,
+) -> MCWFLocalContext:
+    """Build the local-term context (complex128 numpy).  ``channels`` items
+    are lists of ``(site, matrix)`` factors with ``sqrt(gamma)`` folded in;
+    ``obs_rows`` items are ``("terms", [[(site, matrix)], ...])``."""
+    chans, ldls = [], []
+    for factors in channels:
+        fs = tuple((int(s), np.asarray(m, dtype=np.complex128)) for s, m in factors)
+        chans.append(fs)
+        ldls.append(tuple((s, m.conj().T @ m) for s, m in fs))
+    rows = []
+    for kind, payload in obs_rows:
+        if kind != "terms":
+            rows.append((kind, payload))
+            continue
+        rows.append((kind, tuple(tuple((int(s), np.asarray(m, dtype=np.complex128)) for s, m in t) for t in payload)))
+    mpo = np.asarray(mpo, dtype=np.complex128)
+    return MCWFLocalContext(
+        mpo=mpo,
+        channels=tuple(chans),
+        ldl_channels=tuple(ldls),
+        obs_rows=tuple(rows),
+        length=int(mpo.shape[0]),
+        d=int(mpo.shape[1]),
+        dt=float(dt),
+        krylov_dim=int(krylov_dim),
+    )
+
+
+def mcwf_trajectory_local(
+    draws, psi0: torch.Tensor, ctx: MCWFLocalContext, num_steps: int, return_state: bool = False
+):
+    """A batch of MCWF trajectories through the local-term Arnoldi step.
+
+    ``psi0 (B, d^L)`` (device and dtype of the run).  Returns ``(B, n_obs,
+    num_steps + 1)`` real values, and the final states ``(B, d^L)`` with
+    ``return_state``.
+    """
+    length, d = ctx.length, ctx.d
+    tab = ctx.tables(psi0.device, psi0.dtype)
+    has_noise = len(tab.ch_sites) > 0
+    _check_draws(has_noise, draws)
+    sites = sorted(set(tab.obs_sites) | set(tab.ch_sites))
+
+    def heff_mv(v):
+        return sv_mpo_matvec(tab.mpo, v, tab.local)
+
+    def reduced(psi):
+        rho = site_reduced_matrices(psi, sites, length, d)
+        return lambda idx: torch.stack([rho[s] for s in idx], dim=1) if idx else psi.new_zeros((psi.shape[0], 0, d, d))
+
+    def measure(psi, rho_at):
+        vals = torch.einsum("kab,zkba->zk", tab.obs_op, rho_at(tab.obs_sites)).real
+        return vals / _norm2(psi)[:, None]
+
+    psi = psi0
+    rho_at = reduced(psi)
+    cols = [measure(psi, rho_at)]
+    for j in range(num_steps):
+        psi_evolved = arnoldi_expm_apply(heff_mv, psi, -1j * ctx.dt, k=ctx.krylov_dim)
+        n2 = _norm2(psi_evolved)
+        no_jump = psi_evolved / torch.sqrt(n2).to(psi.dtype)[:, None]
+        if has_noise:
+            u, gumbel = draws(TRAJECTORY_STREAM, j)
+            # ||A_c psi||^2 = Tr(A_c^dag A_c rho_s) of the pre-step state
+            w = torch.einsum("kab,zkba->zk", tab.ch_ldl, rho_at(tab.ch_sites)).real
+            idx, jumped = _choose_channel(w, u, 1.0 - n2, gumbel)
+            chosen = apply_one_site_each(psi, tab.ch_op[idx], tab.ch_site[idx], d)
+            psi = torch.where(jumped[:, None], _normalized(chosen), no_jump)
+        else:
+            psi = no_jump
+        rho_at = reduced(psi)
+        cols.append(measure(psi, rho_at))
+    out = torch.stack(cols, dim=-1)
+    return (out, psi) if return_state else out

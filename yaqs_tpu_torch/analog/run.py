@@ -1,8 +1,11 @@
-"""Ensemble runner: a batch of TJM trajectories on one device.
+"""Ensemble runners: a batch of trajectories on one device.
 
-Plays the role of the JAX package's ``bench.py`` ``analog_run`` plus the
-batching part of ``parallel/runtime.py``: host tables in, one batched call of
-:func:`..analog.tjm.tjm_trajectory`, observables ``(B, n_obs, T)`` out.
+:func:`run_tjm_batch` plays the role of the JAX package's ``bench.py``
+``analog_run`` plus the batching part of ``parallel/runtime.py``: host
+tables in, one batched call of :func:`..analog.tjm.tjm_trajectory`,
+observables ``(B, n_obs, T)`` out.  :func:`run_mcwf_batch` is the state-vector
+branch of ``Simulator.run`` (``simulator.py`` ``_run_analog_mcwf``): it
+routes to the dense or the local MCWF route exactly as the simulator does.
 """
 
 from __future__ import annotations
@@ -10,11 +13,34 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.mpo_builders import mpo_to_matrix
 from ..core.noise_model import CompiledNoise
 from ..core.observables import CompiledObservables
+from .lindblad import noise_model_jump_ops
+from .mcwf import (
+    dense_observables,
+    local_jump_channels,
+    local_obs_rows,
+    make_mcwf_context,
+    make_mcwf_local_context,
+    mcwf_trajectory,
+    mcwf_trajectory_local,
+)
 from .tjm import GeneratorDraws, TrajectoryPlan, tjm_trajectory
 
-__all__ = ["run_tjm_batch", "full_precision_matmuls", "check_device", "resolve_dtype"]
+__all__ = [
+    "run_tjm_batch",
+    "run_mcwf_batch",
+    "mcwf_route",
+    "full_precision_matmuls",
+    "check_device",
+    "resolve_dtype",
+    "MCWF_MAX_PRECOMPUTE_DIM",
+    "MCWF_KRYLOV_DIM",
+]
+
+MCWF_MAX_PRECOMPUTE_DIM = 4096  # above it the dense propagator is not built (simulator.py:57)
+MCWF_KRYLOV_DIM = 25
 
 
 def full_precision_matmuls() -> None:
@@ -39,6 +65,15 @@ def resolve_dtype(device, dtype: torch.dtype | None) -> torch.dtype:
     if dtype is not None:
         return dtype
     return torch.complex64 if torch.device(device).type == "cuda" else torch.complex128
+
+
+def _trajectory_indices(traj_indices, batch) -> list[int]:
+    if traj_indices is None:
+        if batch is None:
+            msg = "give batch or traj_indices"
+            raise ValueError(msg)
+        traj_indices = range(batch)
+    return [int(i) for i in traj_indices]
 
 
 def run_tjm_batch(
@@ -72,12 +107,7 @@ def run_tjm_batch(
     check_device(device)
     dtype = resolve_dtype(device, dtype)
     full_precision_matmuls()
-    if traj_indices is None:
-        if batch is None:
-            msg = "give batch or traj_indices"
-            raise ValueError(msg)
-        traj_indices = range(batch)
-    traj_indices = [int(i) for i in traj_indices]
+    traj_indices = _trajectory_indices(traj_indices, batch)
     b = len(traj_indices)
     t0 = torch.as_tensor(np.array(tensors0)).to(device=device, dtype=dtype)
     t0 = t0.unsqueeze(0).expand(b, *t0.shape).contiguous()
@@ -88,3 +118,84 @@ def run_tjm_batch(
         draws = GeneratorDraws(seed, traj_indices, noise_t.num_channels, device, t0.real.dtype)
     results, _, _ = tjm_trajectory(draws, t0, w, noise_t, co, plan)
     return results
+
+
+def mcwf_route(dim: int) -> str:
+    """The route ``Simulator.run`` takes for a state vector of ``dim``
+    entries: ``"local"`` above ``MCWF_MAX_PRECOMPUTE_DIM``, else
+    ``"dense"`` (simulator.py:524)."""
+    return "local" if dim > MCWF_MAX_PRECOMPUTE_DIM else "dense"
+
+
+def run_mcwf_batch(
+    psi0,
+    mpo,
+    noise=None,
+    observables=(),
+    *,
+    dt: float,
+    num_steps: int,
+    device="cuda",
+    dtype: torch.dtype | None = None,
+    seed: int = 0,
+    traj_indices=None,
+    batch: int | None = None,
+    draws=None,
+    route: str = "auto",
+    return_state: bool = False,
+):
+    """Run ``B`` MCWF trajectories of a state vector.
+
+    ``psi0 (d^L,)`` is the initial state vector (site 0 least significant;
+    normalized here, as ``State.to_vector`` does), ``mpo (L, d, d, Dw, Dw)``
+    the Hamiltonian, ``noise`` a :class:`NoiseModel` of one-site processes
+    (or None) and ``observables`` one-site :class:`Observable` objects, in
+    the order of the result's rows.  ``route="auto"`` takes the local route
+    (Arnoldi with ``k = min(25, d^L)`` around the MPO applied across the
+    vector, kernels K12 and K13) above ``d^L = 4096`` and the dense
+    propagator otherwise, as ``Simulator.run`` does; ``"dense"`` or
+    ``"local"`` forces one.  The batch is ``traj_indices`` (default
+    ``range(batch)``); trajectory ``i`` draws from a generator seeded by
+    ``(seed, 0, i)`` unless ``draws`` supplies the draws.
+
+    Runs on the card unless ``device`` says otherwise (no CPU fallback);
+    ``dtype`` defaults to complex64 on a CUDA device and complex128
+    elsewhere.  Returns the observables ``(B, n_obs, num_steps + 1)`` as a
+    real tensor on ``device``, and with ``return_state`` also the final
+    state vectors ``(B, d^L)``.
+    """
+    check_device(device)
+    dtype = resolve_dtype(device, dtype)
+    full_precision_matmuls()
+    traj_indices = _trajectory_indices(traj_indices, batch)
+    mpo = np.asarray(mpo)
+    length, d = int(mpo.shape[0]), int(mpo.shape[1])
+    dim = d**length
+    vec = np.asarray(psi0, dtype=np.complex128).reshape(-1)
+    if vec.shape[0] != dim:
+        msg = f"psi0 has {vec.shape[0]} entries; the {length}-site MPO needs {dim}"
+        raise ValueError(msg)
+    if route == "auto":
+        route = mcwf_route(dim)
+    if route == "local":
+        channels = local_jump_channels(noise)
+        ctx = make_mcwf_local_context(mpo, channels, local_obs_rows(observables), dt, min(MCWF_KRYLOV_DIM, dim))
+        num_channels, trajectory = len(channels), mcwf_trajectory_local
+    elif route == "dense":
+        obs_dense = dense_observables(observables, length, d)
+        # the embedded operators carry sqrt(gamma); unit rates then give the
+        # right H_eff and jump weights
+        jumps = noise_model_jump_ops(noise, length, d)
+        ctx = make_mcwf_context(mpo_to_matrix(mpo), jumps, [1.0] * len(jumps), obs_dense or [np.eye(dim)], dt)
+        num_channels, trajectory = len(jumps), mcwf_trajectory
+    else:
+        msg = f"route must be 'auto', 'dense' or 'local', got {route!r}"
+        raise ValueError(msg)
+    psi = torch.as_tensor(vec / np.linalg.norm(vec)).to(device=device, dtype=dtype)
+    psi = psi.unsqueeze(0).expand(len(traj_indices), dim).contiguous()
+    if draws is None and num_channels:
+        draws = GeneratorDraws(seed, traj_indices, num_channels, device, psi.real.dtype)
+    out = trajectory(draws, psi, ctx, num_steps, return_state=return_state)
+    if route == "dense" and not observables:
+        return (out[0][:, :0], out[1]) if return_state else out[:, :0]
+    return out

@@ -2,8 +2,9 @@
 
 Nothing here imports JAX: each function reads the fields of a ``yaqs_tpu``
 object (``CompiledNoise``, ``CompiledObservables``, ``TDVPConfig``,
-``TrajectoryPlan``) by name, copies arrays with ``np.array``, and builds the port's
-counterpart, so the same inputs go through both packages.
+``TrajectoryPlan``, the MCWF contexts) by name, copies arrays with
+``np.array``, and builds the port's counterpart, so the same inputs go
+through both packages.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .analog.mcwf import MCWFContext, MCWFLocalContext
 from .analog.tjm import TrajectoryPlan
 from .core.noise_model import CompiledNoise
 from .core.observables import CompiledObservables
@@ -30,6 +32,8 @@ __all__ = [
     "trajectory_plan",
     "compiled_circuit",
     "digital_draws",
+    "mcwf_context",
+    "mcwf_local_context",
 ]
 
 
@@ -119,3 +123,30 @@ def digital_draws(jumps: dict, shot_noise=None, device="cpu", dtype: torch.dtype
     }
     shots = None if shot_noise is None else to_torch(shot_noise, device, dtype)
     return InjectedDigitalDraws(table, shots)
+
+
+def mcwf_context(ctx) -> MCWFContext:
+    """The JAX package's ``MCWFContext`` (numpy leaves) as the port's."""
+    return MCWFContext(*(np.array(getattr(ctx, f.name)) for f in dataclasses.fields(MCWFContext)))
+
+
+def _factors(factors) -> tuple:
+    return tuple((int(s), np.array(m)) for s, m in factors)
+
+
+def mcwf_local_context(ctx) -> MCWFLocalContext:
+    """The JAX package's ``MCWFLocalContext`` as the port's: the same MPO,
+    channel factors, ``A^dag A`` factors and observable rows."""
+    rows = tuple(
+        (kind, payload if kind == "pvm" else tuple(_factors(t) for t in payload)) for kind, payload in ctx.obs_rows
+    )
+    return MCWFLocalContext(
+        mpo=np.array(ctx.mpo),
+        channels=tuple(_factors(ch) for ch in ctx.channels),
+        ldl_channels=tuple(_factors(ch) for ch in ctx.ldl_channels),
+        obs_rows=rows,
+        length=int(ctx.length),
+        d=int(ctx.d),
+        dt=float(ctx.dt),
+        krylov_dim=int(ctx.krylov_dim),
+    )

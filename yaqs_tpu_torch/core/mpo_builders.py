@@ -1,7 +1,7 @@
 """Host-side MPO construction (numpy), producing fixed-shape padded arrays.
 
-Port of ``yaqs_tpu.core.mpo_builders`` (the parts the TJM and digital slices
-need): an MPO
+Port of ``yaqs_tpu.core.mpo_builders`` (the parts the TJM, digital and MCWF
+slices need): an MPO
 over ``L`` sites is ``w: (L, d, d, Dw, Dw)`` complex, index order
 ``(out, in, wl, wr)``, with the boundary bond vectors absorbed at index 0 and
 interior bonds smaller than ``Dw`` zero padded.  The finite-state-machine
@@ -15,7 +15,7 @@ import numpy as np
 
 from ..models.operators import PAULI
 
-__all__ = ["gate_product_terms", "mpo_from_terms", "ising_mpo", "heisenberg_mpo"]
+__all__ = ["gate_product_terms", "mpo_from_terms", "ising_mpo", "heisenberg_mpo", "mpo_to_matrix"]
 
 
 def _op_matrix(op, d: int) -> np.ndarray:
@@ -187,3 +187,22 @@ def heisenberg_mpo(
     if h != 0:
         terms += [(-h, [(i, "Z")]) for i in range(length)]
     return mpo_from_terms(terms, length, d=d)
+
+
+def mpo_to_matrix(w: np.ndarray) -> np.ndarray:
+    """Dense operator with site 0 as the least significant index (matching
+    :func:`yaqs_tpu_torch.core.mps_ops.to_statevector`); O(d^2L)."""
+    w = np.asarray(w)
+    length, d = w.shape[0], w.shape[1]
+    # accumulate T[(s0..si), (s0'..si'), wr]
+    t = w[0][:, :, 0, :]  # (d, d, Dw)
+    for i in range(1, length):
+        t = np.einsum("abw,cdwv->acbdv", t, w[i])
+        t = t.reshape(t.shape[0] * d, t.shape[2] * d, -1)
+    m = t[:, :, 0]
+    n = d**length
+    # row multi-index runs (s0 slowest ... s_{L-1} fastest); site 0 least
+    # significant reverses the axes
+    m = m.reshape([d] * length + [d] * length)
+    perm = list(reversed(range(length))) + [length + p for p in reversed(range(length))]
+    return m.transpose(perm).reshape(n, n)

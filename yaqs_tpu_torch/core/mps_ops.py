@@ -30,6 +30,7 @@ from ..ops.decomp import merge_two_site, orthonormalize, split_two_site_truncate
 __all__ = [
     "product_state_tensors",
     "named_product_state",
+    "to_statevector",
     "transfer_right",
     "norm_squared_center0",
     "canonicalize_right",
@@ -107,6 +108,21 @@ def named_product_state(
         msg = f"Unknown preset state {name!r}"
         raise ValueError(msg)
     return product_state_tensors(vecs, chi, d=d, dtype=dtype)
+
+
+def to_statevector(tensors) -> np.ndarray:
+    """Dense state vector of one padded MPS ``(L, d, chi, chi)`` (numpy),
+    site 0 the least significant index: ``yaqs_tpu.core.mps_ops.
+    to_statevector_np``.  A zero-padded product state gives the same vector
+    at any ``chi``, so ``named_product_state(name, L, 1)`` is the cheap way
+    to a preset's vector."""
+    t = np.asarray(tensors)
+    length = t.shape[0]
+    vec = t[0][:, 0, :]  # (d, chi): boundary left bond index 0
+    for i in range(1, length):
+        vec = np.einsum("...r,srm->...sm", vec, t[i])
+    vec = vec[..., 0]
+    return np.transpose(vec, tuple(reversed(range(length)))).reshape(-1)
 
 
 # ---------------------------------------------------------------------------

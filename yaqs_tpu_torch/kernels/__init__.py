@@ -30,6 +30,9 @@ LAUNCHES: dict[str, int] = {
     "heff1": 0,
     "lanczos_step": 0,
     "env_update": 0,
+    "sv_mpo_matvec": 0,
+    "arnoldi_step": 0,
+    "arnoldi_epilogue": 0,
 }
 
 

@@ -54,6 +54,12 @@ _SIGNATURES = {
     "env_update_launch": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _LL, _I, _I, _I, _I, _P],
     # (w, q, q_prev, basis, alphas, betas, beta_prev, alive, q_next, batch, k, n, j, reorth, tol, stream)
     "lanczos_step_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # (w, psi, stride_psi, local, out, scratch, batch, L, dw, stream)
+    "sv_mpo_matvec_launch": [_P, _P, _LL, _P, _P, _P, _I, _I, _I, _P],
+    # (w, basis, hess, alive, scratch, batch, k, n, j, blocks, tol, stream)
+    "arnoldi_step_launch": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _F, _P],
+    # (hess, coeff_re, coeff_im, basis, nrm, x, out, small, batch, k, n, stream)
+    "arnoldi_epilogue_launch": [_P, _F, _F, _P, _P, _P, _P, _P, _I, _I, _LL, _P],
 }
 
 
