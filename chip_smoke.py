@@ -14,7 +14,11 @@ Phases (any failure raises and exits non-zero):
    or FP32 operations over 67 TFLOP/s, the larger); the TDVP kernels at the
    analog shape (B=32, chi=64, Dw=3), the XXZ shape (B=16, Dw=5) and the
    gate-window shape (B=512, chi=32, Dw=1), the Lanczos step in both variants with identical breakdown
-   masks, the epilogue also at k=25;
+   masks, the epilogue also at k=25; K9 ``svd_jacobi`` at (32, 128, 128),
+   (512, 64, 64) and the zip-up split's adjoint (32, 256, 128) and values only at
+   (32, 64, 64), each on random, padded rank-1 and degenerate blocks (sweeps
+   and final off-diagonal ratio printed); K14 ``householder_qr`` at (32, 128, 64) (adjoint load) and
+   (512, 64, 32), entry by entry, and on rank-1 padded blocks;
 4. the analog slice, order-2 TJM at the benchmark shape (TFIM L=100, chi=64,
    B=32, z + lowering noise 0.05, 10 steps of dt=0.1, complex64, fast knob
    set): trajectories/s, ms per step, peak memory, proof that its seven
@@ -22,10 +26,26 @@ Phases (any failure raises and exits non-zero):
    share, device time by kernel);
 4b. the bench's XXZ point (Dw=5, B=16, otherwise as 4), through the same
    kernels;
+4c. "Analog TFIM, GPU defaults": phase 4's inputs with the knob set the
+   JAX package takes off a TPU (exact SVD split, QR canonicalization,
+   reorthogonalized Lanczos), ``record_diagnostics=True`` and the rows Z
+   everywhere, ``zz`` on (0, 1) and the entropy at bond 49: trajectories/s,
+   ms per step, peak memory, the launches of K9, K14 and the other kernels,
+   K9's largest sweep count and final off-diagonal ratio over the run's
+   blocks (both within their limits), and a profiled step (busy share, top
+   device rows, no cuSOLVER kernel);
+   then trajectories/s of the exact knob set alone (phase 4's rows, no
+   diagnostics);
 5. the complex64 symmetric-Z guard: noiseless TFIM from x+ at L=48, chi=64
-   keeps max|<Z>| < 1e-3 over 10 steps;
+   keeps max|<Z>| < 1e-3 over 10 steps, with the fast and the exact knob
+   set;
 6. noiseless L=32, chi=32 from a Neel state: the card's complex64 result
    against the port's complex128 run on the CPU, max|dZ| <= 1e-3;
+6b. the same comparison with phase 4c's knob set, diagnostics and rows,
+   noiseless at L=32, chi=32: from x+ against complex128 and from a Neel
+   state against the CPU's complex64 run (where complex64 itself lies about
+   1e-3 from complex128, printed), max|dZ|, max|dZZ| and max|d entropy| <=
+   1e-3, the same max-bond diagnostic;
 7. the digital slice at full width, the JAX bench's ``digital_bench``: a
    noisy QASM2 brickwork of n=20 qubits and 8 layers with a mid-circuit
    observable column, lowering noise 0.02, chi=32, 512 trajectories, 256
@@ -37,11 +57,18 @@ Phases (any failure raises and exits non-zero):
    device time by kernel of one window stage (profiled);
 8. the digital oracle guard: a noiseless 10-qubit brickwork of 8 layers at
    chi=32 (exact there) against a numpy state vector, max|d<Z>| <= 1e-3 with
-   the fast and with the exact knob set; 4096 noiseless shots of a 4-qubit
-   circuit within total variation 0.05 of the exact distribution;
+   the fast and with the exact knob set (the latter through K9 and K14);
+   the default route (``gate_mode="mpo"``, ``TDVPConfig()``) at chi=64
+   with a long-range ``cx`` and a ``ccx``, whose zip-up splits (128, 256)
+   and (128, 320) blocks, within the same limit, K9 converged; 4096
+   noiseless shots of a 4-qubit circuit within total variation 0.05 of
+   the exact distribution;
 9. window parity: a noiseless 10-qubit brickwork with a long-range ``cx``
-   and a ``ccx`` under ``tdvp`` and ``full-tdvp``, card complex64 against
-   CPU complex128, max|d<Z>| <= 1e-3;
+   and a ``ccx`` under ``tdvp`` and ``full-tdvp`` (the center shift through
+   K14), card complex64 against CPU complex128 with the fast knob set, and
+   against CPU complex64 with the exact one (K9 and K14 throughout; its
+   complex64 result lies about 0.14 from complex128 in the JAX package
+   too), max|d<Z>| <= 1e-3;
 10. the MCWF state-vector path at full width, the local route of
    ``run_mcwf_batch`` (TFIM L=20, Dw=3, from x+, z + lowering noise 0.05 on
    every site, 10 steps of dt=0.1, one-site Z everywhere, B=16, complex64,
@@ -54,10 +81,10 @@ Phases (any failure raises and exits non-zero):
    on the card against the exact Lindblad evolution (numpy/scipy), every
    (site, time) within 5 standard errors + 1e-3.
 
-Phase 3 also times the analog path's splits that are still PyTorch (K5
-``split_matrix_subspace``, K6 ``canonicalize_right(method="newton")``, K9
-``split_matrix_truncated``) at the analog shape, with their calls in the
-phase 4 run; they are not kernels yet and stay out of the kernel table.
+Phase 3 also times the analog path's Newton parts that are still PyTorch
+around K4 (K5 ``split_matrix_subspace``, K6 ``canonicalize_right(method=
+"newton")``) at the analog shape, with their calls in the phase 4 run; they
+are not kernels of their own yet and stay out of the kernel table.
 
 The last two lines of standard output are the kernel table and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come on
@@ -106,7 +133,15 @@ DIGITAL_KERNELS = ("bond_gate", "moment_scan", "sample_shots", "ns_polar")
 # slice that ported it, or the analog path for the TDVP kernels
 TABLE_PATH = dict(ns_polar="analog", lanczos_epilogue="analog", bond_gate="digital", moment_scan="digital",
                   sample_shots="digital", heff2="analog", heff1="analog", lanczos_step="analog", env_update="analog",
-                  sv_mpo_matvec="mcwf", arnoldi_step="mcwf", arnoldi_epilogue="mcwf")
+                  sv_mpo_matvec="mcwf", arnoldi_step="mcwf", arnoldi_epilogue="mcwf", svd_jacobi="analog_exact",
+                  householder_qr="analog_exact")
+# the phases whose main-path launch counts the JSON file keeps per kernel
+LAUNCH_PATHS = ("analog", "digital", "analog_xxz", "digital_window", "mcwf", "analog_exact")
+DECOMP_KERNELS = ("svd_jacobi", "householder_qr")
+EXACT_KERNELS = (*DECOMP_KERNELS, "lanczos_epilogue", "moment_scan", *TDVP_KERNELS)
+DECOMP_TOL = 1e-4  # K9 and K14 against their plain versions (relative; complex64, another algorithm for K9)
+# cuSOLVER kernel names that must not appear in the GPU-defaults run's profile
+CUSOLVER_MARKS = ("gesvd", "geqrf", "larft", "orgqr", "ungqr")
 # kernel shapes of the TDVP kernels: (B, chi, Dw) of the analog TFIM path, of
 # the analog XXZ path and of the digital gate window
 TDVP_SHAPES = {"analog": (BENCH["batch"], BENCH["chi"], 3), "xxz": (XXZ["batch"], BENCH["chi"], 5),
@@ -131,11 +166,11 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def host_paced_ms(fn, windows: int = 5, calls: int = 20) -> float:
+def host_paced_ms(fn, windows: int = 5, calls: int = 20, warmup: int = 3) -> float:
     """Median time per call over ``windows`` runs of ``calls`` back-to-back
-    calls (CUDA events), after warm-up.  Where a call holds little device
-    work this reads the host's launch rate, not the device."""
-    for _ in range(3):
+    calls (CUDA events), after ``warmup`` calls.  Where a call holds little
+    device work this reads the host's launch rate, not the device."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     per_call = []
@@ -150,10 +185,10 @@ def host_paced_ms(fn, windows: int = 5, calls: int = 20) -> float:
     return statistics.median(per_call)
 
 
-def single_call_ms(fn, calls: int = 20) -> float:
+def single_call_ms(fn, calls: int = 20, warmup: int = 3) -> float:
     """Median time of one call, each between its own pair of CUDA events
-    with a synchronize after it."""
-    for _ in range(3):
+    with a synchronize after it, after ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -212,19 +247,30 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return ((got - ref).abs().max() / ref.abs().max()).item()
 
 
-def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops, per_call=1):
+def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops, per_call=1, slow_plain=False):
     """Every time of one kernel at one shape, printed on one line.  The
     kernel and its plain version: profiler device time and host-paced time.
     The library call, which may issue thousands of small launches and host
     syncs (the batched SVD does): host-paced over 3 windows of 3 calls, kept
-    out of the profiler."""
+    out of the profiler.  ``slow_plain`` (a plain version and library call
+    that call cuSOLVER's SVD, which lost the profiler's later device rows,
+    and take up to seconds): the plain version one call at a time between
+    CUDA events (1 warm-up, the median of 3 calls; host-paced is then the
+    same figure), the library call host-paced over 3 single calls after 1
+    warm-up."""
     ms, launches, source = device_ms(kernel_fn, names=kernel_names, per_call=per_call)
-    plain_ms, plain_events, plain_source = device_ms(plain_fn)
-    library_ms = None if library_fn is None else host_paced_ms(library_fn, windows=3, calls=3)
+    if slow_plain:
+        plain_ms, plain_events, plain_source = single_call_ms(plain_fn, calls=3, warmup=1), float("nan"), "events"
+        plain_host_ms = plain_ms
+        library_ms = None if library_fn is None else host_paced_ms(library_fn, windows=3, calls=1, warmup=1)
+    else:
+        plain_ms, plain_events, plain_source = device_ms(plain_fn)
+        plain_host_ms = host_paced_ms(plain_fn)
+        library_ms = None if library_fn is None else host_paced_ms(library_fn, windows=3, calls=3)
     bound_ms, bound_by = bound(nbytes, flops)
     out = dict(
         ms=ms, ms_source=source, launches_per_call=launches, host_ms=host_paced_ms(kernel_fn), plain_ms=plain_ms,
-        plain_ms_source=plain_source, plain_events_per_call=plain_events, plain_host_ms=host_paced_ms(plain_fn),
+        plain_ms_source=plain_source, plain_events_per_call=plain_events, plain_host_ms=plain_host_ms,
         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
     )
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms (host-paced)"
@@ -422,7 +468,132 @@ def phase_kernels(dev):
     )
     rows.update(tdvp_kernel_rows(dev, randc, gen))
     rows.update(mcwf_kernel_rows(dev, randc, gen))
+    rows.update(decomp_kernel_rows(dev, randc, gen))
     return rows
+
+
+def svd_inputs(kind, b, rows, cols, dev, randc):
+    """Blocks of three kinds: ``random``; ``rank1``, a padded product
+    state's two-site block (one outer product of x+ vectors at the anchored
+    corners, zeros elsewhere); ``degenerate``, U diag(s) V^H with s = (3, 2,
+    2, 2, 1.5, 1, 1/2, 1/4, ...) and random isometries."""
+    k = min(rows, cols)
+    if kind == "random":
+        return randc(b, rows, cols)
+    if kind == "rank1":
+        u = torch.zeros(rows, dtype=torch.complex64, device=dev)
+        v = torch.zeros(cols, dtype=torch.complex64, device=dev)
+        u[0] = u[rows // 2] = v[0] = v[cols // 2] = 2**-0.5
+        return torch.outer(u, v).expand(b, rows, cols).contiguous()
+    s = torch.tensor([3.0, 2.0, 2.0, 2.0, 1.5] + [0.5**i for i in range(max(k - 5, 0))], device=dev)[:k]
+    uq = torch.linalg.qr(randc(b, rows, k))[0]
+    vq = torch.linalg.qr(randc(b, cols, k))[0]
+    return (uq * s.to(torch.complex64)) @ vq.mH
+
+
+def decomp_kernel_rows(dev, randc, gen):
+    """K9 ``svd_jacobi`` at the analog split shape (32, 128, 128), the
+    digital one (512, 64, 64) and, with vectors, the zip-up split of a
+    long-range gate's MPO at chi = 64 as the kernel factors it, the
+    (32, 256, 128) adjoint of its (128, 256) blocks (the wrapper's adjoint
+    copies are PyTorch's, not the kernel's), and values only at the bond
+    spectra's (32, 64, 64), each on random, padded rank-1 and degenerate
+    blocks: singular values within 1e-4 s_max of the plain version's, U S Vh
+    within 1e-4 of the block, U (completion columns included) and Vh
+    isometries within 1e-4, the sweeps taken and the last sweep's largest
+    off-diagonal ratio.  K14 ``householder_qr`` at the canonicalization's
+    shape (32, 128, 64) (an adjoint load) and the window shift's (512, 64,
+    32), both with the complex64 noise floor: Q and R entry by entry within 1e-4 of the plain
+    version's, R exactly upper triangular, and padded blocks finite."""
+    from yaqs_tpu_torch.kernels.qr import householder_qr, householder_qr_plain
+    from yaqs_tpu_torch.kernels.svd import MAX_SWEEPS, svd, svd_plain
+    from yaqs_tpu_torch.ops.decomp import split_matrix_truncated
+
+    rows = {name: dict(max_abs_err=0.0) for name in DECOMP_KERNELS}
+    b, chi, nd, cd = BENCH["batch"], BENCH["chi"], DIGITAL["num_traj"], DIGITAL["chi"]
+    for key, (bs, r, c, vectors) in {"analog": (b, 2 * chi, 2 * chi, True), "digital": (nd, 2 * cd, 2 * cd, True),
+                                     "values": (b, chi, chi, False), "zipup": (b, 4 * chi, 2 * chi, True)}.items():
+        k = min(r, c)
+        checks = {}
+        for kind in ("random", "rank1", "degenerate"):
+            m = svd_inputs(kind, bs, r, c, dev, randc)
+            info = {}
+            out = svd(m, compute_uv=vectors, info=info)
+            s_ref = svd_plain(m, compute_uv=False)
+            torch.cuda.synchronize()
+            s = out[1] if vectors else out
+            smax = s_ref[:, :1]
+            err = ((s - s_ref).abs() / smax).max().item()
+            worst = dict(s_rel_err=err, sweeps=int(info["sweeps"].max()), off=info["off"].max().item(), tol=info["tol"])
+            if vectors:
+                u, _, vh = out
+                eye = torch.eye(k, device=dev)
+                recon = (u * s.to(u.dtype)[:, None, :]) @ vh
+                worst.update(recon_rel_err=((recon - m).norm(dim=(1, 2)) / m.norm(dim=(1, 2))).max().item(),
+                             u_isometry=(u.mH @ u - eye).abs().max().item(),
+                             vh_isometry=(vh @ vh.mH - eye).abs().max().item())
+            log(f"[phase 3] svd_jacobi {key} (B={bs}, {r}x{c}, {'vectors' if vectors else 'values only'}) {kind}: "
+                + ", ".join(f"{n} {v:.3e}" if isinstance(v, float) else f"{n} {v}" for n, v in worst.items()))
+            check(all(v <= DECOMP_TOL for n, v in worst.items() if n.endswith(("err", "isometry"))),
+                  f"svd_jacobi ({key}, {kind}) disagrees with its plain version: {worst}")
+            check(worst["sweeps"] < MAX_SWEEPS and worst["off"] <= worst["tol"],
+                  f"svd_jacobi ({key}, {kind}) did not converge: {worst}")
+            checks[kind] = worst
+            rows["svd_jacobi"]["max_abs_err"] = max(rows["svd_jacobi"]["max_abs_err"], (s - s_ref).abs().max().item())
+        m = randc(bs, r, c)
+        if vectors:  # Golub-Kahan-Reinsch with U and V: 4 m n^2 + 8 n^3 complex MACs (m >= n)
+            long, short = max(r, c), min(r, c)
+            nbytes, cmacs = bs * (r * c + r * k + k * c) * C64 + bs * k * 4, bs * (4 * long * short**2 + 8 * short**3)
+            library = (lambda m=m: torch.linalg.svd(m, full_matrices=False)), "torch.linalg.svd, PyTorch's default algorithm"
+        else:  # the bidiagonalization alone: 4 m n^2 - 4 n^3 / 3
+            nbytes, cmacs = bs * r * c * C64 + bs * k * 4, bs * (4 * r * c * c - 4 * c**3 // 3)
+            library = (lambda m=m: torch.linalg.svdvals(m)), "torch.linalg.svdvals, PyTorch's default algorithm"
+        t = timings(f"svd_jacobi {key} (B={bs}, {r}x{c})", lambda m=m, v=vectors: svd(m, compute_uv=v),
+                    lambda m=m, v=vectors: svd_plain(m, compute_uv=v), library[0], ("svd_jacobi",), nbytes,
+                    cmacs * CMAC_FLOPS, slow_plain=True)
+        rows["svd_jacobi"][key] = dict(shape=[bs, r, c], vectors=vectors, library_call=library[1], inputs=checks, **t)
+    # the whole exact split around the kernel (truncation, mask and distribution in PyTorch)
+    m = randc(b, 2 * chi, 2 * chi)
+    split_ms, split_events, _ = device_ms(lambda: split_matrix_truncated(
+        m, chi, mode="discarded_weight", threshold=1e-6, max_bond_dim=chi, min_keep=2), calls=5)
+    rows["svd_jacobi"]["analog"]["split_matrix_truncated_ms"] = split_ms
+    log(f"[phase 3] split_matrix_truncated (B={b}, chi={chi}) around svd_jacobi: device {split_ms:.4f} ms "
+        f"({split_events:g} device events)")
+
+    for key, (bs, n, k, adjoint) in {"analog": (b, 2 * chi, chi, True), "window": (nd, 2 * cd, cd, False)}.items():
+        a = randc(bs, k, n) if adjoint else randc(bs, n, k)
+        q, r = householder_qr(a, adjoint=adjoint)
+        q_ref, r_ref = householder_qr_plain(a, adjoint=adjoint)
+        torch.cuda.synchronize()
+        err = max(rel_err(q, q_ref), rel_err(r, r_ref))
+        upper = bool((torch.tril(r, diagonal=-1) == 0).all())
+        log(f"[phase 3] householder_qr {key} (B={bs}, {n}x{k}, adjoint {adjoint}): rel err {err:.3e}, "
+            f"R upper triangular {upper}")
+        check(err <= DECOMP_TOL and upper, f"householder_qr ({key}) disagrees with its plain version: {err}")
+        rows["householder_qr"]["max_abs_err"] = max((q - q_ref).abs().max().item(), (r - r_ref).abs().max().item(),
+                                                    rows["householder_qr"]["max_abs_err"])
+        # a padded product state's block: exactly rank 1
+        pad = torch.zeros((bs, n, k), dtype=torch.complex64, device=dev)
+        pad[:, 0, 0] = pad[:, n // 2, 0] = 2**-0.5
+        q, r = householder_qr(pad)
+        iso = (q.mH @ q - torch.eye(k, device=dev)).abs().max().item()
+        log(f"[phase 3] householder_qr {key} on a rank-1 padded block: finite {bool(torch.isfinite(q).all())}, "
+            f"isometry defect {iso:.3e}")
+        check(bool(torch.isfinite(q).all() and torch.isfinite(r).all()) and iso <= DECOMP_TOL,
+              f"householder_qr ({key}) failed on a rank-1 padded block: {iso}")
+        # factorization and Q: 2 (m n^2 - n^3 / 3) complex MACs
+        t = timings(f"householder_qr {key} (B={bs}, {n}x{k})",
+                    lambda a=a, adj=adjoint: householder_qr(a, adjoint=adj),
+                    lambda a=a, adj=adjoint: householder_qr_plain(a, adjoint=adj),
+                    lambda a=a, adj=adjoint: torch.linalg.qr(a.mH if adj else a), ("householder_qr",),
+                    bs * (2 * n * k + k * k) * C64 + n * k * 4, bs * 2 * (n * k * k - k**3 // 3) * CMAC_FLOPS)
+        rows["householder_qr"][key] = dict(shape=[bs, n, k], adjoint=adjoint, library_call="torch.linalg.qr (one call)",
+                                           **t)
+
+    replaces = dict(svd_jacobi="yaqs_tpu/ops/decomp.py:148", householder_qr="yaqs_tpu/core/mps_ops.py:266")
+    sources = dict(svd_jacobi="svd_jacobi.cu", householder_qr="householder_qr.cu")
+    return {name: dict(source=f"yaqs_tpu_torch/kernels/csrc/{sources[name]}", replaces=replaces[name],
+                       **row["analog"], **row) for name, row in rows.items()}
 
 
 def mcwf_inputs(length, gamma=None, model="ising"):
@@ -575,15 +746,30 @@ def mcwf_kernel_rows(dev, randc, gen):
     return out
 
 
+def qr_chain_canonicalize(mps):
+    """``canonicalize_right(method="qr")`` written with one batched
+    ``torch.linalg.qr`` a site (cuSOLVER, one QR a matrix): the library
+    call of the K6 row."""
+    b, length, d, chi, _ = mps.shape
+    out = torch.empty_like(mps)
+    c = torch.eye(chi, dtype=mps.dtype, device=mps.device).expand(b, chi, chi)
+    for i in range(length - 1, 0, -1):
+        m = torch.einsum("zslr,zrm->zslm", mps[:, i], c).permute(0, 2, 1, 3).reshape(b, chi, d * chi)
+        q, r = torch.linalg.qr(m.mH)
+        out[:, i] = q.mH.reshape(b, chi, d, chi).permute(0, 2, 1, 3)
+        c = r.mH
+    out[:, 0] = torch.einsum("zslr,zrm->zslm", mps[:, 0], c)
+    return out
+
+
 def unported_rows(dev):
-    """The analog path's splits that are still PyTorch, at the analog shape
-    (B=32, chi=64): K5 ``split_matrix_subspace`` and K9
-    ``split_matrix_truncated`` on the (2 chi, 2 chi) two-site matrix, K6
-    ``canonicalize_right(method="newton")`` over the L=100 chain.  Plain
-    device time and host-paced time, the library call host-paced, and the
-    bound."""
+    """The analog path's Newton parts that are still PyTorch around K4, at
+    the analog shape (B=32, chi=64): K5 ``split_matrix_subspace`` on the
+    (2 chi, 2 chi) two-site matrix and K6 ``canonicalize_right(method=
+    "newton")`` over the L=100 chain.  Plain device time and host-paced
+    time, the library call host-paced, and the bound."""
     from yaqs_tpu_torch.core.mps_ops import canonicalize_right
-    from yaqs_tpu_torch.ops.decomp import split_matrix_subspace, split_matrix_truncated
+    from yaqs_tpu_torch.ops.decomp import split_matrix_subspace
 
     gen = torch.Generator(device=dev).manual_seed(4321)
     b, chi, length, d = BENCH["batch"], BENCH["chi"], BENCH["length"], 2
@@ -598,22 +784,14 @@ def unported_rows(dev):
                lambda: torch.linalg.svd(m, full_matrices=False), "torch.linalg.svd on (2 chi, 2 chi)",
                (b * rows_m * cols_m + 2 * b * rows_m * chi) * C64,
                (3 * ns_cmacs + 4 * b * rows_m * cols_m * chi) * CMAC_FLOPS),
-        "K9": ("split_matrix_truncated (gesvd)",
-               lambda: split_matrix_truncated(m, chi, mode="discarded_weight", threshold=1e-6, max_bond_dim=chi),
-               lambda: torch.linalg.svd(m, full_matrices=False), "torch.linalg.svd on (2 chi, 2 chi)",
-               (b * rows_m * cols_m + 2 * b * rows_m * chi) * C64,
-               b * (4 * rows_m * cols_m**2 + 8 * cols_m**3) * CMAC_FLOPS),  # Golub-Kahan-Reinsch with U and V
         "K6": ("canonicalize_right (newton)", lambda: canonicalize_right(mps, method="newton"),
-               lambda: canonicalize_right(mps, method="qr"), "the chain of batched torch.linalg.qr (one per site)",
+               lambda: qr_chain_canonicalize(mps), "the chain of batched torch.linalg.qr (one per site)",
                2 * b * length * d * chi * chi * C64,
                (length - 1) * (ns_cmacs + 2 * b * chi * chi * d * chi) * CMAC_FLOPS),
     }
     out = {}
     for key, (label, plain_fn, library_fn, library_call, nbytes, flops) in cases.items():
-        if key == "K9":  # cuSOLVER's batched SVD stays out of the profiler (it lost device rows after it)
-            plain_ms, events, source = single_call_ms(plain_fn, calls=5), float("nan"), "events"
-        else:
-            plain_ms, events, source = device_ms(plain_fn, calls=5)
+        plain_ms, events, source = device_ms(plain_fn, calls=5)
         host_ms = host_paced_ms(plain_fn, windows=3, calls=3)
         library_ms = host_paced_ms(library_fn, windows=3, calls=3)
         bound_ms, bound_by = bound(nbytes, flops)
@@ -779,7 +957,7 @@ def phase_slice(dev):
         seconds=seconds, traj_per_s=b / seconds, ms_per_step=1e3 * seconds / steps,
         peak_bytes=peak, launches=launches, unported_calls=dict(calls),
     )
-    log(f"[phase 4] calls of the splits that are still PyTorch: {dict(calls)}")
+    log(f"[phase 4] calls of the Newton parts that are still PyTorch around K4: {dict(calls)}")
     log(f"[phase 4] TJM L={length} chi={chi} B={b} {steps} steps: {seconds:.3f} s, "
         f"{out['traj_per_s']:.4f} traj/s, {out['ms_per_step']:.1f} ms/step, peak {peak / 2**20:.1f} MiB, "
         f"launches {launches}")
@@ -800,15 +978,14 @@ def phase_slice(dev):
 
 @contextlib.contextmanager
 def counted_calls():
-    """Count the calls of K5 ``split_matrix_subspace``, K6
-    ``canonicalize_right`` and K9 ``split_matrix_truncated`` on the analog
-    path (their callers look them up in their own modules)."""
+    """Count the calls of K5 ``split_matrix_subspace`` and K6
+    ``canonicalize_right`` on the analog path (their callers look them up in
+    their own modules)."""
     from yaqs_tpu_torch.core import mps_ops
     from yaqs_tpu_torch.ops import decomp
 
-    calls = {"K5": 0, "K6": 0, "K9": 0}
-    patched = [(decomp, "split_matrix_subspace", "K5"), (mps_ops, "canonicalize_right", "K6"),
-               (decomp, "split_matrix_truncated", "K9")]
+    calls = {"K5": 0, "K6": 0}
+    patched = [(decomp, "split_matrix_subspace", "K5"), (mps_ops, "canonicalize_right", "K6")]
     originals = [getattr(mod, name) for mod, name, _ in patched]
 
     def counting(fn, key):
@@ -859,14 +1036,24 @@ def phase_xxz(dev):
 
 
 def phase_guard(dev, length=48, chi=64):
+    """Noiseless TFIM from x+ keeps <Z> = 0 by symmetry: the complex64 error
+    at chi=64 with the fast knob set and with the exact one."""
+    import dataclasses
+
     from yaqs_tpu_torch.analog.run import run_tjm_batch
 
     w, t0, obs, _ = tfim_inputs(length, chi, "x+")
-    res = run_tjm_batch(t0, w, None, obs, plan_for(10, chi), device=dev, dtype=torch.complex64, batch=1)
-    zmax = res.abs().max().item()
-    log(f"[phase 5] symmetric-Z guard L={length} chi={chi}: max|<Z>| = {zmax:.3e} (limit {GUARD_TOL})")
-    check(bool(torch.isfinite(res).all()) and zmax < GUARD_TOL, f"symmetric-Z guard failed: {zmax}")
-    return dict(max_abs_z=zmax)
+    out = {}
+    for name, knobs in (("fast", FAST), ("exact", EXACT)):
+        plan = plan_for(10, chi)
+        plan = dataclasses.replace(plan, evolution=dataclasses.replace(plan.evolution, **knobs))
+        res = run_tjm_batch(t0, w, None, obs, plan, device=dev, dtype=torch.complex64, batch=1)
+        zmax = res.abs().max().item()
+        log(f"[phase 5] symmetric-Z guard L={length} chi={chi}, {name} knob set: max|<Z>| = {zmax:.3e} "
+            f"(limit {GUARD_TOL})")
+        check(bool(torch.isfinite(res).all()) and zmax < GUARD_TOL, f"symmetric-Z guard ({name}) failed: {zmax}")
+        out["max_abs_z" if name == "fast" else "max_abs_z_exact"] = zmax
+    return out
 
 
 def phase_cpu_parity(dev, length=32, chi=32, steps=10):
@@ -886,6 +1073,150 @@ def phase_cpu_parity(dev, length=32, chi=32, steps=10):
     check(bool(torch.isfinite(card).all()) and dz <= CPU_PARITY_TOL, f"card vs CPU disagree: {dz}")
     check(ref[0, :, 0].abs().min().item() > 0.99, "Neel start should read |<Z>| = 1")
     return dict(max_abs_dz=dz, card_seconds=t_card, cpu_seconds=t_cpu)
+
+
+def exact_inputs(length, chi, gamma=None):
+    """The GPU-defaults configuration's inputs: TFIM from x+, Z on every
+    site, ``zz`` on (0, 1) and the entropy of the middle bond, the exact
+    knob set with ``record_diagnostics``."""
+    import yaqs_tpu_torch as yt
+
+    w, t0, _, noise = tfim_inputs(length, chi, "x+", gamma)
+    mid = length // 2 - 1
+    obs = yt.compile_observables(
+        [yt.Observable("z", i) for i in range(length)] + [yt.Observable("zz", [0, 1]),
+                                                          yt.Observable("entropy", [mid, mid + 1])], length, 2)
+    return w, t0, obs, noise
+
+
+def exact_plan(steps, chi):
+    import yaqs_tpu_torch as yt
+
+    cfg = yt.TDVPConfig(krylov_dim=BENCH["krylov_dim"], trunc_mode="discarded_weight", threshold=1e-6,
+                        max_bond_dim=chi, **EXACT)
+    return yt.TrajectoryPlan(dt=BENCH["dt"], num_steps=steps, order=2, sample_timesteps=True, evolution=cfg,
+                             record_diagnostics=True)
+
+
+def phase_exact(dev):
+    """The JAX package's GPU default analog path at full width, "Analog TFIM,
+    GPU defaults": the bench's TFIM inputs (L=100, chi=64, B=32, z + lowering
+    0.05, 10 steps of dt=0.1, k=4, threshold 1e-6, c64) with the exact knob
+    set, ``record_diagnostics=True`` and the rows Z everywhere, ``zz`` on
+    (0, 1) and the entropy at bond 49.  Also timed: the exact knob set
+    alone (phase 4's one-site rows, no diagnostics)."""
+    import dataclasses
+
+    from yaqs_tpu_torch import kernels
+    from yaqs_tpu_torch.analog.run import run_tjm_batch
+    from yaqs_tpu_torch.kernels import svd as k9
+
+    length, chi, b, steps = BENCH["length"], BENCH["chi"], BENCH["batch"], BENCH["steps"]
+    w, t0, obs, noise = exact_inputs(length, chi, BENCH["gamma"])
+    kw = dict(device=dev, dtype=torch.complex64)
+    # warm-up: one step, other trajectory indices
+    run_tjm_batch(t0, w, noise, obs, exact_plan(1, chi), traj_indices=range(b, 2 * b), **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    k9.reset_convergence()
+    t_start = time.perf_counter()
+    res, diag = run_tjm_batch(t0, w, noise, obs, exact_plan(steps, chi), batch=b, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    record = k9.convergence()
+    out = dict(seconds=seconds, traj_per_s=b / seconds, ms_per_step=1e3 * seconds / steps, peak_bytes=peak,
+               launches=launches, svd_convergence=record)
+    log(f"[phase 4c] GPU defaults (exact knobs, diagnostics) L={length} chi={chi} B={b} {steps} steps: "
+        f"{seconds:.3f} s, {out['traj_per_s']:.4f} traj/s, {out['ms_per_step']:.1f} ms/step, peak {peak / 2**20:.1f} "
+        f"MiB, launches {launches}")
+    log(f"[phase 4c] svd_jacobi over the run's {launches['svd_jacobi']} launches: at most {record['max_sweeps']} sweeps "
+        f"(cap {k9.MAX_SWEEPS}), largest final off-diagonal ratio {record['max_off_over_tol']:.3f} of the tolerance")
+    check(record["max_sweeps"] < k9.MAX_SWEEPS and record["max_off_over_tol"] <= 1.0,
+          f"svd_jacobi did not converge on a block of the GPU-defaults run: {record}")
+    check(tuple(res.shape) == (b, length + 2, steps + 1), f"unexpected result shape {tuple(res.shape)}")
+    check(tuple(diag.shape) == (b, 3, steps + 1), f"unexpected diagnostics shape {tuple(diag.shape)}")
+    check(bool(torch.isfinite(res).all() and torch.isfinite(diag).all()), "non-finite row or diagnostic")
+    check(res[:, :length, 0].abs().max().item() < 1e-6, "t=0 column differs from <Z>=0 of the x+ state")
+    check(res[:, : length + 1].abs().max().item() <= 1.0 + 1e-3, "a Z or ZZ row left [-1, 1]")
+    ent = res[:, length + 1]
+    check(ent.min().item() >= -1e-5 and ent.max().item() <= float(np.log(chi)), "entropy outside [0, log chi]")
+    check(ent[:, 0].abs().max().item() <= 1e-5, "the product state's entropy is not 0")
+    check(diag[:, 1].max().item() <= chi and (diag[:, :, 0] == torch.tensor([length - 1.0, 1.0, length - 1.0],
+                                                                            device=dev)).all().item(),
+          "diagnostics: max bond above chi, or the product state's not (L-1, 1, L-1)")
+    for name in EXACT_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the GPU-defaults run")
+    # the same run with the exact knob set alone: one-site rows, no diagnostics
+    _, _, obs1, _ = tfim_inputs(length, chi, "x+", BENCH["gamma"])
+    plain_plan = dataclasses.replace(exact_plan(steps, chi), record_diagnostics=False)
+    t_start = time.perf_counter()
+    run_tjm_batch(t0, w, noise, obs1, plain_plan, batch=b, **kw)
+    torch.cuda.synchronize()
+    out["exact_knobs_only_traj_per_s"] = b / (time.perf_counter() - t_start)
+    log(f"[phase 4c] the exact knob set alone (one-site Z rows, no diagnostics): "
+        f"{out['exact_knobs_only_traj_per_s']:.4f} traj/s")
+    out.update(mean_z_final=res[:, :length, -1].mean().item(), mean_zz_final=res[:, length, -1].mean().item(),
+               mean_entropy_final=ent[:, -1].mean().item(), max_bond=diag[:, 1].amax(dim=0).tolist(),
+               mean_cost=diag[:, 0].mean(dim=0).tolist())
+    log(f"[phase 4c] final mean <Z> {out['mean_z_final']:.6f}, <Z0 Z1> {out['mean_zz_final']:.6f}, entropy(49) "
+        f"{out['mean_entropy_final']:.6f}; max bond per column {out['max_bond']}")
+    out["profile"] = profile_run("phase 4c, one step", lambda: run_tjm_batch(
+        t0, w, noise, obs, exact_plan(1, chi), batch=b, **kw), steps=1)
+    solver = [name for name in out["profile"].pop("names") if any(mark in name for mark in CUSOLVER_MARKS)]
+    log(f"[phase 4c] cuSOLVER device rows in the profiled step: {solver}")
+    check(not solver, f"the GPU-defaults step ran cuSOLVER kernels: {solver}")
+    return out
+
+
+def phase_exact_parity(dev, length=32, chi=32, steps=10):
+    """The exact knob set with diagnostics, noiseless at L=32, chi=32: the
+    Z, ZZ and entropy rows and the max-bond diagnostic of the card's
+    complex64 run, from x+ (phase 4c's start) against the CPU's complex128
+    run, and from a Neel state (<Z> and <Z0 Z1> far from 0) against the
+    CPU's complex64 run of the plain versions: from Neel the complex64
+    result of the QR canonicalization itself lies about 1e-3 from
+    complex128 (the distance is printed), as on the window route (phase 9)."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch.analog.run import run_tjm_batch
+
+    w, t0, obs, _ = exact_inputs(length, chi)
+    plan = exact_plan(steps, chi)
+    out = {}
+    for start, ref_dtype in (("x+", torch.complex128), ("Neel", torch.complex64)):
+        t0 = yt.named_product_state(start, length, chi)
+        t_card = time.perf_counter()
+        card, card_diag = run_tjm_batch(t0, w, None, obs, plan, device=dev, dtype=torch.complex64, batch=1)
+        card, card_diag = card.cpu().double(), card_diag.cpu().double()
+        t_card = time.perf_counter() - t_card
+        t_cpu = time.perf_counter()
+        refs = {dt: run_tjm_batch(t0, w, None, obs, plan, device="cpu", dtype=dt, batch=1)
+                for dt in {ref_dtype, torch.complex128}}
+        t_cpu = time.perf_counter() - t_cpu
+        ref, ref_diag = (x.double() for x in refs[ref_dtype])
+        dz = (card[:, :length] - ref[:, :length]).abs().max().item()
+        dzz = (card[:, length] - ref[:, length]).abs().max().item()
+        dent = (card[:, length + 1] - ref[:, length + 1]).abs().max().item()
+        d128 = (card[:, :length] - refs[torch.complex128][0][:, :length]).abs().max().item()
+        same_bond = torch.equal(card_diag[:, 1], ref_diag[:, 1])
+        log(f"[phase 6b] exact knobs + diagnostics L={length} chi={chi} {steps} steps from {start}, card c64 vs CPU "
+            f"{str(ref_dtype).removeprefix('torch.')}: max|dZ| = {dz:.3e}, max|dZZ| = {dzz:.3e}, max|d entropy| = "
+            f"{dent:.3e} (limits {CPU_PARITY_TOL}); card c64 vs CPU c128 max|dZ| {d128:.3e}; max|<Z>| "
+            f"{ref[:, :length].abs().max().item():.3f}, <Z0 Z1> range [{ref[0, length].min().item():.3f}, "
+            f"{ref[0, length].max().item():.3f}]; max bond card {card_diag[0, 1].tolist()}, CPU "
+            f"{ref_diag[0, 1].tolist()}; card {t_card:.2f} s, CPU {t_cpu:.2f} s")
+        check(bool(torch.isfinite(card).all()) and max(dz, dzz, dent) <= CPU_PARITY_TOL,
+              f"exact-knob card vs CPU disagree from {start}: dZ {dz}, dZZ {dzz}, d entropy {dent}")
+        check(same_bond, f"the max-bond diagnostic differs between the card and the CPU from {start}")
+        check(ref[0, length + 1, -1].item() > 1e-3, f"the middle bond did not entangle from {start}")
+        if start == "Neel":
+            check(ref[0, :length, 0].abs().min().item() > 0.99, "the Neel start should read |<Z>| = 1")
+        out[start] = dict(reference=str(ref_dtype), max_abs_dz=dz, max_abs_dzz=dzz, max_abs_dentropy=dent,
+                          max_abs_dz_vs_cpu_c128=d128, max_bond=ref_diag[0, 1].tolist(), card_seconds=t_card,
+                          cpu_seconds=t_cpu)
+    return out
 
 
 def brickwork_qasm(n, layers):
@@ -1030,8 +1361,14 @@ def phase_window_parity(dev):
     """Noiseless 10-qubit brickwork (4 layers, plus ``cx q[0],q[9]`` and a
     ``ccx``) at chi=32 under both TDVP gate modes: the card's complex64 run
     against the port's complex128 run on the CPU (the route is approximate
-    at gate times, so the state vector is not its oracle)."""
+    at gate times, so the state vector is not its oracle), with the fast
+    knob set.  The window's center shift runs K14.  With the exact knob set
+    (K9 splits, K14 canonicalization and shift) the card is held against the
+    complex64 run of the plain versions on the CPU: there the complex64
+    result itself lies about 0.14 from complex128, in the JAX package too
+    (``tests/test_torch_exact_window_drift.py``); that distance is printed."""
     import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch import kernels
 
     n, chi = 10, 32
     lines = brickwork_qasm(n, 4).splitlines()
@@ -1039,17 +1376,33 @@ def phase_window_parity(dev):
     obs = yt.compile_observables([yt.Observable("z", i) for i in range(n)], n, 2)
     t0 = yt.named_product_state("zeros", n, chi)
     out = {}
-    for mode in ("tdvp", "full-tdvp"):
-        runs = {}
-        for device, dtype in ((dev, torch.complex64), ("cpu", torch.complex128)):
-            res = yt.run_digital_batch(text, t0, None, obs, max_bond_dim=chi, gate_mode=mode,
-                                       config=digital_config(chi, FAST), device=device, dtype=dtype)
-            runs[str(device)] = res.trajectories[0, :, -1].double().cpu()
-        dz = (runs[str(dev)] - runs["cpu"]).abs().max().item()
-        log(f"[phase 9] window parity n={n} chi={chi} {mode}: card c64 vs CPU c128 max|d<Z>| = {dz:.3e} "
-            f"(limit {CPU_PARITY_TOL})")
-        check(bool(torch.isfinite(runs[str(dev)]).all()) and dz <= CPU_PARITY_TOL, f"window parity ({mode}): {dz}")
-        out[f"max_abs_dz_{mode}"] = dz
+    for knob_name, knobs in (("fast", FAST), ("exact", EXACT)):
+        refs = [("cpu", torch.complex128)] if knob_name == "fast" else [("cpu", torch.complex64),
+                                                                        ("cpu", torch.complex128)]
+        for mode in ("tdvp", "full-tdvp"):
+            runs = {}
+            for device, dtype in ((dev, torch.complex64), *refs):
+                kernels.reset_launch_counts()
+                res = yt.run_digital_batch(text, t0, None, obs, max_bond_dim=chi, gate_mode=mode,
+                                           config=digital_config(chi, knobs), device=device, dtype=dtype)
+                runs[(str(device), dtype)] = res.trajectories[0, :, -1].double().cpu()
+                if device == dev:
+                    launches = {k: kernels.launch_counts()[k] for k in DECOMP_KERNELS}
+            card = runs[(str(dev), torch.complex64)]
+            ref = runs[refs[0]]
+            dz = (card - ref).abs().max().item()
+            d128 = (card - runs[("cpu", torch.complex128)]).abs().max().item()
+            log(f"[phase 9] window parity n={n} chi={chi} {mode}, {knob_name} knob set: card c64 vs CPU "
+                f"{str(refs[0][1]).removeprefix('torch.')} max|d<Z>| = {dz:.3e} (limit {CPU_PARITY_TOL}); card c64 vs "
+                f"CPU c128 {d128:.3e}; launches {launches}")
+            check(bool(torch.isfinite(card).all()) and dz <= CPU_PARITY_TOL, f"window parity ({mode}, {knob_name}): {dz}")
+            check(launches["householder_qr"] > 0, f"the window center shift did not run through householder_qr ({mode})")
+            if knob_name == "exact":
+                check(launches["svd_jacobi"] > 0, f"the exact window run did not go through svd_jacobi ({mode})")
+            key = f"max_abs_dz_{mode}" if knob_name == "fast" else f"max_abs_dz_{mode}_exact_vs_cpu_c64"
+            out[key] = dz
+            if knob_name == "exact":
+                out[f"max_abs_dz_{mode}_exact_vs_cpu_c128"] = d128
     return out
 
 
@@ -1186,7 +1539,7 @@ def profile_run(label, run, steps=1):
     for row in top:
         log(f"[{label}]   {row['ms']:10.3f} ms {100 * row['ms'] / 1e3 / device_s:5.1f}% {row['count']:6d}x  {row['kernel']}")
     return dict(wall_s=wall, device_s=device_s, busy=device_s / wall, events=events, events_per_step=events / steps,
-                top=top)
+                top=top, names=[r.key for r in rows])
 
 
 def statevector(circ):
@@ -1205,6 +1558,7 @@ def statevector(circ):
 
 def phase_digital_oracle(dev):
     import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch import kernels
 
     n, chi = 10, 32
     text = brickwork_qasm(n, 8)
@@ -1214,14 +1568,43 @@ def phase_digital_oracle(dev):
     t0 = yt.named_product_state("zeros", n, chi)
     out = {}
     for name, knobs in (("fast", FAST), ("exact", EXACT)):
+        kernels.reset_launch_counts()
         res = yt.run_digital_batch(text, t0, None, obs, max_bond_dim=chi, gate_mode="swaps",
                                    config=digital_config(chi, knobs), device=dev, dtype=torch.complex64)
+        launches = {k: kernels.launch_counts()[k] for k in DECOMP_KERNELS}
         z = res.trajectories[0, :, -1].double().cpu().numpy()
         dz = float(np.abs(z - z_exact).max())
         log(f"[phase 8] noiseless n={n} 8 layers chi={chi}, {name} knob set: max|d<Z>| = {dz:.3e} "
-            f"(limit {ORACLE_TOL})")
+            f"(limit {ORACLE_TOL}); launches {launches}")
         check(np.isfinite(z).all() and dz <= ORACLE_TOL, f"digital oracle guard ({name}) failed: {dz}")
+        if name == "exact":
+            check(min(launches.values()) > 0, f"the exact oracle run did not go through K9 and K14: {launches}")
         out[f"max_abs_dz_{name}"] = dz
+
+    # the default route, gate_mode="mpo" with TDVPConfig(), at chi=64: the
+    # zip-up of the long-range gates' MPOs (Dw 4 and 5) splits (128, 256) and
+    # (128, 320) blocks, which K9 takes as their adjoints
+    from yaqs_tpu_torch.kernels import svd as k9
+
+    chi_mpo = 64
+    lines = text.splitlines()
+    mpo_text = "\n".join(lines[:-1] + ["cx q[0],q[9];", "ccx q[3],q[4],q[5];", "cx q[7],q[2];", lines[-1]])
+    p = np.abs(statevector(yt.load_circuit(mpo_text))) ** 2
+    z_mpo = np.array([p.take(0, axis=q).sum() - p.take(1, axis=q).sum() for q in range(n)])
+    kernels.reset_launch_counts()
+    k9.reset_convergence()
+    res = yt.run_digital_batch(mpo_text, yt.named_product_state("zeros", n, chi_mpo), None, obs, max_bond_dim=chi_mpo,
+                               device=dev, dtype=torch.complex64)
+    launches = kernels.launch_counts()["svd_jacobi"]
+    record = k9.convergence()
+    z = res.trajectories[0, :, -1].double().cpu().numpy()
+    dz = float(np.abs(z - z_mpo).max())
+    log(f"[phase 8] noiseless n={n} 8 layers + long-range cx, ccx, default route (mpo gates, TDVPConfig()) "
+        f"chi={chi_mpo}: max|d<Z>| = {dz:.3e} (limit {ORACLE_TOL}); svd_jacobi launches {launches}, convergence {record}")
+    check(np.isfinite(z).all() and dz <= ORACLE_TOL, f"digital oracle guard (mpo gates, chi={chi_mpo}) failed: {dz}")
+    check(launches > 0 and record["max_sweeps"] < k9.MAX_SWEEPS and record["max_off_over_tol"] <= 1.0,
+          f"the mpo-gate run's splits did not converge in svd_jacobi: {launches} launches, {record}")
+    out["max_abs_dz_mpo_chi64"] = dz
 
     shots, nq = 4096, 4
     text = "\n".join([
@@ -1267,7 +1650,8 @@ def main() -> None:
     phases = {}
     t_phase = time.perf_counter()
     for name, fn in (("kernels", phase_kernels), ("analog", phase_slice), ("analog_xxz", phase_xxz),
-                     ("guard", phase_guard), ("cpu_parity", phase_cpu_parity), ("digital", phase_digital),
+                     ("analog_exact", phase_exact), ("guard", phase_guard), ("cpu_parity", phase_cpu_parity),
+                     ("exact_parity", phase_exact_parity), ("digital", phase_digital),
                      ("digital_window", phase_digital_window), ("digital_oracle", phase_digital_oracle),
                      ("window_parity", phase_window_parity), ("mcwf", phase_mcwf), ("mcwf_guards", phase_mcwf_guards),
                      ("unported", unported_rows)):
@@ -1278,7 +1662,7 @@ def main() -> None:
     rows = phases["kernels"]
     for name, row in rows.items():
         row["launches"] = phases[TABLE_PATH[name]]["launches"][name]
-        for path in ("analog", "digital", "analog_xxz", "digital_window", "mcwf"):
+        for path in LAUNCH_PATHS:
             row[f"launches_{path}"] = phases[path]["launches"][name]
     for key, row in phases["unported"].items():
         row["calls_per_10_step_analog_run"] = phases["analog"]["unported_calls"][key]

@@ -10,6 +10,9 @@ not have; this file imports none of it).
 - A noisy draw-injected run on the card (complex64, each knob set) agrees
   with the same run on the CPU (complex128): observables within 1e-3, the
   complex64 working accuracy, and identical shots.
+- The default route (``gate_mode="mpo"``, the exact ``TDVPConfig()``) at
+  chi = 64 with a long-range ``cx`` and a ``ccx``, whose zip-up splits
+  (128, Dw * 64) blocks, agrees with the CPU's complex128 run within 1e-3.
 """
 
 from __future__ import annotations
@@ -157,3 +160,31 @@ def test_noisy_card_run_matches_cpu(cuda, knob_set):
     dz = (card.trajectories.cpu().double() - cpu.trajectories).abs().max().item()
     assert dz <= 1e-3
     np.testing.assert_array_equal(card.measurements, cpu.measurements)
+
+
+@pytest.mark.cuda
+def test_default_mpo_gate_mode_at_chi_64_matches_cpu(cuda):
+    """The zip-up of the long-range gates' MPOs (Dw = 4 for the ``cx``, 5
+    for the ``ccx``) splits (128, 256) and (128, 320) blocks at chi = 64:
+    K9 takes them as their adjoints, with W in device memory, and
+    converges."""
+    from yaqs_tpu_torch.kernels.svd import MAX_SWEEPS, convergence, reset_convergence
+
+    chi = 64
+    text = _brickwork(N, 4) + "\ncx q[0],q[7];\nccx q[1],q[4],q[6];\ncx q[6],q[2];"
+    obs = yt.compile_observables([yt.Observable("z", i) for i in range(N)], N, 2)
+    t0 = yt.named_product_state("zeros", N, chi)
+    stages = [st for seg in compile_circuit(yt.load_circuit(text), "mpo").segments for st in seg.stages
+              if getattr(st, "kind", None) == "mpo"]
+    assert sorted(st.mpo.shape[-1] for st in stages) == [4, 4, 5]
+    kernels.reset_launch_counts()
+    reset_convergence()
+    card = yt.run_digital_batch(text, t0, None, obs, max_bond_dim=chi, device=cuda, dtype=torch.complex64)
+    launches = kernels.launch_counts()["svd_jacobi"]
+    record = convergence()
+    cpu = yt.run_digital_batch(text, t0, None, obs, max_bond_dim=chi, device="cpu", dtype=torch.complex128)
+    assert launches > 0
+    assert record["max_sweeps"] < MAX_SWEEPS and record["max_off_over_tol"] <= 1.0
+    z = card.trajectories.cpu().double()
+    assert bool(torch.isfinite(z).all())
+    assert (z - cpu.trajectories).abs().max().item() <= 1e-3

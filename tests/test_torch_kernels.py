@@ -42,8 +42,10 @@ from yaqs_tpu_torch.kernels.lanczos_epilogue import lanczos_epilogue, lanczos_ep
 from yaqs_tpu_torch.kernels.lanczos_step import lanczos_step, lanczos_step_plain
 from yaqs_tpu_torch.kernels.moment_scan import site_moment_matrices, site_moment_matrices_plain
 from yaqs_tpu_torch.kernels.ns_polar import newton_schulz_orthogonalize, newton_schulz_orthogonalize_plain
+from yaqs_tpu_torch.kernels.qr import householder_qr, householder_qr_plain
 from yaqs_tpu_torch.kernels.sample_shots import sample_shots, sample_shots_plain
 from yaqs_tpu_torch.kernels.sv_mpo import sv_mpo_matvec, sv_mpo_matvec_plain
+from yaqs_tpu_torch.kernels.svd import MAX_SWEEPS, convergence, reset_convergence, svd, svd_plain
 
 
 def _complex(rng, shape, dtype=torch.complex64):
@@ -204,9 +206,18 @@ def test_wrappers_take_plain_path_on_cpu_without_building():
     out = arnoldi_epilogue(hess, -0.1j, basis, nrm, x)
     torch.testing.assert_close(out, arnoldi_epilogue_plain(hess, -0.1j, basis, nrm, x), rtol=0, atol=0)
     assert torch.equal(out[1], x[1])
+    m = _complex(rng, (2, 12, 8))
+    for got, ref in zip(svd(m), svd_plain(m)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    torch.testing.assert_close(svd(m, compute_uv=False), svd_plain(m, compute_uv=False), rtol=0, atol=0)
+    for got, ref in zip(householder_qr(m), householder_qr_plain(m)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    for got, ref in zip(householder_qr(m.mT, adjoint=True), householder_qr_plain(m.mT, adjoint=True)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
     assert set(kernels.launch_counts()) == {
         "ns_polar", "lanczos_epilogue", "bond_gate", "moment_scan", "sample_shots", "heff2", "heff1",
-        "lanczos_step", "env_update", "sv_mpo_matvec", "arnoldi_step", "arnoldi_epilogue",
+        "lanczos_step", "env_update", "sv_mpo_matvec", "arnoldi_step", "arnoldi_epilogue", "svd_jacobi",
+        "householder_qr",
     }
     assert not any(kernels.launch_counts().values())
     assert build.load_library.cache_info().currsize == 0  # nothing was built
@@ -246,6 +257,10 @@ def test_wrappers_refuse_non_cuda_devices():
     mpo = torch.empty((5, 2, 2, 3, 3), dtype=torch.complex64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         sv_mpo_matvec(mpo, w, None)
+    with pytest.raises(ValueError, match="unsupported device"):
+        svd(t[:, 0, 0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        householder_qr(t[:, 0, 0])
 
 
 @pytest.fixture
@@ -517,3 +532,188 @@ def test_mcwf_local_route_on_card(cuda):
         arnoldi_expm_apply(lambda q: sv_mpo_matvec(tables.mpo, q, None), v, -0.1j, k=25)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# the analog split, the digital split, the bond spectra, odd shapes, the
+# zip-up split of a long-range gate's MPO at chi = 64 (Dw = 4: W in device
+# memory) and a taller block
+SVD_SHAPES = [(32, 128, 128), (512, 64, 64), (32, 64, 64), (4, 100, 37), (3, 20, 45), (2, 7, 7), (32, 128, 256),
+              (4, 520, 100)]
+
+
+def _svd_input(kind, batch, rows, cols, device, seed=5):
+    """Blocks of three kinds: ``random`` normal entries; ``rank1``, a padded
+    product state's two-site block (one outer product of x+ vectors at the
+    anchored corners, zeros elsewhere); ``degenerate``, U diag(s) V^H with
+    s = (3, 2, 2, 2, 1.5, 1, 0.5, ...) and random isometries U, V."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    k = min(rows, cols)
+    if kind == "random":
+        return _randc(gen, (batch, rows, cols), device)
+    if kind == "rank1":
+        u = torch.zeros(rows, dtype=torch.complex64, device=device)
+        v = torch.zeros(cols, dtype=torch.complex64, device=device)
+        u[0] = u[rows // 2] = v[0] = v[cols // 2] = 2**-0.5
+        return torch.outer(u, v).expand(batch, rows, cols).contiguous()
+    s = torch.tensor([3.0, 2.0, 2.0, 2.0, 1.5] + [0.5**i for i in range(max(k - 5, 0))], device=device)[:k]
+    uq = torch.linalg.qr(_randc(gen, (batch, rows, k), device))[0]
+    vq = torch.linalg.qr(_randc(gen, (batch, cols, k), device))[0]
+    return (uq * s.to(torch.complex64)) @ vq.mH
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "rank1", "degenerate"])
+@pytest.mark.parametrize(("batch", "rows", "cols"), SVD_SHAPES)
+def test_svd_jacobi_kernel_matches_plain(cuda, batch, rows, cols, kind):
+    m = _svd_input(kind, batch, rows, cols, cuda)
+    k = min(rows, cols)
+    kernels.reset_launch_counts()
+    reset_convergence()
+    info = {}
+    u, s, vh = svd(m, info=info)
+    s_only = svd(m, compute_uv=False)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["svd_jacobi"] == 2
+    record = convergence()  # the device-side record of both launches
+    assert int(info["sweeps"].max()) <= record["max_sweeps"] < MAX_SWEEPS
+    assert record["max_off_over_tol"] <= 1.0
+    assert u.shape == (batch, rows, k) and s.shape == (batch, k) and vh.shape == (batch, k, cols)
+    s_ref = svd_plain(m, compute_uv=False)
+    smax = s_ref[:, :1]
+    assert ((s - s_ref).abs() / smax).max().item() <= 1e-4
+    assert ((s_only - s_ref).abs() / smax).max().item() <= 1e-4
+    assert bool((s[:, :-1] >= s[:, 1:]).all())
+    recon = (u * s.to(u.dtype)[:, None, :]) @ vh
+    assert ((recon - m).norm(dim=(1, 2)) / m.norm(dim=(1, 2))).max().item() <= 1e-4
+    eye = torch.eye(k, device=cuda)
+    assert (u.mH @ u - eye).abs().max().item() <= 1e-4  # completion columns included
+    assert (vh @ vh.mH - eye).abs().max().item() <= 1e-4
+    assert int(info["sweeps"].max()) < MAX_SWEEPS
+    assert info["off"].max().item() <= info["tol"]
+
+
+@pytest.mark.cuda
+def test_svd_jacobi_refuses_what_it_does_not_take(cuda):
+    for shape in ((2, 129, 129), (2, 8, 4097)):
+        with pytest.raises(ValueError, match=r"min\(rows, cols\) <= 128 and max\(rows, cols\) <= 4096"):
+            svd(torch.zeros(shape, dtype=torch.complex64, device=cuda))
+    m = torch.zeros((2, 129, 8), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match="complex64"):
+        svd(m[:, :8].to(torch.complex128))
+    with pytest.raises(ValueError, match="contiguous"):
+        svd(torch.zeros((2, 8, 16), dtype=torch.complex64, device=cuda)[:, :, ::2])
+
+
+QR_SHAPES = [(32, 128, 64), (512, 64, 32), (3, 37, 37), (5, 20, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize(("batch", "n", "k"), QR_SHAPES)
+def test_householder_qr_kernel_matches_plain(cuda, batch, n, k, adjoint):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    a = _randc(gen, (batch, k, n) if adjoint else (batch, n, k), cuda)
+    kernels.reset_launch_counts()
+    q, r = householder_qr(a, adjoint=adjoint)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["householder_qr"] == 1
+    q_ref, r_ref = householder_qr_plain(a, adjoint=adjoint)
+    assert q.shape == (batch, n, k) and r.shape == (batch, k, k)
+    assert _rel_err(q, q_ref) <= 1e-4 and _rel_err(r, r_ref) <= 1e-4  # entry by entry
+    assert bool((torch.tril(r, diagonal=-1) == 0).all())
+    assert bool((torch.diagonal(r, dim1=-2, dim2=-1).imag == 0).all())
+
+
+@pytest.mark.cuda
+def test_householder_qr_kernel_on_padded_blocks(cuda):
+    """Exactly rank-deficient blocks (a padded product state's site block,
+    and a zero block): Q an isometry, R upper triangular, Q R the matrix
+    with its noise floor, nothing NaN."""
+    n, k = 128, 64
+    a = torch.zeros((3, n, k), dtype=torch.complex64, device=cuda)
+    a[0, 0, 0] = a[0, k, 0] = 2**-0.5
+    a[1, 0, 0] = 0.6
+    a[1, k, 0] = 0.8j
+    q_ref, r_ref = householder_qr_plain(a)
+    q, r = householder_qr(a)
+    assert bool(torch.isfinite(q).all() and torch.isfinite(r).all())
+    assert (q.mH @ q - torch.eye(k, device=cuda)).abs().max().item() <= 1e-4
+    assert bool((torch.tril(r, diagonal=-1) == 0).all())
+    assert (q @ r - q_ref @ r_ref).abs().max().item() <= 1e-5
+    assert (q @ r - a).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_householder_qr_refuses_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError, match="k <= n"):
+        householder_qr(torch.zeros((2, 8, 16), dtype=torch.complex64, device=cuda))
+    with pytest.raises(ValueError, match="k <= 64"):
+        householder_qr(torch.zeros((2, 128, 65), dtype=torch.complex64, device=cuda))
+    with pytest.raises(ValueError, match="complex64"):
+        householder_qr(torch.zeros((2, 16, 8), dtype=torch.complex128, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        householder_qr(torch.zeros((2, 16, 16), dtype=torch.complex64, device=cuda)[:, :, ::2])
+
+
+@pytest.mark.cuda
+def test_exact_path_reaches_the_decomp_kernels(cuda, monkeypatch):
+    """On the card the exact split, the QR canonicalization, the center
+    shift, the bond spectra and a whole exact-knob trajectory with
+    diagnostics run K9 and K14 and no ``torch.linalg`` decomposition; the
+    trajectory agrees with the CPU's complex128 run within 1e-3."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch.core import mps_ops
+    from yaqs_tpu_torch.ops.decomp import split_matrix_truncated
+
+    length, chi = 8, 8
+    w = yt.ising_mpo(length, 1.0, 0.5)
+    t0 = yt.named_product_state("x+", length, chi)
+    obs = yt.compile_observables([yt.Observable("z", i) for i in range(length)]
+                                 + [yt.Observable("zz", [0, 1]), yt.Observable("entropy", [3, 4])], length, 2)
+    cfg = yt.TDVPConfig(krylov_dim=6, threshold=1e-6, max_bond_dim=chi)  # the exact knob set
+    plan = yt.TrajectoryPlan(dt=0.1, num_steps=3, evolution=cfg, record_diagnostics=True)
+    cpu, cpu_diag = yt.run_tjm_batch(t0, w, None, obs, plan, batch=1, device="cpu")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a torch.linalg decomposition ran on the card path")
+
+    for name in ("svd", "svdvals", "qr", "eigh"):
+        monkeypatch.setattr(torch.linalg, name, refuse)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    mps = _randc(gen, (4, length, 2, chi, chi), cuda) / chi
+    mps[:, 0, :, 1:] = 0
+    mps[:, -1, :, :, 1:] = 0
+    counts = []
+    for call in (lambda: split_matrix_truncated(mps[:, 0].reshape(4, 2 * chi, chi), chi, mode="discarded_weight",
+                                                threshold=1e-6, min_keep=2),
+                 lambda: mps_ops.canonicalize_right(mps, method="qr"),
+                 lambda: mps_ops.shift_center_right(mps, 3),
+                 lambda: mps_ops.bond_spectra(mps)):
+        kernels.reset_launch_counts()
+        call()
+        counts.append({k: kernels.launch_counts()[k] for k in ("svd_jacobi", "householder_qr")})
+    assert counts == [{"svd_jacobi": 1, "householder_qr": 0}, {"svd_jacobi": 0, "householder_qr": length - 1},
+                      {"svd_jacobi": 0, "householder_qr": 3},
+                      {"svd_jacobi": length - 1, "householder_qr": length - 1}]
+    kernels.reset_launch_counts()
+    card, card_diag = yt.run_tjm_batch(t0, w, None, obs, plan, batch=1, device=cuda)
+    assert min(kernels.launch_counts()[k] for k in ("svd_jacobi", "householder_qr")) > 0
+    assert (card.cpu().double() - cpu).abs().max().item() <= 1e-3
+    assert torch.equal(card_diag.cpu().double()[:, 1], cpu_diag[:, 1])
+
+
+@pytest.mark.cuda
+def test_decomp_wrappers_raise_when_the_kernel_cannot_load(cuda, monkeypatch):
+    """A CUDA tensor whose kernel library cannot load raises; it never runs
+    the plain version instead."""
+
+    def broken():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr("yaqs_tpu_torch.kernels.svd.load_library", broken)
+    monkeypatch.setattr("yaqs_tpu_torch.kernels.qr.load_library", broken)
+    m = torch.ones((2, 8, 8), dtype=torch.complex64, device=cuda)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        svd(m)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        householder_qr(m)

@@ -166,7 +166,7 @@ def test_trajectory_result_independent_of_batch():
 def test_unported_plans_raise():
     w, t0, co, _, plan = _setup()
     tco = convert.compiled_observables(co)
-    for change in (dict(order=1), dict(evolution_mode="bug"), dict(record_diagnostics=True)):
+    for change in (dict(order=1), dict(evolution_mode="bug"), dict(has_scheduled=True)):
         bad = ttjm.TrajectoryPlan(**{**convert.trajectory_plan(plan).__dict__, **change})
         with pytest.raises(NotImplementedError):
             run_tjm_batch(t0, w, None, tco, bad, batch=1, device="cpu")

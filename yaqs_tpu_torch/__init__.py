@@ -10,8 +10,10 @@ synchronization inside a time step.  The hand-written CUDA kernels live in
 ``nvcc`` nor a card, and never imports JAX.
 
 The ported slices are the order-2 TJM trajectory path
-(:func:`yaqs_tpu_torch.analog.run.run_tjm_batch`), the noisy digital TEBD
-path (:func:`yaqs_tpu_torch.digital.run.run_digital_batch`) and the MCWF
+(:func:`yaqs_tpu_torch.analog.run.run_tjm_batch`, with the fast and the
+exact knob set, ``record_diagnostics`` and one-site, multi-site, entropy and
+Schmidt-spectrum rows), the noisy digital TEBD path
+(:func:`yaqs_tpu_torch.digital.run.run_digital_batch`) and the MCWF
 state-vector path (:func:`yaqs_tpu_torch.analog.run.run_mcwf_batch`).  All
 run on the card unless the caller passes another ``device``.
 """

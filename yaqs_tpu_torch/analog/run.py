@@ -89,7 +89,7 @@ def run_tjm_batch(
     traj_indices=None,
     batch: int | None = None,
     draws=None,
-) -> torch.Tensor:
+):
     """Run ``B`` order-2 TJM trajectories from one initial state.
 
     ``tensors0 (L, d, chi, chi)`` (canonical at 0, normalized) and ``mpo
@@ -102,7 +102,10 @@ def run_tjm_batch(
     Runs on the card unless ``device`` says otherwise (no CPU fallback);
     ``dtype`` defaults to complex64 on a CUDA device and complex128
     elsewhere.  Returns the observables ``(B, n_obs, T)`` as a real tensor on
-    ``device``.
+    ``device`` (``n_obs`` counts ``chi`` rows per Schmidt-spectrum
+    observable), and with ``plan.record_diagnostics`` the pair ``(results,
+    diagnostics (B, 3, T))``, the effective-bond curves ``sum chi_eff^3``,
+    max and total.
     """
     check_device(device)
     dtype = resolve_dtype(device, dtype)
@@ -116,8 +119,8 @@ def run_tjm_batch(
     co = observables.to(device, dtype)
     if draws is None and noise_t is not None:
         draws = GeneratorDraws(seed, traj_indices, noise_t.num_channels, device, t0.real.dtype)
-    results, _, _ = tjm_trajectory(draws, t0, w, noise_t, co, plan)
-    return results
+    results, diagnostics, _ = tjm_trajectory(draws, t0, w, noise_t, co, plan)
+    return (results, diagnostics) if plan.record_diagnostics else results
 
 
 def mcwf_route(dim: int) -> str:

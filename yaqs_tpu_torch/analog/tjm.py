@@ -7,9 +7,12 @@ trajectories as a Python loop over time steps:
 - step ``Phi_{j+1} = jump(dissipate(tdvp(Phi_j, dt), dt))`` on the
   trajectory stream;
 - measurement ``Psi_j = jump(dissipate(tdvp(Phi_j, dt), dt/2))`` on the
-  sampling stream, forked from the same evolved state and evaluated
-  gauge-free (every ported observable is one-site, so the measurement copy
-  is never re-canonicalized; the last one is, once, for the returned state).
+  sampling stream, forked from the same evolved state.  When every row is
+  one-site and diagnostics are off, it is evaluated gauge-free and never
+  re-canonicalized (the last one is, once, for the returned state);
+  otherwise the jump canonicalizes it and the rows and the diagnostics
+  (effective bond dimensions from the bond spectra) are read from the
+  canonical state, as ``Simulator.run`` does with ``record_diagnostics``.
 
 Random streams: JAX's ``fold_in`` key hierarchy has no torch counterpart.
 A draw source is any callable ``draws(stream, j) -> (u (B,), gumbel (B, nc))``
@@ -28,12 +31,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..core.mps_ops import norm_squared_center0, normalize_canonical
+from ..core.mps_ops import bond_spectra, norm_squared_center0, normalize_canonical
 from ..core.noise_model import CompiledNoise
 from ..core.observables import (
     CompiledObservables,
-    evaluate_observables,
     evaluate_observables_gauge_free,
+    local_rows,
+    with_bond_rows,
 )
 from ..methods.dissipation import apply_dissipation
 from ..methods.stochastic import stochastic_process
@@ -59,8 +63,9 @@ class TrajectoryPlan:
     """Trajectory schedule.  ``num_steps`` dt-steps; observables are sampled
     at every grid point when ``sample_timesteps`` else only at the end.
 
-    Ported: ``order=2``, ``evolution_mode="tdvp"``, no scheduled jumps, no
-    diagnostics; other values raise ``NotImplementedError``.
+    Ported: ``order=2``, ``evolution_mode="tdvp"``, no scheduled jumps;
+    other values raise ``NotImplementedError``.  ``record_diagnostics`` adds
+    the effective-bond curves (one bond-spectra sweep a measurement).
     """
 
     dt: float
@@ -120,21 +125,54 @@ def _renorm_center0(tensors: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _diagnostics(spectra: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Effective bond dimensions from the Schmidt spectra ``(B, L-1, chi)``
+    of canonical-at-0 normalized states, ``(B, 3)``: ``sum chi_eff^3``, the
+    largest and the total, where ``chi_eff`` counts the values above
+    ``threshold`` times the largest (at least 1): the JAX package's
+    ``_diagnostics``."""
+    if spectra.shape[1] == 0:  # one site: no internal bond
+        return spectra.new_ones((spectra.shape[0], 3))
+    smax = torch.clamp(spectra[..., :1], min=1e-300)
+    eff = torch.clamp((spectra > threshold * smax).sum(dim=-1), min=1).to(spectra.dtype)
+    return torch.stack([(eff**3).sum(dim=-1), eff.amax(dim=-1), eff.sum(dim=-1)], dim=-1)
+
+
+def _measure(psi: torch.Tensor, observables, plan: TrajectoryPlan):
+    """Rows and diagnostics of canonical-at-0 normalized states, with one
+    bond-spectra sweep for the entropy and Schmidt rows and the diagnostics
+    together."""
+    rows = local_rows(psi, observables)
+    no_diagnostics = psi.real.new_zeros((psi.shape[0], 3))
+    if not (observables.has_bond_rows or plan.record_diagnostics):
+        return rows, no_diagnostics
+    spectra = bond_spectra(psi)
+    rows = with_bond_rows(rows, observables, spectra)
+    if not plan.record_diagnostics:
+        return rows, no_diagnostics
+    return rows, _diagnostics(spectra[0], plan.evolution.threshold)
+
+
 def _order2_branches(draws: Draws | None, noise, observables, plan: TrajectoryPlan, evolve):
     """The measurement and trajectory continuations of an evolved state,
-    and the loop body that chains them."""
+    the loop body that chains them, and whether the measurement is
+    gauge-free."""
     dt = plan.dt
     cfg = plan.evolution
+    fast = observables.only_one_site and not plan.record_diagnostics
 
     def draw(stream, j):
         return None if noise is None else draws(stream, j)
 
     def measure_branch(evolved, j):
-        """Dissipate dt/2 + jump on the sampling stream, then measure
-        gauge-free; the returned state is raw (any gauge, unnormalized)."""
+        """Dissipate dt/2 + jump on the sampling stream, then measure.  In
+        the gauge-free case the returned state is raw (any gauge,
+        unnormalized); otherwise canonical at 0 and normalized."""
         psi = apply_dissipation(evolved, noise, dt / 2)
-        psi, _ = stochastic_process(psi, noise, dt, draw(SAMPLE_STREAM, j), cfg, canonicalize=False)
-        return evaluate_observables_gauge_free(psi, observables), psi
+        psi, _ = stochastic_process(psi, noise, dt, draw(SAMPLE_STREAM, j), cfg, canonicalize=not fast)
+        if fast:
+            return evaluate_observables_gauge_free(psi, observables), psi.real.new_zeros((psi.shape[0], 3)), psi
+        return (*_measure(psi, observables, plan), psi)
 
     def trajectory_branch(evolved, j):
         """Dissipate dt + jump on the trajectory stream."""
@@ -145,10 +183,10 @@ def _order2_branches(draws: Draws | None, noise, observables, plan: TrajectoryPl
     def body(evolved_prev, j):
         phi = trajectory_branch(evolved_prev, j)
         evolved_j = _renorm_center0(evolve(phi, dt))
-        obs_j, psi_j = measure_branch(evolved_j, j)
-        return evolved_j, psi_j, obs_j
+        obs_j, diag_j, psi_j = measure_branch(evolved_j, j)
+        return evolved_j, psi_j, obs_j, diag_j
 
-    return measure_branch, trajectory_branch, body
+    return measure_branch, trajectory_branch, body, fast
 
 
 def _check_plan(plan: TrajectoryPlan) -> None:
@@ -160,9 +198,6 @@ def _check_plan(plan: TrajectoryPlan) -> None:
         raise NotImplementedError(msg)
     if plan.has_scheduled or plan.has_scheduled2:
         msg = "scheduled jumps are not ported"
-        raise NotImplementedError(msg)
-    if plan.record_diagnostics:
-        msg = "record_diagnostics is not ported"
         raise NotImplementedError(msg)
 
 
@@ -182,30 +217,35 @@ def tjm_trajectory(
     a draw source (unused when ``noise`` is None).
 
     Returns ``(results (B, n_obs, n_cols), diagnostics (B, 3, n_cols),
-    final (B, L, d, chi, chi))``; diagnostics are zeros (not ported), the
+    final (B, L, d, chi, chi))``: ``n_obs`` is the scalar rows plus ``chi``
+    per Schmidt-spectrum row; the diagnostics (``sum chi_eff^3``, max and
+    total effective bond) are zeros unless ``plan.record_diagnostics``; the
     final state is the last measurement state, canonical at 0 and normalized.
     """
     _check_plan(plan)
     dt = plan.dt
     cfg = plan.evolution
-    b = tensors0.shape[0]
     t_total = plan.num_times
     n_cols = t_total if plan.sample_timesteps else 1
-    zero_diag = tensors0.real.new_zeros((b, 3, n_cols))
     if noise is not None and draws is None:
         msg = "a noisy run needs a draw source"
         raise ValueError(msg)
 
-    obs0 = evaluate_observables(tensors0, observables)
+    obs0, diag0 = _measure(tensors0, observables, plan)
     if plan.num_steps == 0:
-        return obs0[:, :, None].expand(b, observables.num_rows, n_cols).clone(), zero_diag, tensors0
+        obs0, diag0 = (x[..., None].expand(*x.shape, n_cols).clone() for x in (obs0, diag0))
+        return obs0, diag0, tensors0
 
     def evolve(t, step_dt):
         return tdvp_step(t, mpo, step_dt, cfg)
 
-    measure_branch, trajectory_branch, body = _order2_branches(draws, noise, observables, plan, evolve)
+    measure_branch, trajectory_branch, body, fast = _order2_branches(draws, noise, observables, plan, evolve)
 
     def restore(psi):
+        """The gauge-free measurement leaves its state raw; the returned
+        state is canonical at 0 and normalized."""
+        if not fast:
+            return psi
         out, _ = normalize_canonical(psi, method=cfg.canon_method)
         return out
 
@@ -221,12 +261,13 @@ def tjm_trajectory(
         # trajectory stream uses the same step indices as the sampled path
         for j in range(2, t_total):
             evolved = _renorm_center0(evolve(trajectory_branch(evolved, j), dt))
-        obs_f, final_psi = measure_branch(evolved, t_total - 1)
-        return obs_f[:, :, None], zero_diag, restore(final_psi)
+        obs_f, diag_f, final_psi = measure_branch(evolved, t_total - 1)
+        return obs_f[:, :, None], diag_f[:, :, None], restore(final_psi)
 
-    obs1, psi = measure_branch(evolved, 1)
-    cols = [obs0, obs1]
+    obs1, diag1, psi = measure_branch(evolved, 1)
+    cols, diags = [obs0, obs1], [diag0, diag1]
     for j in range(2, t_total):
-        evolved, psi, obs_j = body(evolved, j)
+        evolved, psi, obs_j, diag_j = body(evolved, j)
         cols.append(obs_j)
-    return torch.stack(cols, dim=-1), zero_diag, restore(psi)
+        diags.append(diag_j)
+    return torch.stack(cols, dim=-1), torch.stack(diags, dim=-1), restore(psi)

@@ -65,16 +65,14 @@ def compiled_noise(noise) -> CompiledNoise | None:
 
 
 def compiled_observables(co) -> CompiledObservables:
-    """The JAX package's ``CompiledObservables`` as the port's (one-site rows)."""
-    if not co.only_one_site:
-        msg = "only one-site observables are ported"
+    """The JAX package's ``CompiledObservables`` as the port's: one-site,
+    product-term, entropy and Schmidt-spectrum tables (PVM rows raise
+    ``NotImplementedError``)."""
+    if co.pvm_bits.shape[0]:
+        msg = "PVM observables are not ported"
         raise NotImplementedError(msg)
-    return CompiledObservables(
-        ops1=np.array(co.ops1),
-        sites1=np.array(co.sites1),
-        rows1=np.array(co.rows1),
-        num_rows=int(co.num_rows),
-    )
+    fields = [f.name for f in dataclasses.fields(CompiledObservables) if f.name != "num_rows"]
+    return CompiledObservables(**{name: np.array(getattr(co, name)) for name in fields}, num_rows=int(co.num_rows))
 
 
 def tdvp_config(cfg) -> TDVPConfig:

@@ -14,8 +14,6 @@ the norm and phase.  Scans over sites are Python loops.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -25,6 +23,8 @@ from ..kernels.moment_scan import (
     transfer_right,
 )
 from ..kernels.moment_scan import site_moment_matrices as _moment_scan
+from ..kernels.qr import householder_qr
+from ..kernels.svd import svd
 from ..ops.decomp import merge_two_site, orthonormalize, split_two_site_truncated
 
 __all__ = [
@@ -36,6 +36,8 @@ __all__ = [
     "canonicalize_right",
     "shift_center_right",
     "compress",
+    "bond_spectra",
+    "bond_entropies",
     "zero_boundary_pads",
     "normalize_canonical",
     "left_gram_environments",
@@ -141,31 +143,14 @@ def norm_squared_center0(tensors: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-_QR_EPS32 = float(np.finfo(np.float32).eps)
-
-
-@functools.lru_cache(maxsize=8)
-def _qr_rank_noise(rows: int, cols: int, device: torch.device) -> torch.Tensor:
-    """The JAX package's fixed unit-norm noise matrix (numpy seed 9157)."""
-    nz = np.random.default_rng(9157).standard_normal((rows, cols))
-    return torch.as_tensor((nz / np.linalg.norm(nz)).astype(np.float32)).to(device)
-
-
-def _qr_noise_floor(mh: torch.Tensor) -> torch.Tensor:
-    """Rank-safety floor for complex64 QRs, one float32 ulp of each block's
-    norm (plus 1e-16) along a fixed noise matrix: PyTorch's complex64 QR on
-    the CPU returns NaN on the exactly rank-deficient blocks that padded
-    states produce, as XLA's does on the TPU.  complex128 takes no floor."""
-    scale = _QR_EPS32 * torch.linalg.matrix_norm(mh) + 1e-16
-    return scale.to(mh.dtype)[..., None, None] * _qr_rank_noise(*mh.shape[-2:], mh.device)
-
-
 def canonicalize_right(tensors: torch.Tensor, method: str = "qr") -> torch.Tensor:
     """Bring each MPS to canonical form at site 0 without normalizing.
 
     ``method="newton"`` takes the polar factor of each absorbed site block by
-    kernel A; ``method="qr"`` takes a Householder LQ (``torch.linalg.qr``).
-    Returns a new tensor; the input is not modified.
+    kernel A; ``method="qr"`` takes a Householder LQ, the QR of the block's
+    adjoint by kernel K14 (one launch a site for the batch; complex64 blocks
+    take the rank-noise floor of ``kernels/qr.py``).  Returns a new tensor;
+    the input is not modified.
     """
     b, length, d, chi, _ = tensors.shape
     if length == 1:
@@ -184,10 +169,7 @@ def canonicalize_right(tensors: torch.Tensor, method: str = "qr") -> torch.Tenso
             qh = x.mH
             c = m @ x
         else:
-            mh = m.mH
-            if tensors.dtype == torch.complex64:
-                mh = mh + _qr_noise_floor(mh)
-            q, r = torch.linalg.qr(mh)  # m = r^H q^H
+            q, r = householder_qr(m, adjoint=True)  # m = r^H q^H
             qh = q.mH
             c = r.mH
         out[:, i] = qh.reshape(b, chi, d, chi).permute(0, 2, 1, 3)  # in place: fresh buffer
@@ -217,19 +199,17 @@ def normalize_canonical(tensors: torch.Tensor, method: str = "qr") -> tuple[torc
 def shift_center_right(tensors: torch.Tensor, n: int) -> torch.Tensor:
     """Move the canonical center from site 0 to site ``n`` (host ``n``).
 
-    Sites ``0..n-1`` become left-orthonormal via QR (with the complex64 noise
-    floor of :func:`canonicalize_right`); the leftover factor is absorbed
-    rightward.  Returns a new tensor.
+    Sites ``0..n-1`` become left-orthonormal via QR (kernel K14, with the
+    complex64 noise floor); the leftover factor is absorbed rightward.
+    Returns a new tensor.
     """
     if n <= 0:
         return tensors
     b, _, d, chi, _ = tensors.shape
-    out = tensors.clone()
+    out = tensors.clone(memory_format=torch.contiguous_format)
     for i in range(n):
         a = out[:, i].reshape(b, d * chi, chi)
-        if tensors.dtype == torch.complex64:
-            a = a + _qr_noise_floor(a)
-        q, r = torch.linalg.qr(a)
+        q, r = householder_qr(a)
         out[:, i] = q.reshape(b, d, chi, chi)  # in place: out is ours
         out[:, i + 1] = torch.einsum("zlm,zsmr->zslr", r, out[:, i + 1])
     return out
@@ -261,6 +241,38 @@ def compress(
     if chi_out is not None and chi_out < chi:
         out = out[:, :, :, :chi_out, :chi_out]
     return out
+
+
+def bond_spectra(tensors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Schmidt spectra ``(B, L-1, chi)`` and von Neumann entropies
+    ``(B, L-1)`` at every internal bond of states canonical at 0 with unit
+    norm: the center sweeps rightward by QR (kernel K14) and each bond's
+    spectrum is the singular values of the carried factor (kernel K9
+    without vectors).  Complex64 QRs take the rank-noise floor here too,
+    which the JAX package leaves out of this function: PyTorch's complex64
+    QR on the CPU returns NaN on the exactly rank-deficient blocks of a
+    product state without it.  It moves a spectrum by about one float32 ulp
+    of the block's norm."""
+    b, length, d, chi, _ = tensors.shape
+    tiny = torch.finfo(tensors.real.dtype).tiny
+    center = torch.eye(chi, dtype=tensors.dtype, device=tensors.device).expand(b, chi, chi)
+    spectra, ents = [], []
+    for i in range(length - 1):
+        m = torch.einsum("zlm,zsmr->zslr", center, tensors[:, i]).reshape(b, d * chi, chi)
+        _, center = householder_qr(m.contiguous())
+        s = svd(center, compute_uv=False)
+        p = s * s
+        p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=tiny)
+        spectra.append(s)
+        ents.append(-torch.special.xlogy(p, p).sum(dim=-1))
+    if not spectra:
+        return tensors.real.new_zeros((b, 0, chi)), tensors.real.new_zeros((b, 0))
+    return torch.stack(spectra, dim=1), torch.stack(ents, dim=1)
+
+
+def bond_entropies(tensors: torch.Tensor) -> torch.Tensor:
+    """Von Neumann entanglement entropy at every internal bond, ``(B, L-1)``."""
+    return bond_spectra(tensors)[1]
 
 
 # ---------------------------------------------------------------------------

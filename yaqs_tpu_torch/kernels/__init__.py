@@ -33,6 +33,8 @@ LAUNCHES: dict[str, int] = {
     "sv_mpo_matvec": 0,
     "arnoldi_step": 0,
     "arnoldi_epilogue": 0,
+    "svd_jacobi": 0,
+    "householder_qr": 0,
 }
 
 

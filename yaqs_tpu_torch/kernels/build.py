@@ -36,7 +36,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.c_longlong
-# C signatures: every function returns the cudaError_t of its launch
+# C signatures: every launch function returns the cudaError_t of its launch
 _SIGNATURES = {
     # (in, out, batch, m, n, stream)
     "ns_polar_launch": [_P, _P, _I, _I, _I, _P],
@@ -60,7 +60,15 @@ _SIGNATURES = {
     "arnoldi_step_launch": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _F, _P],
     # (hess, coeff_re, coeff_im, basis, nrm, x, out, small, batch, k, n, stream)
     "arnoldi_epilogue_launch": [_P, _F, _F, _P, _P, _P, _P, _P, _I, _I, _LL, _P],
+    # (in, stride_in, noise, q, r, batch, n, k, adjoint, stream)
+    "householder_qr_launch": [_P, _LL, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (in, stride_in, u, s, vh, work, sweeps, off, record, batch, rows, cols, tol, max_sweeps, stream)
+    "svd_jacobi_launch": [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # (batch, rows, cols, vectors) -> complex64 elements of W and V scratch
+    "svd_jacobi_workspace": [_I, _I, _I, _I],
 }
+# functions that return something else than a cudaError_t
+_RESTYPES = {"svd_jacobi_workspace": _LL}
 
 
 def nvcc_path() -> str:
@@ -139,7 +147,7 @@ def load_library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

@@ -5,7 +5,9 @@ Port of ``yaqs_tpu.ops.decomp`` for the TJM slice.  Site tensors are
 masking (:mod:`.truncation`), never shape shrinking.
 
 - :func:`newton_schulz_orthogonalize` is kernel A (``kernels/ns_polar.py``);
-- the exact split is ``torch.linalg.svd`` plus :func:`.truncation.keep_mask`;
+- the exact split is kernel K9's SVD (``kernels/svd.py``: one-sided Jacobi
+  on the card, ``torch.linalg.svd`` on the CPU) plus
+  :func:`.truncation.keep_mask`;
 - the subspace split is ported on its Newton half-step path only (the path
   of the fast knob set); ``householder`` and ``cholesky`` raise
   ``NotImplementedError``.
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..kernels.ns_polar import newton_schulz_orthogonalize, newton_schulz_orthogonalize_plain
+from ..kernels.svd import svd
 from .truncation import keep_mask
 
 __all__ = [
@@ -63,13 +66,12 @@ def split_matrix_truncated(
     """Truncated SVD split of ``m (..., rows, cols)`` with output bond ``chi``.
 
     Returns ``(left (..., rows, chi), right (..., chi, cols), s_kept (..., chi),
-    keep)``; masked-out directions are zeroed.
+    keep)``; masked-out directions are zeroed.  The SVD is kernel K9 on the
+    card (``(B, rows, cols)`` blocks), whose U is an isometry at every rank:
+    a kept zero direction (``min_keep``) carries an orthonormal completion
+    column into the left factor.
     """
-    # on the card, cuSOLVER's default batched Jacobi SVD does not converge on
-    # the rank-deficient blocks of padded states, and the fallback it then
-    # takes left the 10-qubit oracle off by 1.7e-2 (H100); gesvd (QR
-    # iteration) is accurate there
-    u, s, vh = torch.linalg.svd(m, full_matrices=False, driver="gesvd" if m.is_cuda else None)
+    u, s, vh = svd(m.resolve_conj().contiguous())
     k = s.shape[-1]
     if k < chi:
         u = _pad_last(u, chi - k, -1)
