@@ -18,12 +18,19 @@ Phases (any failure raises and exits non-zero):
    (512, 64, 64) and the zip-up split's adjoint (32, 256, 128) and values only at
    (32, 64, 64), each on random, padded rank-1 and degenerate blocks (sweeps
    and final off-diagonal ratio printed); K14 ``householder_qr`` at (32, 128, 64) (adjoint load) and
-   (512, 64, 32), entry by entry, and on rank-1 padded blocks;
+   (512, 64, 32), entry by entry, and on rank-1 padded blocks; K5
+   ``subspace_split`` at (32, 128, 128), chi=64, one iteration, both
+   distributions, and at (512, 64, 64), chi=32 (factors and reconstruction
+   within 1e-4), and K6 ``ns_canon`` over a (32, 100, 2, 64, 64) chain (the
+   full-rank sites and the site moments within 1e-4); K15
+   ``pair_weights`` at B=32, L=100, 99 channels, and K10 with a gate per
+   trajectory at (32, chi=64);
 4. the analog slice, order-2 TJM at the benchmark shape (TFIM L=100, chi=64,
    B=32, z + lowering noise 0.05, 10 steps of dt=0.1, complex64, fast knob
-   set): trajectories/s, ms per step, peak memory, proof that its seven
-   kernels ran, and a profiled 2-step run (device events per step, busy
-   share, device time by kernel);
+   set): trajectories/s, ms per step, peak memory, proof that its eight
+   kernels ran (K5 1,970 times, K6 11 times, K4 not at all), and a
+   profiled 2-step run (device events per step, busy share, device time by
+   kernel);
 4b. the bench's XXZ point (Dw=5, B=16, otherwise as 4), through the same
    kernels;
 4c. "Analog TFIM, GPU defaults": phase 4's inputs with the knob set the
@@ -36,6 +43,11 @@ Phases (any failure raises and exits non-zero):
    device rows, no cuSOLVER kernel);
    then trajectories/s of the exact knob set alone (phase 4's rows, no
    diagnostics);
+4d. "Analog TFIM, two-site noise": phase 4 with ``crosstalk_zz`` and the
+   correlated decay ``kron(lowering, lowering)`` 0.01 on every adjacent pair
+   (99 merged-pair channels: the bond dissipators' sweep through K14, K10
+   and K9, the weights through K15, the jumps through K10 and K9):
+   trajectories/s, ms per step, peak memory, the launches, a profiled step;
 5. the complex64 symmetric-Z guard: noiseless TFIM from x+ at L=48, chi=64
    keeps max|<Z>| < 1e-3 over 10 steps, with the fast and the exact knob
    set;
@@ -55,6 +67,9 @@ Phases (any failure raises and exits non-zero):
 7b. the same workload with ``gate_mode="full-tdvp"`` (76 TDVP windows, k=25):
    trajectories/s, peak memory, proof that the TDVP kernels ran, and the
    device time by kernel of one window stage (profiled);
+7c. phase 7's workload with ``crosstalk_zz`` and the correlated decay 0.01
+   on every adjacent pair beside the lowering noise: trajectories/s, peak
+   memory, the launches;
 8. the digital oracle guard: a noiseless 10-qubit brickwork of 8 layers at
    chi=32 (exact there) against a numpy state vector, max|d<Z>| <= 1e-3 with
    the fast and with the exact knob set (the latter through K9 and K14);
@@ -75,16 +90,19 @@ Phases (any failure raises and exits non-zero):
    Arnoldi k=25): trajectories/s, ms per step, peak memory, the launches of
    K12 and K13 against the loop structure's count, and a profiled step
    (device time by kernel, busy share);
+10b. the same with ``crosstalk_zz`` 0.01 on every adjacent pair (19
+   two-factor channels): trajectories/s, ms per step, peak memory;
 11. the MCWF guards: noiseless L=10 from a Neel state, the card's local
    route (complex64) against the CPU's dense route (complex128), max|dZ| <=
    1e-3; noisy L=4 (z + lowering 0.1, B=4096, 10 steps) through both routes
    on the card against the exact Lindblad evolution (numpy/scipy), every
-   (site, time) within 5 standard errors + 1e-3.
-
-Phase 3 also times the analog path's Newton parts that are still PyTorch
-around K4 (K5 ``split_matrix_subspace``, K6 ``canonicalize_right(method=
-"newton")``) at the analog shape, with their calls in the phase 4 run; they
-are not kernels of their own yet and stay out of the kernel table.
+   (site, time) within 5 standard errors + 1e-3;
+12. the two-site noise guards, B=4096, each within 5 standard errors + 1e-3:
+   the TJM (L=4, chi=4, z and lowering, ``crosstalk_zz`` and the correlated
+   decay, all 0.1) with both knob sets against the exact Lindblad
+   evolution; a 4-qubit brickwork (lowering 0.02, the pair processes 0.01)
+   against a density-matrix run of the engine's scoped noise; the MCWF local
+   route with ``crosstalk_zz`` against the exact evolution.
 
 The last two lines of standard output are the kernel table and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come on
@@ -95,7 +113,6 @@ printing any of them.  It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import statistics
 import subprocess
@@ -127,16 +144,26 @@ MCWF = dict(length=20, batch=16, steps=10, dt=0.1, gamma=0.05, krylov_dim=25)
 MCWF_KERNELS = ("sv_mpo_matvec", "arnoldi_step", "arnoldi_epilogue")
 STAT_SIGMAS = 5.0  # the noisy MCWF guard: |mean - exact| <= 5 standard errors + GUARD_TOL
 TDVP_KERNELS = ("heff2", "heff1", "lanczos_step", "env_update")
-ANALOG_KERNELS = ("ns_polar", "lanczos_epilogue", "moment_scan", *TDVP_KERNELS)
-DIGITAL_KERNELS = ("bond_gate", "moment_scan", "sample_shots", "ns_polar")
+NEWTON_KERNELS = ("subspace_split", "ns_canon")
+ANALOG_KERNELS = (*NEWTON_KERNELS, "lanczos_epilogue", "moment_scan", *TDVP_KERNELS)
+DIGITAL_KERNELS = ("bond_gate", "moment_scan", "sample_shots", *NEWTON_KERNELS)
+# the kernels of the analog path with two-site noise (phase 4d)
+TWO_SITE_KERNELS = (*ANALOG_KERNELS, "pair_weights", "svd_jacobi", "householder_qr", "bond_gate")
+# the fast analog cell's K5 and K6 launches: one a split, one a canonicalization
+ANALOG_NEWTON_LAUNCHES = dict(subspace_split=1970, ns_canon=11)
 # the path whose run gives a kernel's launch count in the kernel table: the
 # slice that ported it, or the analog path for the TDVP kernels
 TABLE_PATH = dict(ns_polar="analog", lanczos_epilogue="analog", bond_gate="digital", moment_scan="digital",
                   sample_shots="digital", heff2="analog", heff1="analog", lanczos_step="analog", env_update="analog",
                   sv_mpo_matvec="mcwf", arnoldi_step="mcwf", arnoldi_epilogue="mcwf", svd_jacobi="analog_exact",
-                  householder_qr="analog_exact")
+                  householder_qr="analog_exact", subspace_split="analog", ns_canon="analog",
+                  pair_weights="analog_two_site")
 # the phases whose main-path launch counts the JSON file keeps per kernel
-LAUNCH_PATHS = ("analog", "digital", "analog_xxz", "digital_window", "mcwf", "analog_exact")
+LAUNCH_PATHS = ("analog", "digital", "analog_xxz", "digital_window", "mcwf", "analog_exact", "analog_two_site",
+                "digital_two_site", "mcwf_two_site")
+NEWTON_TOL = 1e-4  # K5 and K6 against their plain versions (relative; the Newton steps amplify the summation order)
+PAIR_GAMMA = 0.01  # crosstalk_zz and the correlated decay on every adjacent pair
+LOWERING = np.array([[0, 1], [0, 0]], dtype=np.complex128)
 DECOMP_KERNELS = ("svd_jacobi", "householder_qr")
 EXACT_KERNELS = (*DECOMP_KERNELS, "lanczos_epilogue", "moment_scan", *TDVP_KERNELS)
 DECOMP_TOL = 1e-4  # K9 and K14 against their plain versions (relative; complex64, another algorithm for K9)
@@ -469,6 +496,8 @@ def phase_kernels(dev):
     rows.update(tdvp_kernel_rows(dev, randc, gen))
     rows.update(mcwf_kernel_rows(dev, randc, gen))
     rows.update(decomp_kernel_rows(dev, randc, gen))
+    rows.update(newton_kernel_rows(dev, randc, gen))
+    rows.update(two_site_kernel_rows(dev, randc, gen, rows["bond_gate"]))
     return rows
 
 
@@ -762,46 +791,154 @@ def qr_chain_canonicalize(mps):
     return out
 
 
-def unported_rows(dev):
-    """The analog path's Newton parts that are still PyTorch around K4, at
-    the analog shape (B=32, chi=64): K5 ``split_matrix_subspace`` on the
-    (2 chi, 2 chi) two-site matrix and K6 ``canonicalize_right(method=
-    "newton")`` over the L=100 chain.  Plain device time and host-paced
-    time, the library call host-paced, and the bound."""
-    from yaqs_tpu_torch.core.mps_ops import canonicalize_right
-    from yaqs_tpu_torch.ops.decomp import split_matrix_subspace
+def ns_cmacs(batch, rows, cols):
+    """Complex MACs of one Newton-Schulz polar factor of a batch of (rows,
+    cols) blocks: 8 steps of g = x^H x and x g, the quintics also (x g) g."""
+    return 22 * batch * rows * cols * cols
 
-    gen = torch.Generator(device=dev).manual_seed(4321)
+
+def canon_errors(got, ref):
+    """Relative errors of a Newton canonicalization against its plain
+    version: over sites 0 .. L - log_d(chi) - 1, whose blocks have full rank
+    (d^(L-i) >= chi); over the gauge-free site moments of the whole chain;
+    and over every site.  Nearer the end the blocks are exactly rank
+    deficient, and the polar steps lift float32 rounding in their empty
+    directions (the schedule multiplies a direction near 0 by about 1,300),
+    differently in two summation orders."""
+    from yaqs_tpu_torch.kernels.moment_scan import site_moment_matrices_plain
+
+    d, chi = got.shape[2], got.shape[-1]
+    full = got.shape[1] - int(np.ceil(np.log2(chi) / np.log2(d)))
+    return dict(full_rank_sites=rel_err(got[:, :full], ref[:, :full]),
+                moments=rel_err(site_moment_matrices_plain(got)[0], site_moment_matrices_plain(ref)[0]),
+                all_sites=rel_err(got, ref))
+
+
+def newton_kernel_rows(dev, randc, gen):
+    """K5 ``subspace_split`` at the analog split (32, 128, 128), chi = 64,
+    one iteration, with the singular values to the right and to the left,
+    and at the digital one (512, 64, 64), chi = 32: every factor within 1e-4
+    of the plain version's (relative), the reconstruction left @ right too;
+    the library call is the SVD of the block.  K6 ``ns_canon`` over a
+    random (32, 100, 2, 64, 64) chain: the full-rank sites and every site's
+    moments within 1e-4 (``canon_errors``); the library call is the chain of
+    batched QRs."""
+    from yaqs_tpu_torch.kernels.ns_canon import ns_canon_scan, ns_canon_scan_plain
+    from yaqs_tpu_torch.kernels.subspace_split import subspace_split, subspace_split_plain
+    from yaqs_tpu_torch.ops.decomp import _range_finder
+
     b, chi, length, d = BENCH["batch"], BENCH["chi"], BENCH["length"], 2
-    m = torch.complex(torch.randn((b, d * chi, d * chi), generator=gen, device=dev),
-                      torch.randn((b, d * chi, d * chi), generator=gen, device=dev))
+    nd, cd = DIGITAL["num_traj"], DIGITAL["chi"]
+    k5, iters = dict(max_abs_err=0.0), 1
+    for key, (bs, r, c, k, left_iso) in {"analog_right": (b, d * chi, d * chi, chi, True),
+                                         "analog_left": (b, d * chi, d * chi, chi, False),
+                                         "digital": (nd, d * cd, d * cd, cd, True)}.items():
+        m = randc(bs, r, c)
+        omega = _range_finder(c if left_iso else r, k, 20260816 if left_iso else 20260817, m.dtype, dev)
+        got = subspace_split(m, omega, k, iters, left_iso)
+        ref = subspace_split_plain(m, omega, k, iters, left_iso)
+        torch.cuda.synchronize()
+        errs = [rel_err(g, f) for g, f in zip(got, ref)] + [rel_err(got[0] @ got[1], ref[0] @ ref[1])]
+        log(f"[phase 3] subspace_split {key} (B={bs}, {r}x{c}, chi={k}, iters={iters}): rel err left {errs[0]:.3e}, "
+            f"right {errs[1]:.3e}, s {errs[2]:.3e}, left @ right {errs[3]:.3e}")
+        check(max(errs) <= NEWTON_TOL, f"subspace_split ({key}) disagrees with its plain version: {errs}")
+        k5["max_abs_err"] = max([k5["max_abs_err"]] + [(g - f).abs().max().item() for g, f in zip(got, ref)])
+        # iters + 1 polar factors on the isometric side, iters on the other
+        near, far = (r, c) if left_iso else (c, r)
+        polar = ns_cmacs(bs, near, k) * (iters + 1) + ns_cmacs(bs, far, k) * iters
+        cmacs = polar + (2 * iters + 2) * bs * r * c * k
+        t = timings(f"subspace_split {key} (B={bs}, {r}x{c}, chi={k})",
+                    lambda m=m, o=omega, k=k, li=left_iso: subspace_split(m, o, k, iters, li),
+                    lambda m=m, o=omega, k=k, li=left_iso: subspace_split_plain(m, o, k, iters, li),
+                    lambda m=m: torch.linalg.svd(m, full_matrices=False), ("subspace_split",),
+                    (bs * (r * c + r * k + k * c) + omega.numel()) * C64 + bs * k * 4, cmacs * CMAC_FLOPS)
+        k5[key] = dict(shape=[bs, r, c, k], iters=iters, rel_errs=errs,
+                       library_call="torch.linalg.svd of the block (one call)", **t)
+
     mps = random_mps(gen, dev, b, length, chi)
-    rows_m, cols_m = d * chi, d * chi
-    ns_cmacs = 22 * b * rows_m * chi * chi  # one Newton-Schulz polar factor of a (2 chi, chi) block
-    cases = {
-        "K5": ("split_matrix_subspace (newton, 1 iteration)",
-               lambda: split_matrix_subspace(m, chi, iters=1, qr_method="newton"),
-               lambda: torch.linalg.svd(m, full_matrices=False), "torch.linalg.svd on (2 chi, 2 chi)",
-               (b * rows_m * cols_m + 2 * b * rows_m * chi) * C64,
-               (3 * ns_cmacs + 4 * b * rows_m * cols_m * chi) * CMAC_FLOPS),
-        "K6": ("canonicalize_right (newton)", lambda: canonicalize_right(mps, method="newton"),
-               lambda: qr_chain_canonicalize(mps), "the chain of batched torch.linalg.qr (one per site)",
-               2 * b * length * d * chi * chi * C64,
-               (length - 1) * (ns_cmacs + 2 * b * chi * chi * d * chi) * CMAC_FLOPS),
+    got, ref = ns_canon_scan(mps), ns_canon_scan_plain(mps)
+    torch.cuda.synchronize()
+    errs = canon_errors(got, ref)
+    log(f"[phase 3] ns_canon (B={b}, L={length}, chi={chi}): rel err of the full-rank sites {errs['full_rank_sites']:.3e}, "
+        f"of the site moments {errs['moments']:.3e}, of every site {errs['all_sites']:.3e} (the rank-deficient "
+        f"blocks near the chain's end: rounding lifted by the polar steps, in both versions)")
+    check(max(errs["full_rank_sites"], errs["moments"]) <= NEWTON_TOL,
+          f"ns_canon disagrees with its plain version: {errs} > {NEWTON_TOL}")
+    t = timings(f"ns_canon (B={b}, L={length}, chi={chi})", lambda: ns_canon_scan(mps),
+                lambda: ns_canon_scan_plain(mps), lambda: qr_chain_canonicalize(mps), ("ns_canon",),
+                2 * b * length * d * chi * chi * C64,
+                (length - 1) * (ns_cmacs(b, d * chi, chi) + 2 * b * d * chi**3) * CMAC_FLOPS, slow_plain=True)
+    full = length - int(np.ceil(np.log2(chi) / np.log2(d)))
+    k6 = dict(max_abs_err=(got[:, :full] - ref[:, :full]).abs().max().item(), rel_errs=errs,
+              shape=[b, length, d, chi, chi],
+              library_call="one batched torch.linalg.qr a site (the chain)", **t)
+    return {
+        "subspace_split": dict(source="yaqs_tpu_torch/kernels/csrc/subspace_split.cu",
+                               replaces="yaqs_tpu/ops/decomp.py:181", **k5["analog_right"], **k5),
+        "ns_canon": dict(source="yaqs_tpu_torch/kernels/csrc/ns_canon.cu", replaces="yaqs_tpu/core/mps_ops.py:240",
+                         **k6),
     }
-    out = {}
-    for key, (label, plain_fn, library_fn, library_call, nbytes, flops) in cases.items():
-        plain_ms, events, source = device_ms(plain_fn, calls=5)
-        host_ms = host_paced_ms(plain_fn, windows=3, calls=3)
-        library_ms = host_paced_ms(library_fn, windows=3, calls=3)
-        bound_ms, bound_by = bound(nbytes, flops)
-        out[key] = dict(function=label, plain_ms=plain_ms, plain_ms_source=source, plain_events_per_call=events,
-                        plain_host_ms=host_ms, library_ms=library_ms, library_call=library_call, bound_ms=bound_ms,
-                        bound_by=bound_by, bytes=nbytes, flops=flops)
-        log(f"[phase 3] {key} {label} (B={b}, chi={chi}): plain device {plain_ms:.4f} ms ({source}, {events:g} "
-            f"device events), host-paced {host_ms:.4f} ms; library {library_ms:.4f} ms (host-paced, {library_call}); "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
-    return out
+
+
+def two_site_kernel_rows(dev, randc, gen, bond_gate_row):
+    """K15 ``pair_weights`` at the two-site cell's shape (B=32, L=100,
+    chi=64, nc2=99 channels, one a bond, the correlated decay's weight
+    operator) on a random chain, with the environments of one
+    ``moment_scan`` launch: within 1e-4 of the plain version (relative); the
+    library call is one ``torch.einsum`` over the gathered sites and
+    environments.  K10 ``bond_gate`` with a gate per trajectory at the
+    analog jump's shape (B=32, chi=64), into ``bond_gate_row``."""
+    from yaqs_tpu_torch.kernels.bond_gate import bond_gate, bond_gate_plain
+    from yaqs_tpu_torch.kernels.moment_scan import site_moments_and_environments
+    from yaqs_tpu_torch.kernels.pair_weights import pair_weights, pair_weights_plain
+
+    b, chi, length, d = BENCH["batch"], BENCH["chi"], BENCH["length"], 2
+    nc2 = length - 1
+    mps = random_mps(gen, dev, b, length, chi)
+    _, _, left_envs, right_envs = site_moments_and_environments(mps)
+    bonds = torch.arange(nc2, device=dev)
+    op = torch.as_tensor(np.kron(LOWERING, LOWERING)).to(dev, torch.complex64)
+    wop = (op.mH @ op).expand(nc2, 4, 4).contiguous()
+    coeff = torch.full((nc2,), BENCH["dt"] * PAIR_GAMMA, device=dev)
+    args = (mps, left_envs, right_envs, bonds, wop, coeff)
+    got, ref = pair_weights(*args), pair_weights_plain(*args)
+    torch.cuda.synchronize()
+    err = rel_err(got, ref)
+    log(f"[phase 3] pair_weights (B={b}, L={length}, chi={chi}, nc2={nc2}): rel err {err:.3e}")
+    check(err <= NEWTON_TOL, f"pair_weights disagrees with its plain version: {err} > {NEWTON_TOL}")
+    a, bb = mps[:, bonds], mps[:, bonds + 1]
+    le, re_ = left_envs[:, bonds], right_envs[:, bonds + 1]
+    w5 = wop.reshape(nc2, 2, 2, 2, 2)
+
+    def library():
+        val = torch.einsum("zkalm,zkbmr,kabcd,zkln,zkcno,zkdop,zkrp->zk", a.conj(), bb.conj(), w5, le, a, bb, re_)
+        return coeff * val.real
+
+    t = timings(f"pair_weights (B={b}, L={length}, chi={chi}, nc2={nc2})", lambda: pair_weights(*args),
+                lambda: pair_weights_plain(*args), library, ("pair_weights",),
+                (b * length * d * chi * chi + 2 * b * length * chi * chi + 16 * nc2) * C64 + (nc2 + b * nc2) * 4,
+                b * nc2 * (12 * chi**3 + 16 * chi * chi) * CMAC_FLOPS)
+    k15 = dict(source="yaqs_tpu_torch/kernels/csrc/pair_weights.cu", replaces="yaqs_tpu/methods/stochastic.py:65",
+               max_abs_err=(got - ref).abs().max().item(), shape=[b, length, chi, nc2],
+               library_call="one torch.einsum over the gathered sites, environments and operators", **t)
+
+    gates = randc(b, 4, 4)
+    x, y = mps[:, 3], mps[:, 4]
+    got, ref = bond_gate(x, y, gates), bond_gate_plain(x, y, gates)
+    torch.cuda.synchronize()
+    err = rel_err(got, ref)
+    log(f"[phase 3] bond_gate with a gate per trajectory (B={b}, chi={chi}): rel err {err:.3e}")
+    check(err <= KERNEL_TOL, f"bond_gate (a gate per trajectory) disagrees with its plain version: {err}")
+    g5 = gates.reshape(b, 2, 2, 2, 2)
+    bond_gate_row["per_trajectory_gate"] = dict(
+        shape=[b, d, chi, chi], max_abs_err=(got - ref).abs().max().item(),
+        library_call="torch.einsum('zstuv,zulm,zvmr->zsltr') (one call)",
+        **timings(f"bond_gate, a gate per trajectory (B={b}, chi={chi})", lambda: bond_gate(x, y, gates),
+                  lambda: bond_gate_plain(x, y, gates), lambda: torch.einsum("zstuv,zulm,zvmr->zsltr", g5, x, y),
+                  ("bond_gate",), (2 * b * d * chi * chi + b * d * d * chi * chi + 16 * b) * C64,
+                  b * (d * d * chi**3 + d**4 * chi * chi) * CMAC_FLOPS),
+    )
+    return {"pair_weights": k15}
 
 
 def tdvp_kernel_rows(dev, randc, gen):
@@ -946,18 +1083,22 @@ def phase_slice(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    with counted_calls() as calls:
-        t_start = time.perf_counter()
-        res = run_tjm_batch(t0, w, noise, obs, plan_for(steps, chi), device=dev, dtype=torch.complex64, batch=b)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t_start
+    t_start = time.perf_counter()
+    res = run_tjm_batch(t0, w, noise, obs, plan_for(steps, chi), device=dev, dtype=torch.complex64, batch=b)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_start
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     out = dict(
         seconds=seconds, traj_per_s=b / seconds, ms_per_step=1e3 * seconds / steps,
-        peak_bytes=peak, launches=launches, unported_calls=dict(calls),
+        peak_bytes=peak, launches=launches,
     )
-    log(f"[phase 4] calls of the Newton parts that are still PyTorch around K4: {dict(calls)}")
+    log(f"[phase 4] Newton launches: ns_polar {launches['ns_polar']} (K5 and K6 run the schedule inside their own "
+        f"kernels), subspace_split {launches['subspace_split']}, ns_canon {launches['ns_canon']} "
+        f"(expected {ANALOG_NEWTON_LAUNCHES})")
+    check(launches["ns_polar"] == 0, f"the fast analog run launched ns_polar {launches['ns_polar']} times")
+    for name, count in ANALOG_NEWTON_LAUNCHES.items():
+        check(launches[name] == count, f"{name} launched {launches[name]} times, not {count}")
     log(f"[phase 4] TJM L={length} chi={chi} B={b} {steps} steps: {seconds:.3f} s, "
         f"{out['traj_per_s']:.4f} traj/s, {out['ms_per_step']:.1f} ms/step, peak {peak / 2**20:.1f} MiB, "
         f"launches {launches}")
@@ -976,31 +1117,57 @@ def phase_slice(dev):
     return out
 
 
-@contextlib.contextmanager
-def counted_calls():
-    """Count the calls of K5 ``split_matrix_subspace`` and K6
-    ``canonicalize_right`` on the analog path (their callers look them up in
-    their own modules)."""
-    from yaqs_tpu_torch.core import mps_ops
-    from yaqs_tpu_torch.ops import decomp
+def two_site_noise(length, one_site_gamma, pair_gamma=PAIR_GAMMA, one_site=("z", "lowering")):
+    """One-site processes on every site, and on every adjacent pair
+    ``crosstalk_zz`` (a Pauli kron: the factored table) and the correlated
+    decay ``kron(lowering, lowering)`` (the merged-pair tables), as a port
+    ``NoiseModel``."""
+    import yaqs_tpu_torch as yt
 
-    calls = {"K5": 0, "K6": 0}
-    patched = [(decomp, "split_matrix_subspace", "K5"), (mps_ops, "canonicalize_right", "K6")]
-    originals = [getattr(mod, name) for mod, name, _ in patched]
+    procs = [{"name": n, "sites": [i], "strength": one_site_gamma} for n in one_site for i in range(length)]
+    procs += [{"name": "crosstalk_zz", "sites": [i, i + 1], "strength": pair_gamma} for i in range(length - 1)]
+    procs += [{"name": "corr_decay", "sites": [i, i + 1], "strength": pair_gamma, "matrix": np.kron(LOWERING, LOWERING)}
+              for i in range(length - 1)]
+    return yt.NoiseModel(procs)
 
-    def counting(fn, key):
-        def wrapper(*args, **kwargs):
-            calls[key] += 1
-            return fn(*args, **kwargs)
-        return wrapper
 
-    for (mod, name, key), fn in zip(patched, originals):
-        setattr(mod, name, counting(fn, key))
-    try:
-        yield calls
-    finally:
-        for (mod, name, _), fn in zip(patched, originals):
-            setattr(mod, name, fn)
+def phase_two_site(dev):
+    """"Analog TFIM, two-site noise": phase 4's inputs and fast knob set with
+    z and lowering 0.05 on every site plus ``crosstalk_zz`` and the
+    correlated decay 0.01 on every adjacent pair (99 merged-pair channels)."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch import kernels
+    from yaqs_tpu_torch.analog.run import run_tjm_batch
+
+    length, chi, b, steps = BENCH["length"], BENCH["chi"], BENCH["batch"], BENCH["steps"]
+    w, t0, obs, _ = tfim_inputs(length, chi, "x+")
+    noise = yt.compile_noise(two_site_noise(length, BENCH["gamma"]), length)
+    check(noise.num_channels2 == length - 1, f"expected {length - 1} merged-pair channels, got {noise.num_channels2}")
+    run_tjm_batch(t0, w, noise, obs, plan_for(1, chi), device=dev, dtype=torch.complex64, traj_indices=range(b, 2 * b))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    res = run_tjm_batch(t0, w, noise, obs, plan_for(steps, chi), device=dev, dtype=torch.complex64, batch=b)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(seconds=seconds, traj_per_s=b / seconds, ms_per_step=1e3 * seconds / steps, peak_bytes=peak,
+               launches=launches, channels=dict(one_site=noise.num_channels1, merged_pair=noise.num_channels2))
+    log(f"[phase 4d] TJM with two-site noise L={length} chi={chi} B={b} {steps} steps ({noise.num_channels1} factored "
+        f"and {noise.num_channels2} merged-pair channels): {seconds:.3f} s, {out['traj_per_s']:.4f} traj/s, "
+        f"{out['ms_per_step']:.1f} ms/step, peak {peak / 2**20:.1f} MiB, launches {launches}")
+    check(tuple(res.shape) == (b, length, steps + 1), f"unexpected result shape {tuple(res.shape)}")
+    check(bool(torch.isfinite(res).all()), "non-finite observable in the two-site run")
+    check(res.abs().max().item() <= 1.0 + 1e-3, "an observable of the two-site run left [-1, 1]")
+    for name in TWO_SITE_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the two-site run")
+    check(launches["ns_polar"] == 0, "the two-site run launched ns_polar")
+    out["mean_z_final"] = res[:, :, -1].mean().item()
+    out["profile"] = profile_run("phase 4d, one step", lambda: run_tjm_batch(
+        t0, w, noise, obs, plan_for(1, chi), device=dev, dtype=torch.complex64, batch=b), steps=1)
+    return out
 
 
 def phase_xxz(dev):
@@ -1268,6 +1435,8 @@ def phase_digital(dev):
     log(f"[phase 7] digital n={n} chi={chi} B={b} {shots} shots: median {seconds:.4f} s of {runs}, "
         f"{out['traj_per_s']:.2f} traj/s, peak {peak / 2**20:.1f} MiB, launches {launches}, "
         f"mean <Z> per column {out['mean_z']}")
+    log(f"[phase 7] ns_polar launches left: {launches['ns_polar']} (the bond splits are K5's, the "
+        f"canonicalizations K6's)")
     out["profile"] = profile_run("phase 7", lambda: yt.run_digital_batch(
         circ, t0, noise, obs, num_traj=b, shots=shots, seed=DIGITAL["seed"], **kw))
     check(tuple(z.shape) == (b, n, 3), f"unexpected result shape {tuple(z.shape)}")
@@ -1328,12 +1497,50 @@ def phase_digital_window(dev):
     check(sum(res.counts.values()) == shots, f"window run counts sum to {sum(res.counts.values())}")
     for name in TDVP_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched by the digital window run")
+    log(f"[phase 7b] ns_polar launches left: {launches['ns_polar']} (the window sweeps' splits are K5's, the "
+        f"canonicalizations K6's; the center shift is K14)")
     # one real stage whose window starts at the mean start (the center shift's
     # cost grows with it), profiled: device time by kernel
     mean_w0 = sum(st.w0 for st in stages) / len(stages)
     stage = min(stages, key=lambda st: abs(st.w0 - mean_w0))
     out["stage_profile"] = dict(w0=stage.w0, width=stage.mpo.shape[0], mean_w0=mean_w0,
                                 **profile_window_stage(dev, stage, noise, n, chi, b))
+    return out
+
+
+def phase_digital_two_site(dev):
+    """Phase 7's workload (``swaps``, fast knobs, one timed run) with
+    ``crosstalk_zz`` and the correlated decay 0.01 on every adjacent pair
+    beside the lowering noise 0.02."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch import kernels
+
+    n, chi, b, shots = DIGITAL["qubits"], DIGITAL["chi"], DIGITAL["num_traj"], DIGITAL["shots"]
+    circ, _, obs, t0 = digital_bench_inputs(n, chi)
+    noise = yt.compile_noise(two_site_noise(n, DIGITAL["gamma"], one_site=("lowering",)), n)
+    kw = dict(max_bond_dim=chi, sample_layers=True, gate_mode="swaps", config=digital_config(chi, FAST),
+              device=dev, dtype=torch.complex64)
+    yt.run_digital_batch(circ, t0, noise, obs, num_traj=8, shots=8, seed=DIGITAL["seed"] + 1, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    res = yt.run_digital_batch(circ, t0, noise, obs, num_traj=b, shots=shots, seed=DIGITAL["seed"], **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+    z = res.trajectories
+    out = dict(seconds=seconds, traj_per_s=b / seconds, peak_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches, mean_z=z.mean(dim=(0, 1)).tolist(),
+               channels=dict(one_site=noise.num_channels1, merged_pair=noise.num_channels2))
+    log(f"[phase 7c] digital with two-site noise n={n} chi={chi} B={b} {shots} shots ({noise.num_channels1} factored "
+        f"and {noise.num_channels2} merged-pair channels): {seconds:.4f} s, {out['traj_per_s']:.2f} traj/s, "
+        f"peak {out['peak_bytes'] / 2**20:.1f} MiB, launches {launches}, mean <Z> per column {out['mean_z']}")
+    check(tuple(z.shape) == (b, n, 3) and bool(torch.isfinite(z).all()), "non-finite or misshaped two-site result")
+    check(z.abs().max().item() <= 1.0 + 1e-3, "an observable of the two-site digital run left [-1, 1]")
+    check(sum(res.counts.values()) == shots, f"two-site run counts sum to {sum(res.counts.values())}")
+    for name in (*DIGITAL_KERNELS, "pair_weights", "svd_jacobi"):
+        check(launches[name] > 0, f"kernel {name} was not launched by the two-site digital run")
     return out
 
 
@@ -1516,6 +1723,160 @@ def phase_mcwf_guards(dev):
     return out
 
 
+def phase_mcwf_two_site(dev):
+    """Phase 10's local route at full width (L=20, B=16, 10 steps) with
+    ``crosstalk_zz`` 0.01 on every adjacent pair beside the z and lowering
+    noise: 19 two-factor channels, whose weights are the norms of the
+    applied channel and whose ``A^dag A`` (a scalar) joins K12's one-site
+    terms."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch import kernels
+    from yaqs_tpu_torch.analog.run import run_mcwf_batch
+
+    length, b, steps, k = MCWF["length"], MCWF["batch"], MCWF["steps"], MCWF["krylov_dim"]
+    w, psi0, noise, obs = mcwf_inputs(length, MCWF["gamma"])
+    noise = yt.NoiseModel(noise.processes + [{"name": "crosstalk_zz", "sites": [i, i + 1], "strength": PAIR_GAMMA}
+                                             for i in range(length - 1)])
+    kw = dict(dt=MCWF["dt"], device=dev, dtype=torch.complex64)
+    run_mcwf_batch(psi0, w, noise, obs, num_steps=1, traj_indices=range(b, 2 * b), **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    res = run_mcwf_batch(psi0, w, noise, obs, num_steps=steps, batch=b, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+    expected = dict(sv_mpo_matvec=steps * k, arnoldi_step=steps * k, arnoldi_epilogue=steps)
+    out = dict(seconds=seconds, traj_per_s=b / seconds, ms_per_step=1e3 * seconds / steps,
+               peak_bytes=torch.cuda.max_memory_allocated(), launches=launches, channels=len(noise.processes))
+    log(f"[phase 10b] MCWF local route with crosstalk_zz L={length} B={b} {steps} steps k={k} "
+        f"({len(noise.processes)} channels): {seconds:.3f} s, {out['traj_per_s']:.4f} traj/s, "
+        f"{out['ms_per_step']:.1f} ms/step, peak {out['peak_bytes'] / 2**20:.1f} MiB, launches {launches}")
+    check(tuple(res.shape) == (b, length, steps + 1) and bool(torch.isfinite(res).all()),
+          "non-finite or misshaped MCWF two-site result")
+    check(res.abs().max().item() <= 1.0 + 1e-3, "an MCWF two-site observable left [-1, 1]")
+    for name, count in expected.items():
+        check(launches[name] == count, f"{name} launched {launches[name]} times, the loop structure says {count}")
+    out["mean_z"] = res.mean(dim=(0, 1)).tolist()
+    return out
+
+
+def statistical_guard(label, res, exact, out, key):
+    """Every (site, time) mean of ``res (B, L, T)`` within 5 standard errors
+    + 1e-3 of ``exact (L, T)``; records and prints the largest share of
+    that limit."""
+    res = res.double().cpu().numpy()
+    b = res.shape[0]
+    mean = res.mean(axis=0)
+    se = res.std(axis=0, ddof=1) / np.sqrt(b)
+    worst = float(np.max(np.abs(mean - exact) / (STAT_SIGMAS * se + GUARD_TOL)))
+    log(f"[phase 12] {label}: max|mean - exact| = {np.abs(mean - exact).max():.3e}, largest share of the limit "
+        f"(5 SE + 1e-3) {worst:.3f}")
+    check(np.isfinite(res).all() and worst <= 1.0, f"noisy guard ({label}) failed: {worst}")
+    out[f"{key}_max_abs_d"] = float(np.abs(mean - exact).max())
+    out[f"{key}_limit_share"] = worst
+
+
+def digital_density_matrix_z(circ, noise_model, n):
+    """<Z_i> at the end of a circuit under the digital engine's noise
+    semantics, on a density matrix: after each half-layer's gates (one-qubit
+    gates, then the bond gates left to right), the Lindblad evolution for
+    time 1 of the processes the half-layer's gate scopes activate (a
+    one-site process on a site of a scope, a two-site process with both
+    sites inside one scope), which the trajectories sample to first order."""
+    import scipy.linalg
+
+    from yaqs_tpu_torch.analog.embedding import embed_one_site, embed_operator, operator_schmidt_factors
+    from yaqs_tpu_torch.analog.lindblad import noise_model_jump_ops
+    from yaqs_tpu_torch.core.noise_model import NoiseModel
+    from yaqs_tpu_torch.digital.compile import CompiledSegment, compile_circuit
+
+    dim = 2**n
+    eye = np.eye(dim)
+    rho = np.zeros((dim, dim), dtype=np.complex128)
+    rho[0, 0] = 1.0
+    for plan in compile_circuit(circ, "swaps").segments:
+        for stage in plan.stages:
+            check(isinstance(stage, CompiledSegment), "the density-matrix guard takes nearest-neighbour gates only")
+            for h in range(stage.n_half_layers):
+                u = np.eye(dim, dtype=np.complex128)
+                for i in range(n):
+                    u = embed_one_site(stage.mats1q[h, i], i, n) @ u
+                for i in range(n - 1):
+                    g = sum(embed_operator({i: a, i + 1: b}, n) for a, b in operator_schmidt_factors(stage.bond_mats[h, i]))
+                    u = g @ u
+                rho = u @ rho @ u.conj().T
+                scopes = [set(sc) for sc in stage.gate_scopes[h]]
+                active = [p for p in noise_model.processes
+                          if any(set(p["sites"]) <= sc for sc in scopes)]
+                jumps = noise_model_jump_ops(NoiseModel(active), n) if active else []
+                liou = np.zeros((dim * dim, dim * dim), dtype=np.complex128)
+                for jump in jumps:
+                    ldl = jump.conj().T @ jump
+                    liou += np.kron(jump, jump.conj()) - 0.5 * (np.kron(ldl, eye) + np.kron(eye, ldl.T))
+                rho = (scipy.linalg.expm(liou) @ rho.reshape(-1)).reshape(dim, dim)
+    return np.array([np.trace(embed_one_site(np.diag([1.0, -1.0]), i, n) @ rho).real for i in range(n)])
+
+
+def phase_noisy_guards(dev):
+    """Two-site noise against exact evolutions, B=4096 trajectories, every
+    (site, time) within 5 standard errors + 1e-3: the TJM (TFIM L=4 from
+    x+, chi=4, z and lowering 0.1, crosstalk_zz and the correlated decay
+    0.1, 10 steps of dt=0.1) with the fast and the exact knob set against
+    the Lindblad evolution; a 4-qubit brickwork of 4 layers (lowering 0.02,
+    crosstalk_zz and the correlated decay 0.01) against a density-matrix
+    run; the MCWF local route (z and lowering 0.1, crosstalk_zz 0.1)
+    against the Lindblad evolution."""
+    import dataclasses
+
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch import kernels
+    from yaqs_tpu_torch.analog.lindblad import noise_model_jump_ops
+    from yaqs_tpu_torch.analog.run import run_mcwf_batch, run_tjm_batch
+
+    out = {}
+    length, b, steps, dt, gamma, chi = 4, 4096, 10, BENCH["dt"], 0.1, 4
+    psi0 = yt.to_statevector(yt.named_product_state("x+", length, 1))
+    w, t0, obs, _ = tfim_inputs(length, chi, "x+")
+    model = two_site_noise(length, gamma, pair_gamma=gamma)
+    exact = exact_lindblad_z(yt.mpo_to_matrix(w), noise_model_jump_ops(model, length), psi0, dt, steps, length)
+    noise = yt.compile_noise(model, length)
+    for name, knobs in (("fast", FAST), ("exact", EXACT)):
+        plan = plan_for(steps, chi)
+        plan = dataclasses.replace(plan, evolution=dataclasses.replace(plan.evolution, **knobs))
+        kernels.reset_launch_counts()
+        res = run_tjm_batch(t0, w, noise, obs, plan, device=dev, dtype=torch.complex64, batch=b, seed=17)
+        launches = kernels.launch_counts()
+        need = ("pair_weights", "svd_jacobi", *(NEWTON_KERNELS if name == "fast" else ("householder_qr",)))
+        check(all(launches[k] > 0 for k in need), f"the {name} TJM guard did not run {need}: {launches}")
+        statistical_guard(f"TJM L={length} B={b} {steps} steps with two-site noise, {name} knob set, vs exact Lindblad",
+                          res, exact, out, f"tjm_{name}")
+
+    n = 4
+    circ = yt.load_circuit(brickwork_qasm(n, 4))
+    model = two_site_noise(n, DIGITAL["gamma"], one_site=("lowering",))
+    z_exact = digital_density_matrix_z(circ, model, n)
+    obs_d = yt.compile_observables([yt.Observable("z", i) for i in range(n)], n, 2)
+    kernels.reset_launch_counts()
+    res = yt.run_digital_batch(circ, yt.named_product_state("zeros", n, chi), yt.compile_noise(model, n), obs_d,
+                               num_traj=b, seed=23, max_bond_dim=chi, gate_mode="swaps",
+                               config=digital_config(chi, FAST), device=dev, dtype=torch.complex64)
+    check(kernels.launch_counts()["pair_weights"] > 0, "the digital guard did not run pair_weights")
+    statistical_guard(f"digital n={n} brickwork of 4 layers B={b} with two-site noise vs a density matrix",
+                      res.trajectories[:, :, -1:], z_exact[:, None], out, "digital")
+
+    w, psi0, noise_mcwf, obs_m = mcwf_inputs(length, gamma)
+    model = yt.NoiseModel(noise_mcwf.processes + [{"name": "crosstalk_zz", "sites": [i, i + 1], "strength": gamma}
+                                                  for i in range(length - 1)])
+    exact = exact_lindblad_z(yt.mpo_to_matrix(w), noise_model_jump_ops(model, length), psi0, dt, steps, length)
+    res = run_mcwf_batch(psi0, w, model, obs_m, dt=dt, num_steps=steps, batch=b, seed=17, device=dev,
+                         dtype=torch.complex64, route="local")
+    statistical_guard(f"MCWF L={length} B={b} {steps} steps local route with crosstalk_zz vs exact Lindblad",
+                      res, exact, out, "mcwf_local")
+    return out
+
+
 def profile_run(label, run, steps=1):
     """One more run under ``torch.profiler``: the device time by kernel, the
     device events per step, and the device's busy share of the profiled wall
@@ -1650,11 +2011,12 @@ def main() -> None:
     phases = {}
     t_phase = time.perf_counter()
     for name, fn in (("kernels", phase_kernels), ("analog", phase_slice), ("analog_xxz", phase_xxz),
-                     ("analog_exact", phase_exact), ("guard", phase_guard), ("cpu_parity", phase_cpu_parity),
-                     ("exact_parity", phase_exact_parity), ("digital", phase_digital),
-                     ("digital_window", phase_digital_window), ("digital_oracle", phase_digital_oracle),
-                     ("window_parity", phase_window_parity), ("mcwf", phase_mcwf), ("mcwf_guards", phase_mcwf_guards),
-                     ("unported", unported_rows)):
+                     ("analog_exact", phase_exact), ("analog_two_site", phase_two_site), ("guard", phase_guard),
+                     ("cpu_parity", phase_cpu_parity), ("exact_parity", phase_exact_parity), ("digital", phase_digital),
+                     ("digital_window", phase_digital_window), ("digital_two_site", phase_digital_two_site),
+                     ("digital_oracle", phase_digital_oracle), ("window_parity", phase_window_parity),
+                     ("mcwf", phase_mcwf), ("mcwf_two_site", phase_mcwf_two_site), ("mcwf_guards", phase_mcwf_guards),
+                     ("noisy_guards", phase_noisy_guards)):
         phases[name] = fn(dev)
         log(f"[time] phase {name}: {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
@@ -1664,10 +2026,6 @@ def main() -> None:
         row["launches"] = phases[TABLE_PATH[name]]["launches"][name]
         for path in LAUNCH_PATHS:
             row[f"launches_{path}"] = phases[path]["launches"][name]
-    for key, row in phases["unported"].items():
-        row["calls_per_10_step_analog_run"] = phases["analog"]["unported_calls"][key]
-        log(f"[unported] {key} {row['function']}: {row['calls_per_10_step_analog_run']} calls a 10-step analog run, "
-            f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, build_seconds=seconds, ptxas=ptxas, kernels=rows,

@@ -150,13 +150,13 @@ def test_noisy_run_with_injected_draws_matches_simulator(noisy_reference, knob_s
     qasm, results, draws = noisy_reference
     ref = results[knob_set]
     fired = []
-    original = teng._apply_channel
+    original = teng.apply_jump
 
-    def recording(tensors, noise, idx, jumped):
+    def recording(tensors, noise, idx, jumped, trunc):
         fired.append(int(jumped.sum()))
-        return original(tensors, noise, idx, jumped)
+        return original(tensors, noise, idx, jumped, trunc)
 
-    monkeypatch.setattr(teng, "_apply_channel", recording)
+    monkeypatch.setattr(teng, "apply_jump", recording)
     circ, noise, co, _ = _port_inputs(qasm)
     got = run_digital_batch(
         circ, State(N).to_padded_mps(CHI), noise, co, num_traj=B, shots=SHOTS, sample_layers=True, seed=SEED,

@@ -40,10 +40,17 @@ from yaqs_tpu_torch.kernels.env_update import (
 from yaqs_tpu_torch.kernels.heff import heff1, heff1_plain, heff2, heff2_plain
 from yaqs_tpu_torch.kernels.lanczos_epilogue import lanczos_epilogue, lanczos_epilogue_plain
 from yaqs_tpu_torch.kernels.lanczos_step import lanczos_step, lanczos_step_plain
-from yaqs_tpu_torch.kernels.moment_scan import site_moment_matrices, site_moment_matrices_plain
+from yaqs_tpu_torch.kernels.moment_scan import (
+    site_moment_matrices,
+    site_moment_matrices_plain,
+    site_moments_and_environments,
+)
+from yaqs_tpu_torch.kernels.ns_canon import ns_canon_scan, ns_canon_scan_plain
 from yaqs_tpu_torch.kernels.ns_polar import newton_schulz_orthogonalize, newton_schulz_orthogonalize_plain
+from yaqs_tpu_torch.kernels.pair_weights import pair_weights, pair_weights_plain
 from yaqs_tpu_torch.kernels.qr import householder_qr, householder_qr_plain
 from yaqs_tpu_torch.kernels.sample_shots import sample_shots, sample_shots_plain
+from yaqs_tpu_torch.kernels.subspace_split import subspace_split, subspace_split_plain
 from yaqs_tpu_torch.kernels.sv_mpo import sv_mpo_matvec, sv_mpo_matvec_plain
 from yaqs_tpu_torch.kernels.svd import MAX_SWEEPS, convergence, reset_convergence, svd, svd_plain
 
@@ -214,13 +221,39 @@ def test_wrappers_take_plain_path_on_cpu_without_building():
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
     for got, ref in zip(householder_qr(m.mT, adjoint=True), householder_qr_plain(m.mT, adjoint=True)):
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    gates = _complex(rng, (2, 4, 4))
+    torch.testing.assert_close(bond_gate(t[:, 1], t[:, 2], gates), bond_gate_plain(t[:, 1], t[:, 2], gates), rtol=0,
+                               atol=0)
+    omega = _complex(rng, (8, 4))
+    for got, ref in zip(subspace_split(m, omega, 4, 1, True), subspace_split_plain(m, omega, 4, 1, True)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    torch.testing.assert_close(ns_canon_scan(t), ns_canon_scan_plain(t), rtol=0, atol=0)
+    _, _, left_envs, right_envs = site_moments_and_environments(t)
+    pair_args = (t, left_envs, right_envs, torch.tensor([0, 2]), _complex(rng, (2, 4, 4)), torch.tensor([0.1, 0.2]))
+    torch.testing.assert_close(pair_weights(*pair_args), pair_weights_plain(*pair_args), rtol=0, atol=0)
     assert set(kernels.launch_counts()) == {
         "ns_polar", "lanczos_epilogue", "bond_gate", "moment_scan", "sample_shots", "heff2", "heff1",
         "lanczos_step", "env_update", "sv_mpo_matvec", "arnoldi_step", "arnoldi_epilogue", "svd_jacobi",
-        "householder_qr",
+        "householder_qr", "subspace_split", "ns_canon", "pair_weights",
     }
     assert not any(kernels.launch_counts().values())
     assert build.load_library.cache_info().currsize == 0  # nothing was built
+
+
+def test_build_digest_covers_the_shared_headers(tmp_path):
+    """An edited header changes the library's name, so the kernels that
+    include it are rebuilt rather than loaded stale; the sources in the
+    repository include ``ns_polar.cuh`` and the build hashes it."""
+    src, hdr = tmp_path / "k.cu", tmp_path / "k.cuh"
+    src.write_text('#include "k.cuh"\n')
+    hdr.write_text("// one\n")
+    before = build._digest([src], [hdr])
+    hdr.write_text("// two\n")
+    assert build._digest([src], [hdr]) != before
+    assert build._digest([src], [hdr]) == build._digest([src], [hdr])
+    assert [h.name for h in build._headers()] == ["ns_polar.cuh"]
+    includers = [p.name for p in build._sources() if '#include "ns_polar.cuh"' in p.read_text()]
+    assert includers == ["ns_canon.cu", "ns_polar.cu", "pair_weights.cu", "subspace_split.cu"]
 
 
 def test_wrappers_refuse_non_cuda_devices():
@@ -261,6 +294,12 @@ def test_wrappers_refuse_non_cuda_devices():
         svd(t[:, 0, 0])
     with pytest.raises(ValueError, match="unsupported device"):
         householder_qr(t[:, 0, 0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        subspace_split(t[:, 0, 0], t[0, 0, 0], 2, 1, True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ns_canon_scan(t)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pair_weights(t, t[:, :, 0], t[:, :, 0], t.real[0, :2, 0, 0, 0].long(), t[0, :2, 0], t.real[0, :2, 0, 0, 0])
 
 
 @pytest.fixture
@@ -330,6 +369,134 @@ def test_bond_gate_kernel_matches_plain(cuda, batch, length, chi, bond):
     assert _rel_err(bond_gate(a2, b2, gate), bond_gate_plain(a2, b2, gate)) <= 1e-5
     with pytest.raises(ValueError):
         bond_gate(a.to(torch.complex128), b.to(torch.complex128), gate.to(torch.complex128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("batch", "length", "chi", "bond"), [(32, 100, 64, 7), (512, 20, 32, 3), (3, 3, 5, 0)])
+def test_bond_gate_kernel_with_a_gate_per_trajectory(cuda, batch, length, chi, bond):
+    rng = np.random.default_rng(13)
+    t = _random_mps(rng, batch, length, chi, device=cuda)
+    gates = _complex(rng, (batch, 4, 4)).to(cuda)
+    a, b = t[:, bond], t[:, bond + 1]
+    kernels.reset_launch_counts()
+    got = bond_gate(a, b, gates)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["bond_gate"] == 1
+    assert _rel_err(got, bond_gate_plain(a, b, gates)) <= 1e-5
+    # each trajectory's block is the shared-gate kernel's with its own gate
+    z = batch - 1
+    assert _rel_err(got[z:], bond_gate(a[z:], b[z:], gates[z].contiguous())) <= 1e-6
+    with pytest.raises(ValueError):
+        bond_gate(a, b, gates[:1])
+
+
+def _subspace_input(kind, batch, rows, cols, chi, rng, device):
+    """A random block, or the padded rank-1 block of a product state's
+    merged pair (nonzero only at the bond index 0 of each physical index)."""
+    if kind == "random":
+        return _complex(rng, (batch, rows, cols)).to(device)
+    m = torch.zeros((batch, rows, cols), dtype=torch.complex64)
+    a, b = _complex(rng, (batch, 2)), _complex(rng, (batch, 2))
+    for i, r in enumerate((0, rows // 2)):
+        for j, c in enumerate((0, cols // 2)):
+            m[:, r, c] = a[:, i] * b[:, j]
+    return m.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("left_isometric", [True, False], ids=["right", "left"])
+@pytest.mark.parametrize("iters", [1, 2])
+@pytest.mark.parametrize(
+    ("batch", "rows", "cols", "chi", "kind"),
+    [(32, 128, 128, 64, "random"), (512, 64, 64, 32, "random"), (4, 128, 128, 64, "rank1"), (3, 40, 24, 16, "random")],
+)
+def test_subspace_split_kernel_matches_plain(cuda, batch, rows, cols, chi, kind, iters, left_isometric):
+    """Random blocks: every factor within 1e-4 of the plain version.  Padded
+    rank-1 blocks: the Newton-Schulz steps lift rounding noise in the empty
+    directions (both versions, differently), so the reconstruction and the
+    values are held to 1e-4 and the factors are not compared."""
+    rng = np.random.default_rng(rows + cols + iters)
+    m = _subspace_input(kind, batch, rows, cols, chi, rng, cuda)
+    n = cols if left_isometric else rows
+    omega = torch.as_tensor(np.random.default_rng(7).standard_normal((n, chi)) / np.sqrt(n)).to(cuda, torch.complex64)
+    kernels.reset_launch_counts()
+    got = subspace_split(m, omega, chi, iters, left_isometric)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {**{k: 0 for k in kernels.LAUNCHES}, "subspace_split": 1}
+    ref = subspace_split_plain(m, omega, chi, iters, left_isometric)
+    assert [tuple(x.shape) for x in got] == [(batch, rows, chi), (batch, chi, cols), (batch, chi)]
+    assert _rel_err(got[0] @ got[1], ref[0] @ ref[1]) <= 1e-4
+    assert _rel_err(got[2], ref[2]) <= 1e-4
+    if kind == "random":
+        for g, r in zip(got, ref):
+            assert _rel_err(g, r) <= 1e-4
+        iso = got[0] if left_isometric else got[1].mH
+        assert (iso.mH @ iso - torch.eye(chi, device=cuda)).abs().max().item() <= 1e-4
+    with pytest.raises(ValueError):
+        subspace_split(m, omega[:-1], chi, iters, left_isometric)
+    with pytest.raises(ValueError):
+        subspace_split(m.to(torch.complex128), omega.to(torch.complex128), chi, iters, left_isometric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("batch", "length", "chi", "state"),
+                         [(32, 100, 64, "random"), (32, 100, 64, "x+"), (512, 20, 32, "random"), (3, 4, 5, "random")])
+def test_ns_canon_kernel_matches_plain(cuda, batch, length, chi, state):
+    """Random chains and a padded product state (exactly rank 1 at every
+    site, with exact zeros): the boundary pads zero; on the product state
+    every site within 1e-4 of the plain version (relative); on a random
+    chain the sites whose blocks have full rank (d^(L-i) >= chi) within 1e-4
+    and right-orthonormal, and the site moments of the whole chain within
+    1e-4.  Nearer the end the blocks are exactly rank deficient, and the
+    polar steps lift float32 rounding in their empty directions (both
+    versions, differently), so those rows are partial isometries, as in the
+    JAX package."""
+    import yaqs_tpu_torch as yt
+
+    if state == "random":
+        t = _random_mps(np.random.default_rng(length), batch, length, chi, device=cuda)
+    else:
+        t = torch.as_tensor(yt.named_product_state(state, length, chi)).to(cuda, torch.complex64)
+        t = t.expand(batch, *t.shape).contiguous()
+    kernels.reset_launch_counts()
+    got = ns_canon_scan(t)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ns_canon"] == 1 and kernels.launch_counts()["ns_polar"] == 0
+    ref = ns_canon_scan_plain(t)
+    assert bool((got[:, 0, :, 1:, :] == 0).all()) and bool((got[:, -1, :, :, 1:] == 0).all())
+    if state != "random":
+        assert _rel_err(got, ref) <= 1e-4
+        return
+    full = length - int(np.ceil(np.log2(chi)))  # sites 0 .. full - 1 have full-rank blocks
+    assert _rel_err(got[:, :full], ref[:, :full]) <= 1e-4
+    assert _rel_err(site_moment_matrices_plain(got)[0], site_moment_matrices_plain(ref)[0]) <= 1e-4
+    if full > 1:
+        m = got[:, 1:full].permute(0, 1, 3, 2, 4).reshape(batch, full - 1, chi, 2 * chi)
+        gram = m @ m.mH
+        assert (gram - torch.eye(chi, device=cuda)).abs().max().item() <= 1e-4
+    with pytest.raises(ValueError):
+        ns_canon_scan(t.to(torch.complex128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("batch", "length", "chi", "nc2"), [(32, 100, 64, 99), (512, 20, 32, 19), (3, 5, 7, 6)])
+def test_pair_weights_kernel_matches_plain(cuda, batch, length, chi, nc2):
+    rng = np.random.default_rng(nc2)
+    t = _random_mps(rng, batch, length, chi, device=cuda)
+    _, _, left_envs, right_envs = site_moments_and_environments(t)
+    bonds = torch.as_tensor(rng.integers(0, length - 1, nc2)).to(cuda)
+    ops = _complex(rng, (nc2, 4, 4))
+    wop = (ops.mH @ ops).to(cuda)  # L^dag L: positive weights
+    coeff = torch.as_tensor(rng.uniform(0.01, 0.1, nc2), dtype=torch.float32).to(cuda)
+    kernels.reset_launch_counts()
+    got = pair_weights(t, left_envs, right_envs, bonds, wop, coeff)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["pair_weights"] == 1
+    ref = pair_weights_plain(t, left_envs, right_envs, bonds, wop, coeff)
+    assert got.shape == (batch, nc2) and bool((ref > 0).all())
+    assert _rel_err(got, ref) <= 1e-4
+    with pytest.raises(ValueError):
+        pair_weights(t, left_envs, right_envs, bonds.int(), wop, coeff)
 
 
 @pytest.mark.cuda

@@ -126,8 +126,21 @@ def test_host_tables_match_jax():
         tm.local_obs_rows([Observable("pvm", bitstring="01101")])
     with pytest.raises(NotImplementedError):
         tm.dense_observables([Observable(np.kron(op, op), [0, 1])], length)
+    # two-site channels (crosstalk, a long-range pair, a rank-1 adjacent
+    # matrix) equal the simulator's factors; a rank > 1 matrix is refused by both
+    two_site = [{"name": "crosstalk_xx", "sites": [0, 1], "strength": 0.1},
+                {"name": "longrange_crosstalk_zy", "sites": [4, 1], "strength": 0.2},
+                {"name": "pair", "sites": [2, 3], "strength": 0.3, "matrix": np.kron(op, op.T)}]
+    got = tm.local_jump_channels(yt.NoiseModel(two_site))
+    want = Simulator._local_jump_channels(NoiseModel(two_site))
+    assert [[s for s, _ in ch] for ch in got] == [[s for s, _ in ch] for ch in want] == [[0, 1], [1, 4], [2, 3]]
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_allclose(np.kron(a[1][1], a[0][1]), np.kron(b[1][1], b[0][1]), atol=1e-12)
+    rank2 = [{"name": "sum", "sites": [0, 1], "strength": 0.1, "matrix": np.kron(op, op) + np.eye(4)}]
     with pytest.raises(NotImplementedError):
-        tm.local_jump_channels(NoiseModel([{"name": "crosstalk_xx", "sites": [0, 1], "strength": 0.1}]))
+        tm.local_jump_channels(yt.NoiseModel(rank2))
+    with pytest.raises(NotImplementedError):
+        Simulator._local_jump_channels(NoiseModel(rank2))
 
 
 def test_convert_carries_both_contexts():
@@ -202,28 +215,46 @@ def test_mpo_matvec_and_heff_match_jax(model, length, dtype):
 
 
 def test_reduced_matrix_weights_match_stack_and_norm():
-    """``Tr(A^dag A rho_s)`` (the local route's weights) against the JAX
-    package's ``||A psi||^2`` of the stacked channel outputs, and the chosen
-    channel's application against ``_apply_local_sv``."""
+    """The local route's weights (``Tr(A^dag A rho_s)`` for one-site
+    channels, the norm of the applied channel for two-factor ones: crosstalk,
+    a long-range pair, a rank-1 adjacent matrix) against the JAX package's
+    ``||A psi||^2`` of the stacked channel outputs, and the chosen channel's
+    application against ``_apply_local_sv``."""
     rng = np.random.default_rng(11)
     length, batch = 6, 3
-    jctx = _local_ctx(length, 0.2)
+    lowering = np.array([[0, 1], [0, 0]], dtype=np.complex128)
+    procs = _noise(length, 0.2).processes + [
+        {"name": "crosstalk_zz", "sites": [1, 2], "strength": 0.1},
+        {"name": "longrange_crosstalk_xy", "sites": [5, 2], "strength": 0.15},
+        {"name": "corr_decay", "sites": [3, 4], "strength": 0.05, "matrix": np.kron(lowering, lowering)},
+    ]
+    sp = AnalogSimParams(observables=_observables(length), elapsed_time=DT, dt=DT)
+    jctx = jm.make_mcwf_local_context(ising_mpo(length, 1.0, 0.5), Simulator._local_jump_channels(NoiseModel(procs)),
+                                      Simulator._local_obs_rows(sp, 2), DT)
     psi = _psi(rng, batch, length) * np.array([1.0, 0.5, 2.0])[:, None]  # unnormalized, as pre-step states may be
     tables = convert.mcwf_local_context(jctx).tables("cpu", torch.complex128)
+    assert tables.two_factor == [2 * length, 2 * length + 1, 2 * length + 2]
+    # the crosstalk's and the long-range pair's A^dag A are scalars (one-site
+    # terms of K12); the rank-1 pair's is a product term
+    assert [(t[0], t[2]) for t in tables.pair_terms] == [(3, 4)]
     psi_t = torch.as_tensor(psi)
-    rho = tm.site_reduced_matrices(psi_t, tables.ch_sites, length)
-    got = torch.einsum("kab,zkba->zk", tables.ch_ldl, torch.stack([rho[s] for s in tables.ch_sites], 1)).real
+    rho = tm.site_reduced_matrices(psi_t, tables.one_site_sites, length)
+    got = tm.local_channel_weights(psi_t, tables, lambda idx: torch.stack([rho[s] for s in idx], 1))
     shape = (2,) * length
-    ref = np.array([[np.linalg.norm(np.asarray(jm._apply_local_sv(jnp.asarray(p).reshape(shape), ch[0][1], ch[0][0],
-                                                                  length))) ** 2 for ch in jctx.channels]
-                    for p in psi])
+
+    def apply(p, factors):
+        t = jnp.asarray(p).reshape(shape)
+        for site, m in factors:
+            t = jm._apply_local_sv(t, m, site, length)
+        return np.asarray(t).reshape(-1)
+
+    ref = np.array([[np.linalg.norm(apply(p, ch)) ** 2 for ch in jctx.channels] for p in psi])
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-12, rtol=0)
-    idx = torch.tensor([3, 0, len(jctx.channels) - 1])
-    out = tm.apply_one_site_each(psi_t, tables.ch_op[idx], tables.ch_site[idx]).numpy()
+    idx = torch.tensor([3, 2 * length + 2, 2 * length])
+    out = tm.apply_one_site_each(psi_t, tables.ch_op1[idx], tables.ch_site1[idx])
+    out = tm.apply_one_site_each(out, tables.ch_op2[idx], tables.ch_site2[idx]).numpy()
     for z, c in enumerate(idx.tolist()):
-        site, m = jctx.channels[c][0]
-        want = np.asarray(jm._apply_local_sv(jnp.asarray(psi[z]).reshape(shape), m, site, length)).reshape(-1)
-        np.testing.assert_allclose(out[z], want, atol=1e-12, rtol=0)
+        np.testing.assert_allclose(out[z], apply(psi[z], jctx.channels[c]), atol=1e-12, rtol=0)
 
 
 def _recording_choices(monkeypatch):

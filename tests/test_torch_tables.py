@@ -85,16 +85,19 @@ def test_compile_noise_to_device_tables():
 
 
 def test_noise_model_rejects_unported_processes():
-    with pytest.raises(NotImplementedError):
-        NoiseModel([{"name": "crosstalk_xx", "sites": [0, 1], "strength": 0.1}])
+    # two-site processes are ported: the normalized process and the device
+    # tables equal the JAX package's
+    procs = [{"name": "crosstalk_xx", "sites": [0, 1], "strength": 0.1}]
+    assert NoiseModel(procs).processes[0]["sites"] == JNoiseModel(procs).processes[0]["sites"] == [0, 1]
+    np.testing.assert_array_equal(NoiseModel(procs).processes[0]["matrix"], JNoiseModel(procs).processes[0]["matrix"])
     with pytest.raises(NotImplementedError):
         NoiseModel([{"name": "z", "sites": [0], "strength": {"distribution": "normal", "mean": 0.1}}])
     assert compile_noise(NoiseModel([{"name": "z", "sites": [0], "strength": 0.0}]), 3) is None
-    two_site = convert.compiled_noise(
-        j_compile_noise(JNoiseModel([{"name": "lowering_two", "sites": [0, 1], "strength": 0.1}]), 3)
-    )
-    with pytest.raises(NotImplementedError):
-        two_site.to("cpu", torch.complex128)
+    ref = j_compile_noise(JNoiseModel([{"name": "lowering_two", "sites": [0, 1], "strength": 0.1}]), 3)
+    two_site = convert.compiled_noise(ref).to("cpu", torch.complex128)
+    assert (two_site.num_channels1, two_site.num_channels2, two_site.num_channels) == (0, 1, 1)
+    for f in dataclasses.fields(CompiledNoise):
+        np.testing.assert_array_equal(getattr(two_site, f.name).numpy(), np.asarray(getattr(ref, f.name)), err_msg=f.name)
 
 
 def test_compile_observables_identical():

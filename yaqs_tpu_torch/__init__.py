@@ -14,8 +14,9 @@ The ported slices are the order-2 TJM trajectory path
 exact knob set, ``record_diagnostics`` and one-site, multi-site, entropy and
 Schmidt-spectrum rows), the noisy digital TEBD path
 (:func:`yaqs_tpu_torch.digital.run.run_digital_batch`) and the MCWF
-state-vector path (:func:`yaqs_tpu_torch.analog.run.run_mcwf_batch`).  All
-run on the card unless the caller passes another ``device``.
+state-vector path (:func:`yaqs_tpu_torch.analog.run.run_mcwf_batch`), each
+with one- and two-site noise.  All run on the card unless the caller passes
+another ``device``.
 """
 
 from __future__ import annotations

@@ -23,12 +23,19 @@ channel weights ``||A_c psi||^2`` take the relative floor ``1e-5 sum(w)``
 if every channel is dark the trajectory does not jump; the state is
 measured at t=0 and after each step.  The local route reads the weights of
 its one-site channels from each site's reduced matrix, ``Tr(A^dag A
-rho_s)``, and applies only the chosen channel (no ``(nc, B, 2^L)`` stack).
+rho_s)``, and those of its two-factor channels (two-site processes of
+operator-Schmidt rank 1) as ``||A psi||^2`` of the channel applied, the JAX
+package's stack-and-norm weights; it applies only the chosen channel (no
+``(nc, B, 2^L)`` stack).  A two-factor channel's ``A^dag A`` joins kernel
+K12's one-site terms where one factor's ``f^dag f`` is a multiple of the
+identity (Pauli crosstalk, unitary long-range factors); any other such
+product is applied beside K12 in plain PyTorch.
 
 Draws come from outside, as on the TJM path: ``draws(stream, j) -> (u (B,),
-gumbel (B, nc))`` for step ``j`` on the trajectory stream.  Only one-site
-processes and one-site observables are ported; anything else raises
-``NotImplementedError``.
+gumbel (B, nc))`` for step ``j`` on the trajectory stream.  One- and
+two-site processes and one-site observables are ported; an adjacent
+two-site process of operator-Schmidt rank > 1 on the local route, and any
+other observable, raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ import torch
 from ..kernels.sv_mpo import apply_one_site, sv_mpo_matvec
 from ..methods.stochastic import WEIGHT_FLOOR
 from ..ops.krylov import arnoldi_expm_apply
-from .embedding import embed_one_site
+from .embedding import embed_one_site, operator_schmidt_factors
 from .tjm import TRAJECTORY_STREAM
 
 __all__ = [
@@ -57,6 +64,7 @@ __all__ = [
     "mpo_matvec_statevector",
     "apply_local_sv",
     "local_jump_channels",
+    "local_channel_weights",
     "local_obs_rows",
     "dense_observables",
     "site_reduced_matrices",
@@ -73,7 +81,10 @@ __all__ = [
 
 def local_jump_channels(noise_model) -> list[list[tuple[int, np.ndarray]]]:
     """Jump channels as lists of local ``(site, matrix)`` factors with
-    ``sqrt(gamma)`` folded in; one-site processes only."""
+    ``sqrt(gamma)`` folded into the first (``Simulator._local_jump_channels``):
+    a one-site process gives one factor, a long-range process its two
+    factors, an adjacent matrix process its operator-Schmidt product (rank
+    > 1 raises ``NotImplementedError``, as in the JAX package)."""
     channels = []
     if noise_model is None:
         return channels
@@ -81,11 +92,23 @@ def local_jump_channels(noise_model) -> list[list[tuple[int, np.ndarray]]]:
         gamma = float(proc["strength"])
         if gamma == 0.0:
             continue
-        sites = proc["sites"]
-        if len(sites) != 1:
-            msg = "two-site jump channels are not ported to the MCWF path (one-site only)"
-            raise NotImplementedError(msg)
-        channels.append([(int(sites[0]), np.sqrt(gamma) * np.asarray(proc["matrix"]))])
+        sites = [int(s) for s in proc["sites"]]
+        root = np.sqrt(gamma)
+        if len(sites) == 1:
+            channels.append([(sites[0], root * np.asarray(proc["matrix"]))])
+        elif "factors" in proc:
+            f0, f1 = proc["factors"]
+            channels.append([(sites[0], root * np.asarray(f0)), (sites[1], np.asarray(f1))])
+        else:
+            terms = operator_schmidt_factors(proc["matrix"])
+            if len(terms) != 1:
+                msg = (
+                    "adjacent two-site matrix processes with operator-Schmidt rank > 1 are not supported "
+                    "on the large-system MCWF path (use the mps representation)"
+                )
+                raise NotImplementedError(msg)
+            a_k, b_k = terms[0]
+            channels.append([(sites[0], root * a_k), (sites[1], b_k)])
     return channels
 
 
@@ -294,61 +317,110 @@ class MCWFLocalContext:
     krylov_dim: int
 
     def tables(self, device, dtype: torch.dtype) -> LocalTables:
-        """The device tables of the local route (one-site channels and
-        observables only; anything else raises ``NotImplementedError``)."""
+        """The device tables of the local route (one-site observables only;
+        anything else raises ``NotImplementedError``)."""
         d = self.d
+        eye = np.eye(d, dtype=np.complex128)
 
-        def site_table(rows, what):
-            sites, mats = [], []
-            for factors in rows:
-                if len(factors) != 1:
-                    msg = f"multi-site {what} are not ported to the MCWF path (one-site only)"
-                    raise NotImplementedError(msg)
-                site, m = factors[0]
-                sites.append(int(site))
-                mats.append(np.asarray(m, dtype=np.complex128))
-            mats = np.stack(mats) if mats else np.zeros((0, d, d), np.complex128)
-            return sites, torch.as_tensor(mats).to(device=device, dtype=dtype)
+        def dev(x, dt=dtype):
+            return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dt)
 
-        obs_terms = []
+        obs_sites, obs_mats = [], []
         for kind, payload in self.obs_rows:
-            if kind != "terms" or len(payload) != 1:
-                msg = "PVM and multi-term observable rows are not ported to the MCWF path (one-site only)"
+            if kind != "terms" or len(payload) != 1 or len(payload[0]) != 1:
+                msg = "PVM, multi-term and multi-site observable rows are not ported to the MCWF path (one-site only)"
                 raise NotImplementedError(msg)
-            obs_terms.append(payload[0])
-        ch_sites, ch_ops = site_table(self.channels, "jump channels")
-        _, ch_ldl = site_table(self.ldl_channels, "jump channels")
-        obs_sites, obs_ops = site_table(obs_terms, "observables")
+            site, m = payload[0][0]
+            obs_sites.append(int(site))
+            obs_mats.append(np.asarray(m, dtype=np.complex128))
+
+        # each channel as two (site, matrix) slots, slot 2 the identity at
+        # slot 1's site for a one-site channel; A^dag A into K12's one-site
+        # terms where it is one site's operator, else a product term
         local = np.zeros((self.length, d, d), dtype=np.complex128)
-        for (site, _), (_, ldl) in zip((f[0] for f in self.channels), (f[0] for f in self.ldl_channels)):
-            local[site] += -0.5j * np.asarray(ldl)
+        slots, pair_terms = [], []
+        for factors, ldl in zip(self.channels, self.ldl_channels):
+            if len(factors) == 1:
+                (s0, a), (_, ala) = factors[0], ldl[0]
+                slots.append((s0, a, s0, eye))
+                local[s0] += -0.5j * ala
+                continue
+            (s0, a), (s1, b) = factors
+            (_, ala), (_, blb) = ldl
+            slots.append((s0, a, s1, b))
+            if np.allclose(blb, blb[0, 0] * eye, rtol=0, atol=1e-12):
+                local[s0] += -0.5j * blb[0, 0] * ala
+            elif np.allclose(ala, ala[0, 0] * eye, rtol=0, atol=1e-12):
+                local[s1] += -0.5j * ala[0, 0] * blb
+            else:
+                pair_terms.append((s0, dev(-0.5j * ala), s1, dev(blb)))
         return LocalTables(
-            mpo=torch.as_tensor(np.asarray(self.mpo)).to(device=device, dtype=dtype).contiguous(),
-            local=torch.as_tensor(local).to(device=device, dtype=dtype) if self.channels else None,
-            ch_sites=ch_sites,
-            ch_site=torch.as_tensor(ch_sites, dtype=torch.int64, device=device),
-            ch_op=ch_ops,
-            ch_ldl=ch_ldl,
+            mpo=dev(self.mpo).contiguous(),
+            local=dev(local) if self.channels else None,
+            pair_terms=tuple(pair_terms),
+            ch_sites=[sl[0] for sl in slots],
+            ch_sites2=[sl[2] for sl in slots],
+            one_site=[k for k, f in enumerate(self.channels) if len(f) == 1],
+            one_site_ldl=dev(np.stack([ldl[0][1] for ldl in self.ldl_channels if len(ldl) == 1])
+                             if any(len(f) == 1 for f in self.channels) else np.zeros((0, d, d))),
+            two_factor=[k for k, f in enumerate(self.channels) if len(f) == 2],
+            ch_site1=dev([sl[0] for sl in slots], torch.int64),
+            ch_op1=dev(np.stack([sl[1] for sl in slots]) if slots else np.zeros((0, d, d))),
+            ch_site2=dev([sl[2] for sl in slots], torch.int64),
+            ch_op2=dev(np.stack([sl[3] for sl in slots]) if slots else np.zeros((0, d, d))),
             obs_sites=obs_sites,
-            obs_op=obs_ops,
+            obs_op=dev(np.stack(obs_mats) if obs_mats else np.zeros((0, d, d))),
         )
 
 
 @dataclasses.dataclass(frozen=True)
 class LocalTables:
-    """Device tables of the local route: the MPO, each site's summed
-    ``-0.5j A^dag A`` (None without noise), and the one-site channels' and
-    observables' sites (host lists; ``ch_site`` also on the device) and
+    """Device tables of the local route: the MPO; each site's summed
+    one-site ``-0.5j A^dag A`` (None without noise) and the two-site
+    ``A^dag A`` products that are not one site's operator, ``(s0, -0.5j
+    a^dag a, s1, b^dag b)``; every channel's two (site, matrix) slots, the
+    sites on the host (``ch_sites``, ``ch_sites2``) and on the device
+    (``ch_site2 == ch_site1`` and ``ch_op2`` the identity for a one-site
+    channel); the indices of the one-site channels (with their ``A^dag
+    A``) and of the two-factor ones; the observables' sites (host) and
     matrices."""
 
     mpo: torch.Tensor
     local: torch.Tensor | None
+    pair_terms: tuple
     ch_sites: list
-    ch_site: torch.Tensor
-    ch_op: torch.Tensor
-    ch_ldl: torch.Tensor
+    ch_sites2: list
+    one_site: list
+    one_site_ldl: torch.Tensor
+    two_factor: list
+    ch_site1: torch.Tensor
+    ch_op1: torch.Tensor
+    ch_site2: torch.Tensor
+    ch_op2: torch.Tensor
     obs_sites: list
     obs_op: torch.Tensor
+
+    @property
+    def num_channels(self) -> int:
+        return len(self.ch_sites)
+
+    @property
+    def one_site_sites(self) -> list:
+        return [self.ch_sites[k] for k in self.one_site]
+
+
+def local_channel_weights(psi: torch.Tensor, tab: LocalTables, rho_at, d: int = 2) -> torch.Tensor:
+    """``||A_c psi||^2`` of every channel, ``(B, nc)``: ``Tr(A^dag A
+    rho_s)`` for a one-site channel (``rho_at(sites)`` gives the reduced
+    matrices ``(B, n, d, d)``), the norm of the channel applied for a
+    two-factor one."""
+    w = psi.real.new_zeros((psi.shape[0], tab.num_channels))
+    if tab.one_site:
+        w[:, tab.one_site] = torch.einsum("kab,zkba->zk", tab.one_site_ldl, rho_at(tab.one_site_sites)).real
+    for k in tab.two_factor:
+        phi = apply_one_site(apply_one_site(psi, tab.ch_op1[k], tab.ch_sites[k], d), tab.ch_op2[k], tab.ch_sites2[k], d)
+        w[:, k] = _norm2(phi)
+    return w
 
 
 def make_mcwf_local_context(
@@ -396,12 +468,15 @@ def mcwf_trajectory_local(
     """
     length, d = ctx.length, ctx.d
     tab = ctx.tables(psi0.device, psi0.dtype)
-    has_noise = len(tab.ch_sites) > 0
+    has_noise = tab.num_channels > 0
     _check_draws(has_noise, draws)
-    sites = sorted(set(tab.obs_sites) | set(tab.ch_sites))
+    sites = sorted(set(tab.obs_sites) | set(tab.one_site_sites))
 
     def heff_mv(v):
-        return sv_mpo_matvec(tab.mpo, v, tab.local)
+        out = sv_mpo_matvec(tab.mpo, v, tab.local)
+        for s0, ala, s1, blb in tab.pair_terms:
+            out = out + apply_one_site(apply_one_site(v, ala, s0, d), blb, s1, d)
+        return out
 
     def reduced(psi):
         rho = site_reduced_matrices(psi, sites, length, d)
@@ -420,10 +495,11 @@ def mcwf_trajectory_local(
         no_jump = psi_evolved / torch.sqrt(n2).to(psi.dtype)[:, None]
         if has_noise:
             u, gumbel = draws(TRAJECTORY_STREAM, j)
-            # ||A_c psi||^2 = Tr(A_c^dag A_c rho_s) of the pre-step state
-            w = torch.einsum("kab,zkba->zk", tab.ch_ldl, rho_at(tab.ch_sites)).real
-            idx, jumped = _choose_channel(w, u, 1.0 - n2, gumbel)
-            chosen = apply_one_site_each(psi, tab.ch_op[idx], tab.ch_site[idx], d)
+            # ||A_c psi||^2 of the pre-step state
+            idx, jumped = _choose_channel(local_channel_weights(psi, tab, rho_at, d), u, 1.0 - n2, gumbel)
+            chosen = apply_one_site_each(psi, tab.ch_op1[idx], tab.ch_site1[idx], d)
+            if tab.two_factor:
+                chosen = apply_one_site_each(chosen, tab.ch_op2[idx], tab.ch_site2[idx], d)
             psi = torch.where(jumped[:, None], _normalized(chosen), no_jump)
         else:
             psi = no_jump

@@ -168,7 +168,7 @@ def _order2_branches(draws: Draws | None, noise, observables, plan: TrajectoryPl
         """Dissipate dt/2 + jump on the sampling stream, then measure.  In
         the gauge-free case the returned state is raw (any gauge,
         unnormalized); otherwise canonical at 0 and normalized."""
-        psi = apply_dissipation(evolved, noise, dt / 2)
+        psi = apply_dissipation(evolved, noise, dt / 2, cfg)
         psi, _ = stochastic_process(psi, noise, dt, draw(SAMPLE_STREAM, j), cfg, canonicalize=not fast)
         if fast:
             return evaluate_observables_gauge_free(psi, observables), psi.real.new_zeros((psi.shape[0], 3)), psi
@@ -176,7 +176,7 @@ def _order2_branches(draws: Draws | None, noise, observables, plan: TrajectoryPl
 
     def trajectory_branch(evolved, j):
         """Dissipate dt + jump on the trajectory stream."""
-        phi = apply_dissipation(evolved, noise, dt)
+        phi = apply_dissipation(evolved, noise, dt, cfg)
         phi, _ = stochastic_process(phi, noise, dt, draw(TRAJECTORY_STREAM, j), cfg)
         return phi
 
@@ -250,7 +250,7 @@ def tjm_trajectory(
         return out
 
     # F0: dissipate dt/2 + jump, then the first evolution
-    phi = apply_dissipation(tensors0, noise, dt / 2)
+    phi = apply_dissipation(tensors0, noise, dt / 2, cfg)
     phi, _ = stochastic_process(
         phi, noise, dt, None if noise is None else draws(TRAJECTORY_STREAM, 0), cfg
     )

@@ -23,9 +23,10 @@ from ..kernels.moment_scan import (
     transfer_right,
 )
 from ..kernels.moment_scan import site_moment_matrices as _moment_scan
+from ..kernels.ns_canon import ns_canon_scan
 from ..kernels.qr import householder_qr
 from ..kernels.svd import svd
-from ..ops.decomp import merge_two_site, orthonormalize, split_two_site_truncated
+from ..ops.decomp import merge_two_site, split_two_site_truncated
 
 __all__ = [
     "product_state_tensors",
@@ -146,16 +147,19 @@ def norm_squared_center0(tensors: torch.Tensor) -> torch.Tensor:
 def canonicalize_right(tensors: torch.Tensor, method: str = "qr") -> torch.Tensor:
     """Bring each MPS to canonical form at site 0 without normalizing.
 
-    ``method="newton"`` takes the polar factor of each absorbed site block by
-    kernel A; ``method="qr"`` takes a Householder LQ, the QR of the block's
-    adjoint by kernel K14 (one launch a site for the batch; complex64 blocks
-    take the rank-noise floor of ``kernels/qr.py``).  Returns a new tensor;
-    the input is not modified.
+    ``method="newton"`` takes the polar factor of each absorbed site block:
+    the whole right-to-left scan is kernel K6 (``kernels/ns_canon.py``, one
+    launch for the batch).  ``method="qr"`` takes a Householder LQ, the QR of
+    the block's adjoint by kernel K14 (one launch a site for the batch;
+    complex64 blocks take the rank-noise floor of ``kernels/qr.py``).
+    Returns a new tensor; the input is not modified.
     """
     b, length, d, chi, _ = tensors.shape
     if length == 1:
         return zero_boundary_pads(tensors)
-    if method not in ("qr", "newton"):
+    if method == "newton":
+        return ns_canon_scan(tensors)
+    if method != "qr":
         msg = f"Unknown canonicalization method: {method!r}"
         raise ValueError(msg)
     out = torch.empty_like(tensors)
@@ -164,15 +168,9 @@ def canonicalize_right(tensors: torch.Tensor, method: str = "qr") -> torch.Tenso
         # absorb the carried factor from the right, then split m = c_new . q
         t = torch.einsum("zslr,zrm->zslm", tensors[:, i], c)
         m = t.permute(0, 2, 1, 3).reshape(b, chi, d * chi)
-        if method == "newton":
-            x = orthonormalize(m.mH)  # (B, d*chi, chi) isometry
-            qh = x.mH
-            c = m @ x
-        else:
-            q, r = householder_qr(m, adjoint=True)  # m = r^H q^H
-            qh = q.mH
-            c = r.mH
-        out[:, i] = qh.reshape(b, chi, d, chi).permute(0, 2, 1, 3)  # in place: fresh buffer
+        q, r = householder_qr(m, adjoint=True)  # m = r^H q^H
+        c = r.mH
+        out[:, i] = q.mH.reshape(b, chi, d, chi).permute(0, 2, 1, 3)  # in place: fresh buffer
     out[:, 0] = torch.einsum("zslr,zrm->zslm", tensors[:, 0], c)
     return zero_boundary_pads(out)
 

@@ -1,9 +1,10 @@
 """Digital TJM engine: batched TEBD over compiled half-layer schedules.
 
-Port of ``yaqs_tpu.digital.engine`` (one-site noise, ``swaps`` and ``mpo``
-gate modes).  The trajectory batch ``B`` is the leading axis of every device
-function; Python loops run over bonds, half-layers and gates; masks replace
-``lax.cond``; nothing inside a half-layer synchronizes with the host.  Each
+Port of ``yaqs_tpu.digital.engine`` (``swaps``, ``mpo``, ``tdvp`` and
+``full-tdvp`` gate modes; one- and two-site noise).  The trajectory batch
+``B`` is the leading axis of every device function; Python loops run over
+bonds, half-layers and gates; masks replace ``lax.cond``; nothing inside a
+half-layer synchronizes with the host.  Each
 half-layer (:func:`half_layer_step`) applies
 
 1. the per-site composed one-qubit gates (one einsum);
@@ -11,8 +12,11 @@ half-layer (:func:`half_layer_step`) applies
    each gated block, masked identity bonds are split all the same);
 3. a renormalization to canonical form at site 0;
 4. with noise, the per-gate-scoped dissipation with ``dt = 1`` over the
-   half-layer's gate sites, a canonicalization, then one jump decision per
-   gate, all of them drawn from one gauge-free moment pass (kernel K7) and
+   half-layer's gate sites (with adjacent non-Pauli two-site processes: a
+   canonicalization, then a bond sweep of the scoped bonds' dissipators,
+   kernel K10 and the configured split), a canonicalization, then one jump
+   decision per gate, all of them drawn from one gauge-free moment pass
+   (kernel K7, with kernel K15 for the two-site channels' weights) and
    followed by one more renormalization, in the JAX package's order.
 
 Gate stages (long-range or multi-qubit gates) run the gate's MPO over its
@@ -41,8 +45,9 @@ from ..core.mps_ops import (
 from ..core.noise_model import CompiledNoise
 from ..kernels.bond_gate import bond_gate
 from ..kernels.sample_shots import sample_shots
+from ..methods.dissipation import bond_dissipation_operators, bond_dissipation_sweep, dissipation_operators
 from ..methods.mpo_ops import mpo_apply_mps_zipup
-from ..methods.stochastic import WEIGHT_FLOOR, _apply_channel, channel_weights
+from ..methods.stochastic import WEIGHT_FLOOR, apply_jump, jump_weights
 from ..methods.tdvp import TDVPConfig, sweep_2site
 from ..ops.decomp import split_matrix_subspace, split_matrix_truncated
 from .circuit import Circuit
@@ -134,12 +139,13 @@ class ScopeMasks:
 class SegmentTables:
     """A compiled segment on the device: ``mats1q (n_hl, L, d, d)``,
     ``bond_mats (n_hl, L-1, d^2, d^2)`` and, with noise, the per-half-layer
-    site masks ``(n_hl, L)`` and scope masks."""
+    site masks ``(n_hl, L)``, bond masks ``(n_hl, L-1)`` and scope masks."""
 
     mats1q: torch.Tensor
     bond_mats: torch.Tensor
     site_masks: torch.Tensor | None = None
     scopes: tuple[ScopeMasks, ...] | None = None
+    bond_masks: torch.Tensor | None = None
 
     @property
     def n_half_layers(self) -> int:
@@ -152,25 +158,28 @@ class SegmentTables:
         if noise is None:
             return cls(mats1q, bond_mats)
         rdtype = mats1q.real.dtype
-        scope, _ = _channel_scope_masks(segment, noise, g_max=g_max)
+        scope, bonds = _channel_scope_masks(segment, noise, g_max=g_max)
         return cls(
             mats1q,
             bond_mats,
             torch.as_tensor(segment.noise_site_mask).to(device=device, dtype=rdtype),
             tuple(ScopeMasks.build(s, device, rdtype) for s in scope),
+            torch.as_tensor(bonds).to(device=device, dtype=rdtype),
         )
 
 
 @dataclasses.dataclass(frozen=True)
 class GateStageTables:
     """A gate stage on the device: its window MPO, position and, with noise,
-    the site mask ``(L,)`` and one-row scope masks."""
+    the site mask ``(L,)``, one-row scope masks and the bond mask
+    ``(L-1,)``."""
 
     kind: str
     mpo: torch.Tensor
     w0: int
     site_mask: torch.Tensor | None = None
     scope: ScopeMasks | None = None
+    bond_mask: torch.Tensor | None = None
 
     @classmethod
     def build(cls, stage: GateStage, noise: CompiledNoise | None, length: int, device, dtype) -> GateStageTables:
@@ -178,11 +187,12 @@ class GateStageTables:
         if noise is None:
             return cls(stage.kind, mpo, stage.w0)
         rdtype = mpo.real.dtype
-        site_mask, _, ch_mask = _gate_stage_noise_masks(stage, length, noise)
+        site_mask, bond_mask, ch_mask = _gate_stage_noise_masks(stage, length, noise)
         return cls(
             stage.kind, mpo, stage.w0,
             torch.as_tensor(site_mask).to(device=device, dtype=rdtype),
             ScopeMasks.build(ch_mask, device, rdtype),
+            torch.as_tensor(bond_mask).to(device=device, dtype=rdtype),
         )
 
 
@@ -254,22 +264,27 @@ class InjectedDigitalDraws:
 # ---------------------------------------------------------------------------
 
 
-def _masked_dissipation_ops(noise: CompiledNoise, site_mask: torch.Tensor) -> torch.Tensor:
-    """Per-site dissipators with masked sites active: ``V e^{-m lam/2} V^dag``."""
-    phases = torch.exp(-0.5 * noise.diss_evals * site_mask[:, None])
-    v = noise.diss_evecs
-    return torch.einsum("iab,ib,icb->iac", v, phases.to(v.dtype), v.conj())
+def _masked_bond_dissipation(tensors, noise: CompiledNoise, bond_mask: torch.Tensor, cfg: TDVPConfig):
+    """The adjacent two-site dissipators of the masked bonds with ``dt = 1``:
+    one left-to-right sweep of merges (kernel K10), the bond's operator and
+    the configured split (the identity on unmasked bonds, which are split
+    all the same).  Expects canonical-at-0 input."""
+    chi = tensors.shape[-1]
+    return bond_dissipation_sweep(
+        tensors, bond_dissipation_operators(noise, bond_mask), lambda m: _split(m, chi, cfg, "right")
+    )
 
 
 def _per_gate_jumps(tensors: torch.Tensor, noise: CompiledNoise, scope: ScopeMasks, draws, cfg: TDVPConfig):
     """Independent jump decisions per gate scope, all from one gauge-free
     moment pass over the post-dissipation state, then one renormalization.
 
-    ``draws = (u (B, G), gumbel (B, G, nc))``.  The floor on the masked
-    weights is relative per gate (1e-5 of the gate's total).
+    ``draws = (u (B, G), gumbel (B, G, nc1 + nc2))``.  The floor on the
+    masked weights is relative per gate (1e-5 of the gate's total); a chosen
+    two-site channel splits with ``cfg``'s truncation.
     """
     u, gumbel = draws
-    w_all = torch.clamp(channel_weights(tensors, noise, 1.0), min=0.0)
+    w_all, _ = jump_weights(tensors, noise, 1.0)
     for g in scope.rows:
         wg = w_all * scope.masks[g]
         pg0 = wg.sum(dim=-1, keepdim=True)
@@ -278,18 +293,19 @@ def _per_gate_jumps(tensors: torch.Tensor, noise: CompiledNoise, scope: ScopeMas
         fire = u[:, g] < pg
         safe = torch.where((pg > 0)[:, None], wg, torch.ones_like(wg))
         idx = torch.argmax(torch.log(safe) + gumbel[:, g], dim=-1)
-        tensors = _apply_channel(tensors, noise, idx, fire)
+        tensors = apply_jump(tensors, noise, idx, fire, cfg)
     tensors, _ = normalize_canonical(tensors, method=cfg.canon_method)
     return tensors
 
 
-def _apply_scoped_noise(tensors, noise: CompiledNoise, site_mask, scope: ScopeMasks, draws, cfg: TDVPConfig):
-    """Dissipation (dt = 1, masked sites), a canonicalization, then the
-    per-gate jump decisions.  Expects a normalized canonical-at-0 state."""
-    if noise.ch2_gamma.shape[0]:
-        msg = "two-site noise is not ported (one-site channels only)"
-        raise NotImplementedError(msg)
-    tensors = apply_operator_everywhere(tensors, _masked_dissipation_ops(noise, site_mask))
+def _apply_scoped_noise(tensors, noise: CompiledNoise, site_mask, bond_mask, scope: ScopeMasks, draws, cfg: TDVPConfig):
+    """Dissipation (dt = 1, masked sites; with two-site channels a
+    canonicalization and the masked bonds' sweep), a canonicalization, then
+    the per-gate jump decisions.  Expects a normalized canonical-at-0 state."""
+    tensors = apply_operator_everywhere(tensors, dissipation_operators(noise, site_mask))
+    if noise.num_channels2:
+        tensors = canonicalize_right(tensors, method=cfg.canon_method)
+        tensors = _masked_bond_dissipation(tensors, noise, bond_mask, cfg)
     tensors = canonicalize_right(tensors, method=cfg.canon_method)
     return _per_gate_jumps(tensors, noise, scope, draws, cfg)
 
@@ -308,6 +324,7 @@ def half_layer_step(
     site_mask: torch.Tensor | None = None,
     scope: ScopeMasks | None = None,
     draws=None,
+    bond_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One half-layer over the batch (canonical-at-0 normalized in and out)."""
     tensors = apply_operator_everywhere(tensors, ops1)
@@ -316,7 +333,7 @@ def half_layer_step(
     # counted as jump probability
     tensors, _ = normalize_canonical(tensors, method=cfg.canon_method)
     if noise is not None:
-        tensors = _apply_scoped_noise(tensors, noise, site_mask, scope, draws, cfg)
+        tensors = _apply_scoped_noise(tensors, noise, site_mask, bond_mask, scope, draws, cfg)
     return tensors
 
 
@@ -336,7 +353,8 @@ def apply_segment(
         scope = tables.scopes[h]
         jumps = draws.jumps(stage_idx, h, scope.masks.shape[0], noise.num_channels)
         tensors = half_layer_step(
-            tensors, tables.mats1q[h], tables.bond_mats[h], cfg, noise, tables.site_masks[h], scope, jumps
+            tensors, tables.mats1q[h], tables.bond_mats[h], cfg, noise, tables.site_masks[h], scope, jumps,
+            tables.bond_masks[h],
         )
     return tensors
 
@@ -378,7 +396,7 @@ def apply_gate_stage(
     tensors, _ = normalize_canonical(tensors, method=cfg.canon_method)
     if noise is not None:
         jumps = draws.jumps(stage_idx, 0, 1, noise.num_channels)
-        tensors = _apply_scoped_noise(tensors, noise, tables.site_mask, tables.scope, jumps, cfg)
+        tensors = _apply_scoped_noise(tensors, noise, tables.site_mask, tables.bond_mask, tables.scope, jumps, cfg)
     return tensors
 
 

@@ -89,8 +89,8 @@ def run_digital_batch(
 
     ``circuit`` is OpenQASM 2/3 text or a port ``Circuit``; ``tensors0 (L, 2,
     chi, chi)`` the initial product state (canonical at 0, normalized; zero
-    padded to ``max_bond_dim`` when that is larger); ``noise`` the one-site
-    ``CompiledNoise`` or None; ``observables`` the ``CompiledObservables`` or
+    padded to ``max_bond_dim`` when that is larger); ``noise`` the
+    ``CompiledNoise`` (one- and two-site processes) or None; ``observables`` the ``CompiledObservables`` or
     None; ``config`` carries the truncation policy and the knob set
     (``max_bond_dim`` is set to the padded bond dimension).
 

@@ -3,11 +3,13 @@
 Replaces ``yaqs_tpu.digital.engine._apply_bond_gate`` with
 ``yaqs_tpu.ops.decomp.merge_two_site`` and the permute that lays the merged
 block out as the split's input matrix: for site tensors ``a (B, d, l, m)``,
-``b (B, d, m, r)`` and a gate ``(d^2, d^2)`` shared by the batch,
+``b (B, d, m, r)`` and a gate ``(d^2, d^2)`` shared by the batch or one per
+trajectory, ``(B, d^2, d^2)``,
 
     ``M[s1*l + x, s2*r + y] = sum G[s1 s2, t1 t2] sum_m a[t1, x, m] b[t2, m, y]``,
 
-``M (B, d*l, d*r)``.
+``M (B, d*l, d*r)``.  The per-trajectory gate is each trajectory's two-site
+jump (``yaqs_tpu.methods.stochastic._apply_channel2``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ def bond_gate_plain(a: torch.Tensor, b: torch.Tensor, gate: torch.Tensor) -> tor
     bsz, d, l, _ = a.shape
     r = b.shape[-1]
     theta = torch.einsum("zalm,zbmr->zablr", a, b).reshape(bsz, d * d, l, r)
-    theta = torch.einsum("pq,zqlr->zplr", gate.to(theta.dtype), theta).reshape(bsz, d, d, l, r)
+    spec = "zpq,zqlr->zplr" if gate.dim() == 3 else "pq,zqlr->zplr"
+    theta = torch.einsum(spec, gate.to(theta.dtype), theta).reshape(bsz, d, d, l, r)
     return theta.permute(0, 1, 3, 2, 4).reshape(bsz, d * l, d * r)
 
 
@@ -39,7 +42,8 @@ def bond_gate(a: torch.Tensor, b: torch.Tensor, gate: torch.Tensor) -> torch.Ten
     ``bond_gate``, which takes complex64, ``d = 2``, ``l, m, r <= 64``, site
     tensors whose ``(d, rows, cols)`` blocks are contiguous (any stride
     between trajectories, so ``tensors[:, i]`` goes in without a copy) and a
-    contiguous ``(4, 4)`` gate; anything else raises ``ValueError``.
+    contiguous ``(4, 4)`` or ``(B, 4, 4)`` gate; anything else raises
+    ``ValueError``.
     """
     if not on_card("bond_gate", a):
         return bond_gate_plain(a, b, gate)
@@ -48,7 +52,7 @@ def bond_gate(a: torch.Tensor, b: torch.Tensor, gate: torch.Tensor) -> torch.Ten
         raise ValueError(msg)
     bsz, d, l, m = a.shape
     r = b.shape[-1]
-    if tuple(b.shape) != (bsz, d, m, r) or d != 2 or tuple(gate.shape) != (4, 4):
+    if tuple(b.shape) != (bsz, d, m, r) or d != 2 or tuple(gate.shape) not in ((4, 4), (bsz, 4, 4)):
         msg = f"bond_gate takes d = 2 and matching shapes, got {tuple(a.shape)}, {tuple(b.shape)}, {tuple(gate.shape)}"
         raise ValueError(msg)
     for name, t in (("a", a), ("b", b), ("gate", gate)):
@@ -66,8 +70,10 @@ def bond_gate(a: torch.Tensor, b: torch.Tensor, gate: torch.Tensor) -> torch.Ten
         return out
     lib = load_library()
     stream = torch.cuda.current_stream(a.device).cuda_stream
+    stride_gate = 16 if gate.dim() == 3 else 0
     err = lib.bond_gate_launch(
-        a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), gate.data_ptr(), out.data_ptr(), bsz, l, m, r, stream
+        a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), gate.data_ptr(), stride_gate, out.data_ptr(),
+        bsz, l, m, r, stream,
     )
     check(err, "bond_gate")
     LAUNCHES["bond_gate"] += 1

@@ -8,8 +8,9 @@ process, all started together, and one more call links them:
          -Xptxas -v -c -o _build/<name>.o csrc/<name>.cu        (one per source)
     nvcc -gencode arch=compute_90a,code=sm_90a -shared -o _build/libyaqs_kernels_<hash>.so _build/*.o
 
-The file name carries a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is loaded from ``_build/``.  Nothing is built at
+The file name carries a hash of the sources, the headers they share
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is loaded from ``_build/``.  Nothing is built at
 import time: :func:`load_library` runs on a wrapper's first launch.
 """
 
@@ -42,8 +43,14 @@ _SIGNATURES = {
     "ns_polar_launch": [_P, _P, _I, _I, _I, _P],
     # (alphas, betas, coeff_re, coeff_im, V, nrm, x, out, batch, k, n, stream)
     "lanczos_epilogue_launch": [_P, _P, _F, _F, _P, _P, _P, _P, _I, _I, _I, _P],
-    # (a, stride_a, b, stride_b, gate, out, batch, l, m, r, stream)
-    "bond_gate_launch": [_P, _LL, _P, _LL, _P, _P, _I, _I, _I, _I, _P],
+    # (a, stride_a, b, stride_b, gate, stride_gate, out, batch, l, m, r, stream)
+    "bond_gate_launch": [_P, _LL, _P, _LL, _P, _LL, _P, _I, _I, _I, _I, _P],
+    # (m, omega, left, right, s, batch, rows, cols, chi, iters, left_isometric, stream)
+    "subspace_split_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (in, out, batch, L, d, chi, stream)
+    "ns_canon_launch": [_P, _P, _I, _I, _I, _I, _P],
+    # (tensors, left_envs, right_envs, bonds, wop, coeff, out, batch, L, chi, nc2, stream)
+    "pair_weights_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (tensors, envs scratch, moments, norm2, batch, L, d, chi, stream)
     "moment_scan_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (tensors, gumbel, out, batch, shots, L, d, chi, stream)
@@ -92,22 +99,29 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest(sources: list[Path]) -> str:
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
+def _digest(sources: list[Path], headers: list[Path] = ()) -> str:
+    """Hash of the flags, the sources and the headers they include: an
+    edited header changes the library's name, so it is rebuilt."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *headers]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
 def build_library() -> tuple[Path, float, str]:
-    """Compile ``csrc/*.cu`` unless an up-to-date library exists.
+    """Compile ``csrc/*.cu`` unless an up-to-date library exists (one built
+    from the same sources, headers and flags).
 
     Returns ``(path, seconds spent compiling, compiler log)``; seconds is 0.0
     and the log empty when the cached library was reused.
     """
     sources = _sources()
-    lib = BUILD_DIR / f"libyaqs_kernels_{_digest(sources)}.so"
+    lib = BUILD_DIR / f"libyaqs_kernels_{_digest(sources, _headers())}.so"
     if lib.exists():
         return lib, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

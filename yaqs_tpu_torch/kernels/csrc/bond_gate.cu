@@ -1,13 +1,16 @@
 // Kernel K10: the two-site gate merge of a TEBD bond, per trajectory
 //   M[s1 l + x, s2 r + y] = sum_(t1, t2) G[s1 s2, t1 t2] sum_m A[t1, x, m] B[t2, m, y]
-// for site tensors A (B, 2, l, m), B (B, 2, m, r) complex64 and one gate
-// G (4, 4) shared by the batch.  M (B, 2 l, 2 r) is the split's input matrix.
+// for site tensors A (B, 2, l, m), B (B, 2, m, r) complex64 and a gate
+// G (4, 4) shared by the batch (gate stride 0) or one per trajectory (gate
+// stride 16).  M (B, 2 l, 2 r) is the split's input matrix.
 //
 // Replaces: yaqs_tpu/digital/engine.py _apply_bond_gate (:76-80) with
 // yaqs_tpu/ops/decomp.py merge_two_site (:122) and the (s1, x) x (s2, y)
 // permute copy in front of every split (the XLA chain K10).  On the digital
 // path it runs once per bond of every half-layer: 19 bonds at B = 512,
-// chi = 32.
+// chi = 32.  With two-site noise it also forms the bond dissipators' blocks
+// (a shared gate per bond) and each trajectory's two-site jump (a gate per
+// trajectory: yaqs_tpu/methods/stochastic.py _apply_channel2, :122-141).
 //
 // What bounds it on the card: device memory.  It reads the two site tensors
 // and writes M: (2 l m + 2 m r + 4 l r) * 8 bytes per trajectory, 34 MB at
@@ -39,8 +42,8 @@ __device__ __forceinline__ void cfma(float2& acc, float2 a, float2 b) {
 
 __global__ void __launch_bounds__(kThreads)
 bond_gate_kernel(const float2* __restrict__ a, long long stride_a, const float2* __restrict__ bt,
-                 long long stride_b, const float2* __restrict__ gate, float2* __restrict__ out, int l, int m,
-                 int r) {
+                 long long stride_b, const float2* __restrict__ gate, long long stride_g, float2* __restrict__ out,
+                 int l, int m, int r) {
   extern __shared__ float2 smem[];
   __shared__ float2 sg[16];
   float2* sa = smem;              // (2, l, m)
@@ -50,7 +53,7 @@ bond_gate_kernel(const float2* __restrict__ a, long long stride_a, const float2*
   const float2* bz = bt + z * stride_b;
   for (int e = threadIdx.x; e < 2 * l * m; e += blockDim.x) sa[e] = az[e];
   for (int e = threadIdx.x; e < 2 * m * r; e += blockDim.x) sb[e] = bz[e];
-  if (threadIdx.x < 16) sg[threadIdx.x] = gate[threadIdx.x];
+  if (threadIdx.x < 16) sg[threadIdx.x] = gate[z * stride_g + threadIdx.x];
   __syncthreads();
 
   const int tl = (l + 1) / 2;
@@ -107,10 +110,13 @@ bond_gate_kernel(const float2* __restrict__ a, long long stride_a, const float2*
 }  // namespace
 
 // a: site tensors with (2, l, m) contiguous and stride_a elements between
-// trajectories; b likewise (2, m, r); gate (4, 4); out (batch, 2 l, 2 r)
+// trajectories; b likewise (2, m, r); gate (4, 4) contiguous, stride_g
+// elements (0 or 16) between trajectories' gates; out (batch, 2 l, 2 r)
 extern "C" int bond_gate_launch(const void* a, long long stride_a, const void* b, long long stride_b,
-                                const void* gate, void* out, int batch, int l, int m, int r, void* stream) {
-  if (batch <= 0 || l <= 0 || m <= 0 || r <= 0 || l > kMaxChi || m > kMaxChi || r > kMaxChi) {
+                                const void* gate, long long stride_g, void* out, int batch, int l, int m, int r,
+                                void* stream) {
+  if (batch <= 0 || l <= 0 || m <= 0 || r <= 0 || l > kMaxChi || m > kMaxChi || r > kMaxChi ||
+      (stride_g != 0 && stride_g != 16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = sizeof(float2) * 2 * (static_cast<size_t>(l) * m + static_cast<size_t>(m) * r);
@@ -119,6 +125,6 @@ extern "C" int bond_gate_launch(const void* a, long long stride_a, const void* b
   if (err != cudaSuccess) return static_cast<int>(err);
   bond_gate_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(a), stride_a, static_cast<const float2*>(b), stride_b,
-      static_cast<const float2*>(gate), static_cast<float2*>(out), l, m, r);
+      static_cast<const float2*>(gate), stride_g, static_cast<float2*>(out), l, m, r);
   return static_cast<int>(cudaGetLastError());
 }

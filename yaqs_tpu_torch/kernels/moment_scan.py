@@ -5,7 +5,9 @@ Replaces ``yaqs_tpu.core.mps_ops`` ``left_gram_environments``,
 for a batch of MPS ``(B, L, d, chi, chi)`` in any gauge and norm, the
 per-site moments ``T_i[b, k] = <psi|(|b><k|)_i|psi>`` and ``<psi|psi>``, from
 one left and one right Gram scan.  The scans and the plain version live here;
-``core.mps_ops`` re-exports them.
+``core.mps_ops`` re-exports them.  :func:`site_moments_and_environments`
+also returns the two scans' environments, which the two-site jump weights
+(kernel K15, ``pair_weights.py``) contract, from the same launch.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ __all__ = [
     "right_gram_environments",
     "site_moment_matrices",
     "site_moment_matrices_plain",
+    "site_moments_and_environments",
 ]
 
 MAX_CHI = 64
@@ -59,15 +62,19 @@ def right_gram_environments(tensors: torch.Tensor) -> torch.Tensor:
     return envs
 
 
-def site_moment_matrices_plain(tensors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: ``(T (B, L, d, d), norm2 (B,))``."""
+def _moments_plain(tensors: torch.Tensor):
     left_envs = left_gram_environments(tensors)
     full = transfer_right(left_envs[:, -1], tensors[:, -1], tensors[:, -1])
     right_envs = right_gram_environments(tensors)
     tmp = torch.einsum("zilm,zikms->zikls", left_envs, tensors)
     tmp = torch.einsum("zikls,zirs->ziklr", tmp, right_envs)
     moments = torch.einsum("ziblr,ziklr->zibk", tensors.conj(), tmp)
-    return moments, torch.diagonal(full, dim1=-2, dim2=-1).sum(-1).real
+    return moments, torch.diagonal(full, dim1=-2, dim2=-1).sum(-1).real, left_envs, right_envs
+
+
+def site_moment_matrices_plain(tensors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: ``(T (B, L, d, d), norm2 (B,))``."""
+    return _moments_plain(tensors)[:2]
 
 
 def site_moment_matrices(tensors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -79,8 +86,17 @@ def site_moment_matrices(tensors: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     ``B <= 65535``; any view, made contiguous first), or raises
     ``ValueError``.
     """
+    return site_moments_and_environments(tensors)[:2]
+
+
+def site_moments_and_environments(tensors: torch.Tensor):
+    """``(T (B, L, d, d), norm2 (B,), left_envs, right_envs)``: the moments of
+    :func:`site_moment_matrices` and the Gram environments they come from,
+    ``(B, L, chi, chi)`` each (``left_gram_environments``,
+    ``right_gram_environments``), from one ``moment_scan`` launch on the
+    card."""
     if not on_card("moment_scan", tensors):
-        return site_moment_matrices_plain(tensors)
+        return _moments_plain(tensors)
     if tensors.dtype != torch.complex64 or tensors.dim() != 5:
         msg = f"moment_scan takes complex64 (B, L, d, chi, chi), got {tensors.dtype} {tuple(tensors.shape)}"
         raise ValueError(msg)
@@ -91,10 +107,10 @@ def site_moment_matrices(tensors: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     rdtype = torch.float32
     moments = tensors.new_empty((b, length, d, d))
     norm2 = torch.empty((b,), dtype=rdtype, device=tensors.device)
-    if b == 0 or length == 0:
-        return moments, norm2
-    t = tensors.resolve_conj().contiguous()
     envs = tensors.new_empty((2, b, length, chi, chi))
+    if b == 0 or length == 0:
+        return moments, norm2, envs[0], envs[1]
+    t = tensors.resolve_conj().contiguous()
     lib = load_library()
     stream = torch.cuda.current_stream(t.device).cuda_stream
     err = lib.moment_scan_launch(
@@ -102,4 +118,4 @@ def site_moment_matrices(tensors: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     )
     check(err, "moment_scan")
     LAUNCHES["moment_scan"] += 1
-    return moments, norm2
+    return moments, norm2, envs[0], envs[1]

@@ -5,7 +5,9 @@ is fixed: scale by ``min(frobenius, sqrt(norm1 * norminf)) + 1e-30``, four
 polar-express quintics (3.4445, -4.7750, 2.0315), two mild quintics
 (2, -1.3333, 0.3333), two cubic steps (1.5, -0.5).  The JAX docstring explains
 why the schedule must never change: in complex64 any extra lift promotes
-sub-eps noise directions into the basis and collapses the state.
+sub-eps noise directions into the basis and collapses the state.  The kernel
+runs ``ns_polar_block`` of ``csrc/ns_polar.cuh``, the routine K5
+(``subspace_split.py``) and K6 (``ns_canon.py``) run inside their kernels.
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ masking (:mod:`.truncation`), never shape shrinking.
   on the card, ``torch.linalg.svd`` on the CPU) plus
   :func:`.truncation.keep_mask`;
 - the subspace split is ported on its Newton half-step path only (the path
-  of the fast knob set); ``householder`` and ``cholesky`` raise
+  of the fast knob set), as kernel K5 (``kernels/subspace_split.py``: one
+  launch a split on the card); ``householder`` and ``cholesky`` raise
   ``NotImplementedError``.
 """
 
@@ -21,25 +22,19 @@ import numpy as np
 import torch
 
 from ..kernels.ns_polar import newton_schulz_orthogonalize, newton_schulz_orthogonalize_plain
+from ..kernels.subspace_split import subspace_split
 from ..kernels.svd import svd
 from .truncation import keep_mask
 
 __all__ = [
     "newton_schulz_orthogonalize",
     "newton_schulz_orthogonalize_plain",
-    "orthonormalize",
     "merge_two_site",
     "split_matrix_truncated",
     "split_matrix_subspace",
     "split_two_site_truncated",
     "split_two_site_subspace",
 ]
-
-
-def orthonormalize(y: torch.Tensor) -> torch.Tensor:
-    """Kernel A on any view: resolves a lazy conjugation and makes the
-    blocks contiguous first, as the kernel requires."""
-    return newton_schulz_orthogonalize(y.resolve_conj().contiguous())
 
 
 def merge_two_site(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -120,40 +115,26 @@ def split_matrix_subspace(
     subspace iteration with Newton–Schulz orthonormalization (no SVD).
 
     Each iteration orthonormalizes after every application of ``m`` or
-    ``m^H``, so each kernel-A input carries the kept subspace's raw sigma
-    spread (the JAX package's ``orth_every`` has no effect on this path and
-    is not taken).  Returns ``(left, right, s_approx, keep)`` with the isometric
+    ``m^H``, so each polar factor's input carries the kept subspace's raw
+    sigma spread (the JAX package's ``orth_every`` has no effect on this path
+    and is not taken).  Kernel K5 runs the whole split, one launch for the
+    batch.  Returns ``(left, right, s_approx, keep)`` with the isometric
     factor on the side opposite ``svd_distribution``.
     """
     if qr_method != "newton":
         msg = f"subspace split with qr_method={qr_method!r} is not ported (newton only)"
         raise NotImplementedError(msg)
-    mh = m.mH
     rows, cols = m.shape[-2:]
     if svd_distribution == "right":
         # left factor isometric: dominant column subspace of m
-        y = m @ _range_finder(cols, chi, 20260816, m.dtype, m.device)
-        for _ in range(iters):
-            q = orthonormalize(y)
-            z = orthonormalize(mh @ q)
-            y = m @ z
-        left = orthonormalize(y)
-        right = left.mH @ m
-        s_approx = torch.sqrt((right.abs() ** 2).sum(dim=-1))
+        omega = _range_finder(cols, chi, 20260816, m.dtype, m.device)
     elif svd_distribution == "left":
         # right factor isometric: dominant row subspace of m
-        y = mh @ _range_finder(rows, chi, 20260817, m.dtype, m.device)
-        for _ in range(iters):
-            v0 = orthonormalize(y)
-            z = orthonormalize(m @ v0)
-            y = mh @ z
-        v = orthonormalize(y)
-        left = m @ v
-        right = v.mH
-        s_approx = torch.sqrt((left.abs() ** 2).sum(dim=-2))
+        omega = _range_finder(rows, chi, 20260817, m.dtype, m.device)
     else:
         msg = "subspace splits support svd_distribution 'left'/'right' only"
         raise NotImplementedError(msg)
+    left, right, s_approx = subspace_split(m, omega, chi, iters, svd_distribution == "right")
     keep = torch.full(m.shape[:-2], chi, dtype=torch.int64, device=m.device)
     return left, right, s_approx, keep
 
