@@ -15,9 +15,12 @@ Phases (any failure raises and exits non-zero):
    analog shape (B=32, chi=64, Dw=3), the XXZ shape (B=16, Dw=5) and the
    gate-window shape (B=512, chi=32, Dw=1), the Lanczos step in both variants with identical breakdown
    masks, the epilogue also at k=25; K9 ``svd_jacobi`` at (32, 128, 128),
-   (512, 64, 64) and the zip-up split's adjoint (32, 256, 128) and values only at
-   (32, 64, 64), each on random, padded rank-1 and degenerate blocks (sweeps
-   and final off-diagonal ratio printed); K14 ``householder_qr`` at (32, 128, 64) (adjoint load) and
+   (512, 64, 64), the zip-up split's adjoint (32, 256, 128), the two shapes
+   whose W is kept in device scratch ((80, 256, 128) and (2, 4096, 128))
+   and values only at (32, 64, 64), each on random, padded rank-1,
+   degenerate and padded rank-4 blocks (sweeps and final cosine printed),
+   and timed on padded blocks of rank 4, 8, 16 and 64 at (32, 128, 128),
+   exact zeros outside a (rank + 1, 65) corner, beside the random block; K14 ``householder_qr`` at (32, 128, 64) (adjoint load) and
    (512, 64, 32), entry by entry, and on rank-1 padded blocks; K5
    ``subspace_split`` at (32, 128, 128), chi=64, one iteration, both
    distributions, and at (512, 64, 64), chi=32 (factors and reconstruction
@@ -39,15 +42,18 @@ Phases (any failure raises and exits non-zero):
    everywhere, ``zz`` on (0, 1) and the entropy at bond 49: trajectories/s,
    ms per step, peak memory, the launches of K9, K14 and the other kernels,
    K9's largest sweep count and final off-diagonal ratio over the run's
-   blocks (both within their limits), and a profiled step (busy share, top
-   device rows, no cuSOLVER kernel);
+   blocks (both within their limits), the mean and largest min(r_eff, c_eff)
+   of its blocks, and a profiled step (busy share, top device rows, K9's ms
+   per launch in the path, no cuSOLVER kernel);
    then trajectories/s of the exact knob set alone (phase 4's rows, no
    diagnostics);
 4d. "Analog TFIM, two-site noise": phase 4 with ``crosstalk_zz`` and the
    correlated decay ``kron(lowering, lowering)`` 0.01 on every adjacent pair
    (99 merged-pair channels: the bond dissipators' sweep through K14, K10
    and K9, the weights through K15, the jumps through K10 and K9):
-   trajectories/s, ms per step, peak memory, the launches, a profiled step;
+   trajectories/s, ms per step, peak memory, the launches, K9's convergence
+   and mean and largest min(r_eff, c_eff), a profiled step (K9's ms per
+   launch in the path);
 5. the complex64 symmetric-Z guard: noiseless TFIM from x+ at L=48, chi=64
    keeps max|<Z>| < 1e-3 over 10 steps, with the fast and the exact knob
    set;
@@ -501,14 +507,22 @@ def phase_kernels(dev):
     return rows
 
 
-def svd_inputs(kind, b, rows, cols, dev, randc):
-    """Blocks of three kinds: ``random``; ``rank1``, a padded product
+def svd_inputs(kind, b, rows, cols, dev, randc, rank=4):
+    """Blocks of four kinds: ``random``; ``rank1``, a padded product
     state's two-site block (one outer product of x+ vectors at the anchored
     corners, zeros elsewhere); ``degenerate``, U diag(s) V^H with s = (3, 2,
-    2, 2, 1.5, 1, 1/2, 1/4, ...) and random isometries."""
+    2, 2, 1.5, 1, 1/2, 1/4, ...) and random isometries; ``padded``, a random
+    block of rank ``rank`` in the leading (rank + 1, cols / 2 + 1) corner
+    and exact zeros elsewhere, as the padded left bond leaves the analog
+    split's blocks (about 5 x 65 nonzero of 128 x 128)."""
     k = min(rows, cols)
     if kind == "random":
         return randc(b, rows, cols)
+    if kind == "padded":
+        rr, cc = min(rows, rank + 1), min(cols, cols // 2 + 1)
+        m = torch.zeros((b, rows, cols), dtype=torch.complex64, device=dev)
+        m[:, :rr, :cc] = randc(b, rr, min(rank, rr, cc)) @ randc(b, min(rank, rr, cc), cc)
+        return m
     if kind == "rank1":
         u = torch.zeros(rows, dtype=torch.complex64, device=dev)
         v = torch.zeros(cols, dtype=torch.complex64, device=dev)
@@ -525,12 +539,18 @@ def decomp_kernel_rows(dev, randc, gen):
     digital one (512, 64, 64) and, with vectors, the zip-up split of a
     long-range gate's MPO at chi = 64 as the kernel factors it, the
     (32, 256, 128) adjoint of its (128, 256) blocks (the wrapper's adjoint
-    copies are PyTorch's, not the kernel's), and values only at the bond
-    spectra's (32, 64, 64), each on random, padded rank-1 and degenerate
-    blocks: singular values within 1e-4 s_max of the plain version's, U S Vh
-    within 1e-4 of the block, U (completion columns included) and Vh
-    isometries within 1e-4, the sweeps taken and the last sweep's largest
-    off-diagonal ratio.  K14 ``householder_qr`` at the canonicalization's
+    copies are PyTorch's, not the kernel's; split by rows over a cluster of
+    four blocks), the shapes whose W the kernel keeps in device scratch (the
+    same adjoint at B = 80, where a cluster a block would leave no SM idle,
+    and (2, 4096, 128), whose rows do not fit a cluster's shared memory),
+    and values only at the bond
+    spectra's (32, 64, 64), each on random, padded rank-1, degenerate and
+    padded rank-4 blocks: singular values within 1e-4 s_max of the plain
+    version's, U S Vh within 1e-4 of the block, U (completion columns
+    included) and Vh isometries within 1e-4, the sweeps taken and the last
+    sweep's largest off-diagonal ratio; timed on random blocks at each shape
+    and on padded blocks of rank 4, 8, 16 and 64 at (32, 128, 128), whose bound
+    counts the SVD of their (rank + 1, 65) corner.  K14 ``householder_qr`` at the canonicalization's
     shape (32, 128, 64) (an adjoint load) and the window shift's (512, 64,
     32), both with the complex64 noise floor: Q and R entry by entry within 1e-4 of the plain
     version's, R exactly upper triangular, and padded blocks finite."""
@@ -541,10 +561,12 @@ def decomp_kernel_rows(dev, randc, gen):
     rows = {name: dict(max_abs_err=0.0) for name in DECOMP_KERNELS}
     b, chi, nd, cd = BENCH["batch"], BENCH["chi"], DIGITAL["num_traj"], DIGITAL["chi"]
     for key, (bs, r, c, vectors) in {"analog": (b, 2 * chi, 2 * chi, True), "digital": (nd, 2 * cd, 2 * cd, True),
-                                     "values": (b, chi, chi, False), "zipup": (b, 4 * chi, 2 * chi, True)}.items():
+                                     "values": (b, chi, chi, False), "zipup": (b, 4 * chi, 2 * chi, True),
+                                     "zipup_scratch": (80, 4 * chi, 2 * chi, True),
+                                     "tall_scratch": (2, 4096, 2 * chi, True)}.items():
         k = min(r, c)
         checks = {}
-        for kind in ("random", "rank1", "degenerate"):
+        for kind in ("random", "rank1", "degenerate", "padded"):
             m = svd_inputs(kind, bs, r, c, dev, randc)
             info = {}
             out = svd(m, compute_uv=vectors, info=info)
@@ -581,6 +603,34 @@ def decomp_kernel_rows(dev, randc, gen):
                     lambda m=m, v=vectors: svd_plain(m, compute_uv=v), library[0], ("svd_jacobi",), nbytes,
                     cmacs * CMAC_FLOPS, slow_plain=True)
         rows["svd_jacobi"][key] = dict(shape=[bs, r, c], vectors=vectors, library_call=library[1], inputs=checks, **t)
+    # padded blocks as the analog path hands them over, beside the random block
+    bs, r, c = b, 2 * chi, 2 * chi
+    for rank in (4, 8, 16, 64):
+        m = svd_inputs("padded", bs, r, c, dev, randc, rank=rank)
+        info = {}
+        u, s, vh = svd(m, info=info)
+        s_ref = svd_plain(m, compute_uv=False)
+        torch.cuda.synchronize()
+        eye = torch.eye(c, device=dev)
+        worst = dict(s_rel_err=((s - s_ref).abs() / s_ref[:, :1]).max().item(),
+                     recon_rel_err=(((u * s.to(u.dtype)[:, None, :]) @ vh - m).norm(dim=(1, 2))
+                                    / m.norm(dim=(1, 2))).max().item(),
+                     u_isometry=(u.mH @ u - eye).abs().max().item(), vh_isometry=(vh @ vh.mH - eye).abs().max().item(),
+                     sweeps=int(info["sweeps"].max()), off=info["off"].max().item(), tol=info["tol"])
+        log(f"[phase 3] svd_jacobi padded rank {rank} (B={bs}, {r}x{c}): "
+            + ", ".join(f"{n} {v:.3e}" if isinstance(v, float) else f"{n} {v}" for n, v in worst.items()))
+        check(all(v <= DECOMP_TOL for n, v in worst.items() if n.endswith(("err", "isometry"))),
+              f"svd_jacobi (padded rank {rank}) disagrees with its plain version: {worst}")
+        check(worst["sweeps"] < MAX_SWEEPS and worst["off"] <= worst["tol"],
+              f"svd_jacobi (padded rank {rank}) did not converge: {worst}")
+        # what this data needs: the block in, U and Vh out; the SVD of the (rank + 1, 65) corner
+        long, short = c // 2 + 1, rank + 1
+        nbytes, cmacs = bs * (r * c + r * c + c * c) * C64 + bs * c * 4, bs * (4 * long * short**2 + 8 * short**3)
+        t = timings(f"svd_jacobi padded rank {rank} (B={bs}, {r}x{c})", lambda m=m: svd(m), lambda m=m: svd_plain(m),
+                    lambda m=m: torch.linalg.svd(m, full_matrices=False), ("svd_jacobi",), nbytes, cmacs * CMAC_FLOPS,
+                    slow_plain=True)
+        rows["svd_jacobi"][f"padded_rank{rank}"] = dict(shape=[bs, r, c], vectors=True, inputs=worst,
+                                                        library_call="torch.linalg.svd, PyTorch's default algorithm", **t)
     # the whole exact split around the kernel (truncation, mask and distribution in PyTorch)
     m = randc(b, 2 * chi, 2 * chi)
     split_ms, split_events, _ = device_ms(lambda: split_matrix_truncated(
@@ -1138,6 +1188,7 @@ def phase_two_site(dev):
     import yaqs_tpu_torch as yt
     from yaqs_tpu_torch import kernels
     from yaqs_tpu_torch.analog.run import run_tjm_batch
+    from yaqs_tpu_torch.kernels import svd as k9
 
     length, chi, b, steps = BENCH["length"], BENCH["chi"], BENCH["batch"], BENCH["steps"]
     w, t0, obs, _ = tfim_inputs(length, chi, "x+")
@@ -1147,14 +1198,17 @@ def phase_two_site(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    k9.reset_convergence()
     t_start = time.perf_counter()
     res = run_tjm_batch(t0, w, noise, obs, plan_for(steps, chi), device=dev, dtype=torch.complex64, batch=b)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t_start
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    record = k9.convergence()
     out = dict(seconds=seconds, traj_per_s=b / seconds, ms_per_step=1e3 * seconds / steps, peak_bytes=peak,
-               launches=launches, channels=dict(one_site=noise.num_channels1, merged_pair=noise.num_channels2))
+               launches=launches, channels=dict(one_site=noise.num_channels1, merged_pair=noise.num_channels2),
+               svd_convergence=record)
     log(f"[phase 4d] TJM with two-site noise L={length} chi={chi} B={b} {steps} steps ({noise.num_channels1} factored "
         f"and {noise.num_channels2} merged-pair channels): {seconds:.3f} s, {out['traj_per_s']:.4f} traj/s, "
         f"{out['ms_per_step']:.1f} ms/step, peak {peak / 2**20:.1f} MiB, launches {launches}")
@@ -1165,8 +1219,11 @@ def phase_two_site(dev):
         check(launches[name] > 0, f"kernel {name} was not launched by the two-site run")
     check(launches["ns_polar"] == 0, "the two-site run launched ns_polar")
     out["mean_z_final"] = res[:, :, -1].mean().item()
+    check(record["max_sweeps"] < k9.MAX_SWEEPS and record["max_off_over_tol"] <= 1.0,
+          f"svd_jacobi did not converge on a block of the two-site run: {record}")
     out["profile"] = profile_run("phase 4d, one step", lambda: run_tjm_batch(
         t0, w, noise, obs, plan_for(1, chi), device=dev, dtype=torch.complex64, batch=b), steps=1)
+    k9_in_path("phase 4d", out, record)
     return out
 
 
@@ -1332,6 +1389,7 @@ def phase_exact(dev):
         f"{out['mean_entropy_final']:.6f}; max bond per column {out['max_bond']}")
     out["profile"] = profile_run("phase 4c, one step", lambda: run_tjm_batch(
         t0, w, noise, obs, exact_plan(1, chi), batch=b, **kw), steps=1)
+    k9_in_path("phase 4c", out, record)
     solver = [name for name in out["profile"].pop("names") if any(mark in name for mark in CUSOLVER_MARKS)]
     log(f"[phase 4c] cuSOLVER device rows in the profiled step: {solver}")
     check(not solver, f"the GPU-defaults step ran cuSOLVER kernels: {solver}")
@@ -1900,7 +1958,25 @@ def profile_run(label, run, steps=1):
     for row in top:
         log(f"[{label}]   {row['ms']:10.3f} ms {100 * row['ms'] / 1e3 / device_s:5.1f}% {row['count']:6d}x  {row['kernel']}")
     return dict(wall_s=wall, device_s=device_s, busy=device_s / wall, events=events, events_per_step=events / steps,
-                top=top, names=[r.key for r in rows])
+                top=top, names=[r.key for r in rows],
+                rows={r.key[:80]: dict(ms=r.self_device_time_total / 1e3, count=r.count) for r in rows})
+
+
+def k9_in_path(label, out, record):
+    """K9's blocks in a run and in its profiled step: the mean and largest
+    min(r_eff, c_eff) (the columns the sweeps ran on) from the kernel's
+    device record, and its device ms per launch in the profiled step (its
+    own time over its recorded launches, as the profiler may drop a few)."""
+    rows = [row for name, row in out["profile"]["rows"].items() if "svd_jacobi" in name]
+    ms, count = sum(row["ms"] for row in rows), sum(row["count"] for row in rows)
+    out["svd_jacobi_in_path"] = dict(mean_rank=record["mean_rank"], max_rank=record["max_rank"],
+                                     blocks=record["blocks"], profiled_ms=ms, profiled_launches=count,
+                                     ms_per_launch=ms / count if count else float("nan"),
+                                     share=ms / 1e3 / out["profile"]["device_s"])
+    log(f"[{label}] svd_jacobi blocks: mean min(r_eff, c_eff) {record['mean_rank']:.2f}, largest "
+        f"{record['max_rank']} over {record['blocks']} blocks; profiled step: {ms:.3f} ms in {count} launches "
+        f"({out['svd_jacobi_in_path']['ms_per_launch']:.4f} ms a launch, "
+        f"{100 * out['svd_jacobi_in_path']['share']:.1f}% of device time)")
 
 
 def statevector(circ):

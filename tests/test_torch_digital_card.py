@@ -169,8 +169,8 @@ def test_noisy_card_run_matches_cpu(cuda, knob_set):
 def test_default_mpo_gate_mode_at_chi_64_matches_cpu(cuda):
     """The zip-up of the long-range gates' MPOs (Dw = 4 for the ``cx``, 5
     for the ``ccx``) splits (128, 256) and (128, 320) blocks at chi = 64:
-    K9 takes them as their adjoints, with W in device memory, and
-    converges."""
+    K9 takes them as their adjoints, split by rows over a cluster of four
+    blocks (the batch leaves SMs idle), and converges."""
     from yaqs_tpu_torch.kernels.svd import MAX_SWEEPS, convergence, reset_convergence
 
     chi = 64

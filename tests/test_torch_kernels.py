@@ -253,7 +253,7 @@ def test_build_digest_covers_the_shared_headers(tmp_path):
     assert build._digest([src], [hdr]) == build._digest([src], [hdr])
     assert [h.name for h in build._headers()] == ["ns_polar.cuh"]
     includers = [p.name for p in build._sources() if '#include "ns_polar.cuh"' in p.read_text()]
-    assert includers == ["ns_canon.cu", "ns_polar.cu", "pair_weights.cu", "subspace_split.cu"]
+    assert includers == ["ns_canon.cu", "ns_polar.cu", "subspace_split.cu"]
 
 
 def test_wrappers_refuse_non_cuda_devices():
@@ -479,7 +479,8 @@ def test_ns_canon_kernel_matches_plain(cuda, batch, length, chi, state):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize(("batch", "length", "chi", "nc2"), [(32, 100, 64, 99), (512, 20, 32, 19), (3, 5, 7, 6)])
+@pytest.mark.parametrize(("batch", "length", "chi", "nc2"),
+                         [(32, 100, 64, 99), (512, 20, 32, 19), (3, 5, 7, 6), (8, 12, 33, 11), (8, 12, 48, 11)])
 def test_pair_weights_kernel_matches_plain(cuda, batch, length, chi, nc2):
     rng = np.random.default_rng(nc2)
     t = _random_mps(rng, batch, length, chi, device=cuda)
@@ -702,17 +703,23 @@ def test_mcwf_local_route_on_card(cuda):
 
 
 # the analog split, the digital split, the bond spectra, odd shapes, the
-# zip-up split of a long-range gate's MPO at chi = 64 (Dw = 4: W in device
-# memory) and a taller block
+# zip-up split of a long-range gate's MPO at chi = 64 (Dw = 4: its (256,
+# 128) adjoint split by rows over a cluster of four blocks), a taller block
+# (the same cluster), and the two shapes whose W is kept in device scratch:
+# the zip-up's adjoint at a batch that leaves no SM idle, and a long side
+# of 4096
 SVD_SHAPES = [(32, 128, 128), (512, 64, 64), (32, 64, 64), (4, 100, 37), (3, 20, 45), (2, 7, 7), (32, 128, 256),
-              (4, 520, 100)]
+              (4, 520, 100), (80, 256, 128), (2, 4096, 128)]
 
 
 def _svd_input(kind, batch, rows, cols, device, seed=5):
-    """Blocks of three kinds: ``random`` normal entries; ``rank1``, a padded
+    """Blocks of five kinds: ``random`` normal entries; ``rank1``, a padded
     product state's two-site block (one outer product of x+ vectors at the
     anchored corners, zeros elsewhere); ``degenerate``, U diag(s) V^H with
-    s = (3, 2, 2, 2, 1.5, 1, 0.5, ...) and random isometries U, V."""
+    s = (3, 2, 2, 2, 1.5, 1, 0.5, ...) and random isometries U, V;
+    ``graded``, the same with s_i = 2^(-i/4); ``padded``, rank min(4, ...)
+    in the leading (rows / 4, cols / 2) corner and exact zeros elsewhere, as
+    a padded left bond leaves the split's blocks."""
     gen = torch.Generator(device=device).manual_seed(seed)
     k = min(rows, cols)
     if kind == "random":
@@ -722,14 +729,23 @@ def _svd_input(kind, batch, rows, cols, device, seed=5):
         v = torch.zeros(cols, dtype=torch.complex64, device=device)
         u[0] = u[rows // 2] = v[0] = v[cols // 2] = 2**-0.5
         return torch.outer(u, v).expand(batch, rows, cols).contiguous()
-    s = torch.tensor([3.0, 2.0, 2.0, 2.0, 1.5] + [0.5**i for i in range(max(k - 5, 0))], device=device)[:k]
+    if kind == "padded":
+        rr, cc = max(1, rows // 4), max(1, cols // 2)
+        rank = min(4, rr, cc)
+        m = torch.zeros((batch, rows, cols), dtype=torch.complex64, device=device)
+        m[:, :rr, :cc] = _randc(gen, (batch, rr, rank), device) @ _randc(gen, (batch, rank, cc), device)
+        return m
+    if kind == "graded":
+        s = 2.0 ** (-torch.arange(k, device=device) / 4)
+    else:
+        s = torch.tensor([3.0, 2.0, 2.0, 2.0, 1.5] + [0.5**i for i in range(max(k - 5, 0))], device=device)[:k]
     uq = torch.linalg.qr(_randc(gen, (batch, rows, k), device))[0]
     vq = torch.linalg.qr(_randc(gen, (batch, cols, k), device))[0]
     return (uq * s.to(torch.complex64)) @ vq.mH
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "rank1", "degenerate"])
+@pytest.mark.parametrize("kind", ["random", "rank1", "degenerate", "graded", "padded"])
 @pytest.mark.parametrize(("batch", "rows", "cols"), SVD_SHAPES)
 def test_svd_jacobi_kernel_matches_plain(cuda, batch, rows, cols, kind):
     m = _svd_input(kind, batch, rows, cols, cuda)
@@ -744,6 +760,9 @@ def test_svd_jacobi_kernel_matches_plain(cuda, batch, rows, cols, kind):
     record = convergence()  # the device-side record of both launches
     assert int(info["sweeps"].max()) <= record["max_sweeps"] < MAX_SWEEPS
     assert record["max_off_over_tol"] <= 1.0
+    assert record["blocks"] == 2 * batch and 1 <= record["max_rank"] <= k
+    if kind == "padded":  # the sweeps ran on the nonzero corner only
+        assert record["max_rank"] <= min(max(1, rows // 4), max(1, cols // 2))
     assert u.shape == (batch, rows, k) and s.shape == (batch, k) and vh.shape == (batch, k, cols)
     s_ref = svd_plain(m, compute_uv=False)
     smax = s_ref[:, :1]

@@ -1,4 +1,5 @@
-"""Kernel K9: batched thin SVD by one-sided Jacobi (``csrc/svd_jacobi.cu``).
+"""Kernel K9: batched thin SVD by a rank-adaptive one-sided Jacobi
+(``csrc/svd_jacobi.cu``).
 
 Replaces the ``jnp.linalg.svd`` of ``yaqs_tpu.ops.decomp``
 ``split_matrix_truncated`` and the values-only SVD of
@@ -26,9 +27,11 @@ MAX_DIM = 128  # the short side of a block
 MAX_LONG = 4096  # the long side
 MAX_SWEEPS = 40
 _EPS32 = float(np.finfo(np.float32).eps)
-# per device, int32 (2,): the most sweeps any launch since the last reset
-# ran, and the largest final off-diagonal ratio over the tolerance (float32
-# bits), both atomic maxima the kernel folds in
+# per device, int32 (8,), folded in by the kernel with atomics since the
+# last reset: [0] the most sweeps a block ran, [1] the largest final cosine
+# over the tolerance (float32 bits), [2] the largest min(r_eff, c_eff) (the
+# columns the sweeps ran on after dropping zero rows and columns), [4:6] the
+# sum of min(r_eff, c_eff) and [6:8] the blocks counted (each uint64)
 _RECORDS: dict[torch.device, torch.Tensor] = {}
 
 
@@ -41,18 +44,25 @@ def reset_convergence() -> None:
 def convergence() -> dict:
     """The convergence record since :func:`reset_convergence`, over every
     launch on every device: ``max_sweeps`` (converged when below
-    ``MAX_SWEEPS``) and ``max_off_over_tol`` (converged when at most 1).
+    ``MAX_SWEEPS``), ``max_off_over_tol`` (converged when at most 1), and
+    the columns the sweeps ran on, ``min(r_eff, c_eff)`` of the block's
+    nonzero rows and columns: ``max_rank``, ``mean_rank`` over ``blocks``.
     Reads the device (a host sync)."""
-    sweeps, off = 0, 0.0
+    sweeps, off, rank, total, blocks = 0, 0.0, 0, 0, 0
     for record in _RECORDS.values():
-        sweeps = max(sweeps, int(record[0].item()))
-        off = max(off, record[1:].view(torch.float32).item())
-    return dict(max_sweeps=sweeps, max_off_over_tol=off)
+        values = record.cpu()
+        sweeps = max(sweeps, int(values[0]))
+        off = max(off, values[1:2].view(torch.float32).item())
+        rank = max(rank, int(values[2]))
+        total += int(values[4:6].view(torch.int64))
+        blocks += int(values[6:8].view(torch.int64))
+    return dict(max_sweeps=sweeps, max_off_over_tol=off, max_rank=rank,
+                mean_rank=total / blocks if blocks else 0.0, blocks=blocks)
 
 
 def _record(device: torch.device) -> torch.Tensor:
     if device not in _RECORDS:
-        _RECORDS[device] = torch.zeros(2, dtype=torch.int32, device=device)
+        _RECORDS[device] = torch.zeros(8, dtype=torch.int32, device=device)
     return _RECORDS[device]
 
 
