@@ -21,17 +21,21 @@ Phases (any failure raises and exits non-zero):
    degenerate and padded rank-4 blocks (sweeps and final cosine printed),
    and timed on padded blocks of rank 4, 8, 16 and 64 at (32, 128, 128),
    exact zeros outside a (rank + 1, 65) corner, beside the random block; K14 ``householder_qr`` at (32, 128, 64) (adjoint load) and
-   (512, 64, 32), entry by entry, and on rank-1 padded blocks; K5
+   (512, 64, 32) with Q, and R alone (``householder_qr_r``) at the bond
+   spectra's (32, 128, 64), entry by entry, and on rank-1 padded blocks; K5
    ``subspace_split`` at (32, 128, 128), chi=64, one iteration, both
-   distributions, and at (512, 64, 64), chi=32 (factors and reconstruction
-   within 1e-4), and K6 ``ns_canon`` over a (32, 100, 2, 64, 64) chain (the
+   distributions, the same at the XXZ batch of 16, and at (512, 64, 64),
+   chi=32, with the cluster size each
+   batch takes (factors and reconstruction within 1e-4); each K5 and K14
+   row beside its earlier design's time; K6 ``ns_canon`` over a (32, 100, 2, 64, 64) chain (the
    full-rank sites and the site moments within 1e-4); K15
    ``pair_weights`` at B=32, L=100, 99 channels, and K10 with a gate per
    trajectory at (32, chi=64);
 4. the analog slice, order-2 TJM at the benchmark shape (TFIM L=100, chi=64,
    B=32, z + lowering noise 0.05, 10 steps of dt=0.1, complex64, fast knob
    set): trajectories/s, ms per step, peak memory, proof that its eight
-   kernels ran (K5 1,970 times, K6 11 times, K4 not at all), and a
+   kernels ran (K5 1,970 times, K6 11 times, K4 not at all; K5's cluster
+   size), and a
    profiled 2-step run (device events per step, busy share, device time by
    kernel);
 4b. the bench's XXZ point (Dw=5, B=16, otherwise as 4), through the same
@@ -40,7 +44,8 @@ Phases (any failure raises and exits non-zero):
    JAX package takes off a TPU (exact SVD split, QR canonicalization,
    reorthogonalized Lanczos), ``record_diagnostics=True`` and the rows Z
    everywhere, ``zz`` on (0, 1) and the entropy at bond 49: trajectories/s,
-   ms per step, peak memory, the launches of K9, K14 and the other kernels,
+   ms per step, peak memory, the launches of K9, of K14 in each mode (the
+   bond spectra's R alone) and of the other kernels,
    K9's largest sweep count and final off-diagonal ratio over the run's
    blocks (both within their limits), the mean and largest min(r_eff, c_eff)
    of its blocks, and a profiled step (busy share, top device rows, K9's ms
@@ -51,7 +56,7 @@ Phases (any failure raises and exits non-zero):
    correlated decay ``kron(lowering, lowering)`` 0.01 on every adjacent pair
    (99 merged-pair channels: the bond dissipators' sweep through K14, K10
    and K9, the weights through K15, the jumps through K10 and K9):
-   trajectories/s, ms per step, peak memory, the launches, K9's convergence
+   trajectories/s, ms per step, peak memory, the launches (K5, K14 by mode), K9's convergence
    and mean and largest min(r_eff, c_eff), a profiled step (K9's ms per
    launch in the path);
 5. the complex64 symmetric-Z guard: noiseless TFIM from x+ at L=48, chi=64
@@ -162,7 +167,8 @@ ANALOG_NEWTON_LAUNCHES = dict(subspace_split=1970, ns_canon=11)
 TABLE_PATH = dict(ns_polar="analog", lanczos_epilogue="analog", bond_gate="digital", moment_scan="digital",
                   sample_shots="digital", heff2="analog", heff1="analog", lanczos_step="analog", env_update="analog",
                   sv_mpo_matvec="mcwf", arnoldi_step="mcwf", arnoldi_epilogue="mcwf", svd_jacobi="analog_exact",
-                  householder_qr="analog_exact", subspace_split="analog", ns_canon="analog",
+                  householder_qr="analog_exact", householder_qr_r="analog_exact", subspace_split="analog",
+                  ns_canon="analog",
                   pair_weights="analog_two_site")
 # the phases whose main-path launch counts the JSON file keeps per kernel
 LAUNCH_PATHS = ("analog", "digital", "analog_xxz", "digital_window", "mcwf", "analog_exact", "analog_two_site",
@@ -170,7 +176,7 @@ LAUNCH_PATHS = ("analog", "digital", "analog_xxz", "digital_window", "mcwf", "an
 NEWTON_TOL = 1e-4  # K5 and K6 against their plain versions (relative; the Newton steps amplify the summation order)
 PAIR_GAMMA = 0.01  # crosstalk_zz and the correlated decay on every adjacent pair
 LOWERING = np.array([[0, 1], [0, 0]], dtype=np.complex128)
-DECOMP_KERNELS = ("svd_jacobi", "householder_qr")
+DECOMP_KERNELS = ("svd_jacobi", "householder_qr", "householder_qr_r")
 EXACT_KERNELS = (*DECOMP_KERNELS, "lanczos_epilogue", "moment_scan", *TDVP_KERNELS)
 DECOMP_TOL = 1e-4  # K9 and K14 against their plain versions (relative; complex64, another algorithm for K9)
 # cuSOLVER kernel names that must not appear in the GPU-defaults run's profile
@@ -180,6 +186,11 @@ CUSOLVER_MARKS = ("gesvd", "geqrf", "larft", "orgqr", "ungqr")
 TDVP_SHAPES = {"analog": (BENCH["batch"], BENCH["chi"], 3), "xxz": (XXZ["batch"], BENCH["chi"], 5),
                "window": (DIGITAL["num_traj"], DIGITAL["chi"], 1)}
 BREAKDOWN_TOL = 100 * float(np.finfo(np.float32).eps)
+# device ms of the earlier designs of K5 (one block a matrix) and K14
+# (unblocked, always forming Q), from PERF.md's kernel table (NVIDIA H100
+# 80GB HBM3, 700.00 W), printed beside this run's rows
+EARLIER_MS = dict(subspace_split=dict(analog_right=1.6681, analog_left=1.7038, digital=1.0635),
+              householder_qr=dict(analog=0.3903, window=0.1212, bond_spectra=0.3903))
 
 
 def log(msg: str) -> None:
@@ -552,8 +563,10 @@ def decomp_kernel_rows(dev, randc, gen):
     and on padded blocks of rank 4, 8, 16 and 64 at (32, 128, 128), whose bound
     counts the SVD of their (rank + 1, 65) corner.  K14 ``householder_qr`` at the canonicalization's
     shape (32, 128, 64) (an adjoint load) and the window shift's (512, 64,
-    32), both with the complex64 noise floor: Q and R entry by entry within 1e-4 of the plain
-    version's, R exactly upper triangular, and padded blocks finite."""
+    32), both with the complex64 noise floor, and R alone (``householder_qr_r``) at the bond
+    spectra's (32, 128, 64): Q and R entry by entry within 1e-4 of the plain
+    version's, R exactly upper triangular, and padded blocks finite with R
+    alone equal to the R of the launch with Q."""
     from yaqs_tpu_torch.kernels.qr import householder_qr, householder_qr_plain
     from yaqs_tpu_torch.kernels.svd import MAX_SWEEPS, svd, svd_plain
     from yaqs_tpu_torch.ops.decomp import split_matrix_truncated
@@ -639,40 +652,55 @@ def decomp_kernel_rows(dev, randc, gen):
     log(f"[phase 3] split_matrix_truncated (B={b}, chi={chi}) around svd_jacobi: device {split_ms:.4f} ms "
         f"({split_events:g} device events)")
 
-    for key, (bs, n, k, adjoint) in {"analog": (b, 2 * chi, chi, True), "window": (nd, 2 * cd, cd, False)}.items():
+    # K14 with Q at the canonicalization's adjoint and the window shift's
+    # shape; R alone (householder_qr_r) at the bond spectra's
+    for key, (bs, n, k, adjoint, want_q) in {"analog": (b, 2 * chi, chi, True, True),
+                                             "window": (nd, 2 * cd, cd, False, True),
+                                             "bond_spectra": (b, 2 * chi, chi, False, False)}.items():
+        name = "householder_qr" if want_q else "householder_qr_r"
         a = randc(bs, k, n) if adjoint else randc(bs, n, k)
-        q, r = householder_qr(a, adjoint=adjoint)
-        q_ref, r_ref = householder_qr_plain(a, adjoint=adjoint)
+        q, r = householder_qr(a, adjoint=adjoint, want_q=want_q)
+        q_ref, r_ref = householder_qr_plain(a, adjoint=adjoint, want_q=want_q)
         torch.cuda.synchronize()
-        err = max(rel_err(q, q_ref), rel_err(r, r_ref))
+        err = max(rel_err(q, q_ref), rel_err(r, r_ref)) if want_q else rel_err(r, r_ref)
         upper = bool((torch.tril(r, diagonal=-1) == 0).all())
-        log(f"[phase 3] householder_qr {key} (B={bs}, {n}x{k}, adjoint {adjoint}): rel err {err:.3e}, "
+        log(f"[phase 3] {name} {key} (B={bs}, {n}x{k}, adjoint {adjoint}): rel err {err:.3e}, "
             f"R upper triangular {upper}")
-        check(err <= DECOMP_TOL and upper, f"householder_qr ({key}) disagrees with its plain version: {err}")
-        rows["householder_qr"]["max_abs_err"] = max((q - q_ref).abs().max().item(), (r - r_ref).abs().max().item(),
-                                                    rows["householder_qr"]["max_abs_err"])
+        check(err <= DECOMP_TOL and upper, f"{name} ({key}) disagrees with its plain version: {err}")
+        diffs = [(r - r_ref).abs().max().item()] + ([(q - q_ref).abs().max().item()] if want_q else [])
+        rows[name]["max_abs_err"] = max(diffs + [rows[name]["max_abs_err"]])
         # a padded product state's block: exactly rank 1
         pad = torch.zeros((bs, n, k), dtype=torch.complex64, device=dev)
         pad[:, 0, 0] = pad[:, n // 2, 0] = 2**-0.5
         q, r = householder_qr(pad)
+        _, r_only = householder_qr(pad, want_q=False)
         iso = (q.mH @ q - torch.eye(k, device=dev)).abs().max().item()
-        log(f"[phase 3] householder_qr {key} on a rank-1 padded block: finite {bool(torch.isfinite(q).all())}, "
-            f"isometry defect {iso:.3e}")
-        check(bool(torch.isfinite(q).all() and torch.isfinite(r).all()) and iso <= DECOMP_TOL,
+        finite = bool(torch.isfinite(q).all() and torch.isfinite(r).all() and torch.isfinite(r_only).all())
+        log(f"[phase 3] householder_qr {key} on a rank-1 padded block: finite {finite}, isometry defect {iso:.3e}, "
+            f"R alone equals R {torch.equal(r_only, r)}")
+        check(finite and iso <= DECOMP_TOL and torch.equal(r_only, r),
               f"householder_qr ({key}) failed on a rank-1 padded block: {iso}")
-        # factorization and Q: 2 (m n^2 - n^3 / 3) complex MACs
-        t = timings(f"householder_qr {key} (B={bs}, {n}x{k})",
-                    lambda a=a, adj=adjoint: householder_qr(a, adjoint=adj),
-                    lambda a=a, adj=adjoint: householder_qr_plain(a, adjoint=adj),
-                    lambda a=a, adj=adjoint: torch.linalg.qr(a.mH if adj else a), ("householder_qr",),
-                    bs * (2 * n * k + k * k) * C64 + n * k * 4, bs * 2 * (n * k * k - k**3 // 3) * CMAC_FLOPS)
-        rows["householder_qr"][key] = dict(shape=[bs, n, k], adjoint=adjoint, library_call="torch.linalg.qr (one call)",
-                                           **t)
+        # factorization m n^2 - n^3 / 3 complex MACs, and as much again for Q
+        cmacs = bs * (2 if want_q else 1) * (n * k * k - k**3 // 3)
+        nbytes = bs * ((2 if want_q else 1) * n * k + k * k) * C64 + n * k * 4
+        t = timings(f"{name} {key} (B={bs}, {n}x{k})",
+                    lambda a=a, adj=adjoint, wq=want_q: householder_qr(a, adjoint=adj, want_q=wq),
+                    lambda a=a, adj=adjoint, wq=want_q: householder_qr_plain(a, adjoint=adj, want_q=wq),
+                    lambda a=a, adj=adjoint, wq=want_q: torch.linalg.qr(a.mH if adj else a, mode="reduced" if wq else "r"),
+                    ("householder_qr",), nbytes, cmacs * CMAC_FLOPS)
+        log(f"[phase 3] {name} {key}: device {t['ms']:.4f} ms, earlier design (unblocked) "
+            f"{EARLIER_MS['householder_qr'][key]:.4f} ms"
+            + ("" if want_q else " (it formed Q on every launch: its adjoint (32, 128, 64) row)"))
+        rows[name][key] = dict(shape=[bs, n, k], adjoint=adjoint, want_q=want_q,
+                               earlier_ms=EARLIER_MS["householder_qr"][key],
+                               library_call=f"torch.linalg.qr (one call, mode={'reduced' if want_q else 'r'})", **t)
 
-    replaces = dict(svd_jacobi="yaqs_tpu/ops/decomp.py:148", householder_qr="yaqs_tpu/core/mps_ops.py:266")
-    sources = dict(svd_jacobi="svd_jacobi.cu", householder_qr="householder_qr.cu")
+    replaces = dict(svd_jacobi="yaqs_tpu/ops/decomp.py:148", householder_qr="yaqs_tpu/core/mps_ops.py:266",
+                    householder_qr_r="yaqs_tpu/core/mps_ops.py:599")
+    sources = dict(svd_jacobi="svd_jacobi.cu", householder_qr="householder_qr.cu", householder_qr_r="householder_qr.cu")
+    main = dict(svd_jacobi="analog", householder_qr="analog", householder_qr_r="bond_spectra")
     return {name: dict(source=f"yaqs_tpu_torch/kernels/csrc/{sources[name]}", replaces=replaces[name],
-                       **row["analog"], **row) for name, row in rows.items()}
+                       **row[main[name]], **row) for name, row in rows.items()}
 
 
 def mcwf_inputs(length, gamma=None, model="ising"):
@@ -867,7 +895,8 @@ def canon_errors(got, ref):
 def newton_kernel_rows(dev, randc, gen):
     """K5 ``subspace_split`` at the analog split (32, 128, 128), chi = 64,
     one iteration, with the singular values to the right and to the left,
-    and at the digital one (512, 64, 64), chi = 32: every factor within 1e-4
+    the same at the XXZ path's batch (16, which takes another cluster
+    size), and at the digital one (512, 64, 64), chi = 32: every factor within 1e-4
     of the plain version's (relative), the reconstruction left @ right too;
     the library call is the SVD of the block.  K6 ``ns_canon`` over a
     random (32, 100, 2, 64, 64) chain: the full-rank sites and every site's
@@ -880,8 +909,15 @@ def newton_kernel_rows(dev, randc, gen):
     b, chi, length, d = BENCH["batch"], BENCH["chi"], BENCH["length"], 2
     nd, cd = DIGITAL["num_traj"], DIGITAL["chi"]
     k5, iters = dict(max_abs_err=0.0), 1
+    from yaqs_tpu_torch.kernels.subspace_split import held_clusters
+
+    held = held_clusters(d * chi, d * chi, chi, dev.index or 0)
+    log(f"[phase 3] subspace_split: clusters of 4, 3 and 2 blocks the card holds at once at ({d * chi}, {d * chi}), "
+        f"chi={chi}: {held}")
     for key, (bs, r, c, k, left_iso) in {"analog_right": (b, d * chi, d * chi, chi, True),
                                          "analog_left": (b, d * chi, d * chi, chi, False),
+                                         "xxz_right": (XXZ["batch"], d * chi, d * chi, chi, True),
+                                         "xxz_left": (XXZ["batch"], d * chi, d * chi, chi, False),
                                          "digital": (nd, d * cd, d * cd, cd, True)}.items():
         m = randc(bs, r, c)
         omega = _range_finder(c if left_iso else r, k, 20260816 if left_iso else 20260817, m.dtype, dev)
@@ -889,8 +925,9 @@ def newton_kernel_rows(dev, randc, gen):
         ref = subspace_split_plain(m, omega, k, iters, left_iso)
         torch.cuda.synchronize()
         errs = [rel_err(g, f) for g, f in zip(got, ref)] + [rel_err(got[0] @ got[1], ref[0] @ ref[1])]
-        log(f"[phase 3] subspace_split {key} (B={bs}, {r}x{c}, chi={k}, iters={iters}): rel err left {errs[0]:.3e}, "
-            f"right {errs[1]:.3e}, s {errs[2]:.3e}, left @ right {errs[3]:.3e}")
+        blocks = k5_blocks(dev, bs, r, c, k)
+        log(f"[phase 3] subspace_split {key} (B={bs}, {r}x{c}, chi={k}, iters={iters}): {blocks} blocks a matrix; "
+            f"rel err left {errs[0]:.3e}, right {errs[1]:.3e}, s {errs[2]:.3e}, left @ right {errs[3]:.3e}")
         check(max(errs) <= NEWTON_TOL, f"subspace_split ({key}) disagrees with its plain version: {errs}")
         k5["max_abs_err"] = max([k5["max_abs_err"]] + [(g - f).abs().max().item() for g, f in zip(got, ref)])
         # iters + 1 polar factors on the isometric side, iters on the other
@@ -902,8 +939,13 @@ def newton_kernel_rows(dev, randc, gen):
                     lambda m=m, o=omega, k=k, li=left_iso: subspace_split_plain(m, o, k, iters, li),
                     lambda m=m: torch.linalg.svd(m, full_matrices=False), ("subspace_split",),
                     (bs * (r * c + r * k + k * c) + omega.numel()) * C64 + bs * k * 4, cmacs * CMAC_FLOPS)
-        k5[key] = dict(shape=[bs, r, c, k], iters=iters, rel_errs=errs,
-                       library_call="torch.linalg.svd of the block (one call)", **t)
+        earlier = EARLIER_MS["subspace_split"].get(key)
+        log(f"[phase 3] subspace_split {key}: device {t['ms']:.4f} ms on {blocks} blocks a matrix, earlier design "
+            f"(one block a matrix) " + (f"{earlier:.4f} ms" if earlier is not None else "not measured at this batch"))
+        k5[key] = dict(shape=[bs, r, c, k], iters=iters, rel_errs=errs, cluster=blocks, held_clusters=held,
+                       earlier_ms=earlier,
+                       library_call="torch.linalg.svd of the block (one call)",
+                       **t)
 
     mps = random_mps(gen, dev, b, length, chi)
     got, ref = ns_canon_scan(mps), ns_canon_scan_plain(mps)
@@ -1144,8 +1186,8 @@ def phase_slice(dev):
         peak_bytes=peak, launches=launches,
     )
     log(f"[phase 4] Newton launches: ns_polar {launches['ns_polar']} (K5 and K6 run the schedule inside their own "
-        f"kernels), subspace_split {launches['subspace_split']}, ns_canon {launches['ns_canon']} "
-        f"(expected {ANALOG_NEWTON_LAUNCHES})")
+        f"kernels), subspace_split {launches['subspace_split']} ({k5_blocks(dev, b)} blocks a matrix), ns_canon "
+        f"{launches['ns_canon']} (expected {ANALOG_NEWTON_LAUNCHES})")
     check(launches["ns_polar"] == 0, f"the fast analog run launched ns_polar {launches['ns_polar']} times")
     for name, count in ANALOG_NEWTON_LAUNCHES.items():
         check(launches[name] == count, f"{name} launched {launches[name]} times, not {count}")
@@ -1165,6 +1207,21 @@ def phase_slice(dev):
         f"per step, ~21% busy; this run: {out['traj_per_s']:.4f} traj/s, {out['ms_per_step']:.1f} ms/step, "
         f"{out['profile']['events_per_step']:.0f} events per step, {100 * out['profile']['busy']:.1f}% busy")
     return out
+
+
+def k5_blocks(dev, batch, rows=2 * BENCH["chi"], cols=2 * BENCH["chi"], chi=BENCH["chi"]):
+    """The thread blocks a matrix that K5 takes at this batch and shape on
+    this card (the analog split's by default)."""
+    from yaqs_tpu_torch.kernels.subspace_split import cluster_size, held_clusters
+
+    return cluster_size(batch, held_clusters(rows, cols, chi, dev.index or 0))
+
+
+def k5_k14_launches(label, dev, batch, launches):
+    """Print the launches of K5 and of K14 in each mode."""
+    log(f"[{label}] launches: subspace_split {launches['subspace_split']} ({k5_blocks(dev, batch)} blocks a matrix), "
+        f"householder_qr {launches['householder_qr']} (with Q), householder_qr_r {launches['householder_qr_r']} "
+        f"(R alone)")
 
 
 def two_site_noise(length, one_site_gamma, pair_gamma=PAIR_GAMMA, one_site=("z", "lowering")):
@@ -1212,6 +1269,7 @@ def phase_two_site(dev):
     log(f"[phase 4d] TJM with two-site noise L={length} chi={chi} B={b} {steps} steps ({noise.num_channels1} factored "
         f"and {noise.num_channels2} merged-pair channels): {seconds:.3f} s, {out['traj_per_s']:.4f} traj/s, "
         f"{out['ms_per_step']:.1f} ms/step, peak {peak / 2**20:.1f} MiB, launches {launches}")
+    k5_k14_launches("phase 4d", dev, b, launches)
     check(tuple(res.shape) == (b, length, steps + 1), f"unexpected result shape {tuple(res.shape)}")
     check(bool(torch.isfinite(res).all()), "non-finite observable in the two-site run")
     check(res.abs().max().item() <= 1.0 + 1e-3, "an observable of the two-site run left [-1, 1]")
@@ -1358,6 +1416,7 @@ def phase_exact(dev):
         f"MiB, launches {launches}")
     log(f"[phase 4c] svd_jacobi over the run's {launches['svd_jacobi']} launches: at most {record['max_sweeps']} sweeps "
         f"(cap {k9.MAX_SWEEPS}), largest final off-diagonal ratio {record['max_off_over_tol']:.3f} of the tolerance")
+    k5_k14_launches("phase 4c", dev, b, launches)
     check(record["max_sweeps"] < k9.MAX_SWEEPS and record["max_off_over_tol"] <= 1.0,
           f"svd_jacobi did not converge on a block of the GPU-defaults run: {record}")
     check(tuple(res.shape) == (b, length + 2, steps + 1), f"unexpected result shape {tuple(res.shape)}")
@@ -2015,7 +2074,8 @@ def phase_digital_oracle(dev):
             f"(limit {ORACLE_TOL}); launches {launches}")
         check(np.isfinite(z).all() and dz <= ORACLE_TOL, f"digital oracle guard ({name}) failed: {dz}")
         if name == "exact":
-            check(min(launches.values()) > 0, f"the exact oracle run did not go through K9 and K14: {launches}")
+            check(launches["svd_jacobi"] > 0 and launches["householder_qr"] > 0,
+                  f"the exact oracle run did not go through K9 and K14: {launches}")
         out[f"max_abs_dz_{name}"] = dz
 
     # the default route, gate_mode="mpo" with TDVPConfig(), at chi=64: the

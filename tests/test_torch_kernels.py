@@ -50,7 +50,7 @@ from yaqs_tpu_torch.kernels.ns_polar import newton_schulz_orthogonalize, newton_
 from yaqs_tpu_torch.kernels.pair_weights import pair_weights, pair_weights_plain
 from yaqs_tpu_torch.kernels.qr import householder_qr, householder_qr_plain
 from yaqs_tpu_torch.kernels.sample_shots import sample_shots, sample_shots_plain
-from yaqs_tpu_torch.kernels.subspace_split import subspace_split, subspace_split_plain
+from yaqs_tpu_torch.kernels.subspace_split import cluster_size, held_clusters, subspace_split, subspace_split_plain
 from yaqs_tpu_torch.kernels.sv_mpo import sv_mpo_matvec, sv_mpo_matvec_plain
 from yaqs_tpu_torch.kernels.svd import MAX_SWEEPS, convergence, reset_convergence, svd, svd_plain
 
@@ -221,6 +221,9 @@ def test_wrappers_take_plain_path_on_cpu_without_building():
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
     for got, ref in zip(householder_qr(m.mT, adjoint=True), householder_qr_plain(m.mT, adjoint=True)):
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    q_none, r_only = householder_qr(m, want_q=False)
+    assert q_none is None
+    torch.testing.assert_close(r_only, householder_qr_plain(m)[1], rtol=0, atol=0)
     gates = _complex(rng, (2, 4, 4))
     torch.testing.assert_close(bond_gate(t[:, 1], t[:, 2], gates), bond_gate_plain(t[:, 1], t[:, 2], gates), rtol=0,
                                atol=0)
@@ -234,10 +237,20 @@ def test_wrappers_take_plain_path_on_cpu_without_building():
     assert set(kernels.launch_counts()) == {
         "ns_polar", "lanczos_epilogue", "bond_gate", "moment_scan", "sample_shots", "heff2", "heff1",
         "lanczos_step", "env_update", "sv_mpo_matvec", "arnoldi_step", "arnoldi_epilogue", "svd_jacobi",
-        "householder_qr", "subspace_split", "ns_canon", "pair_weights",
+        "householder_qr", "householder_qr_r", "subspace_split", "ns_canon", "pair_weights",
     }
     assert not any(kernels.launch_counts().values())
     assert build.load_library.cache_info().currsize == 0  # nothing was built
+
+
+@pytest.mark.parametrize(("batch", "blocks"), [(1, 4), (30, 4), (31, 3), (32, 3), (39, 3), (40, 2), (66, 2), (67, 1),
+                                              (512, 1)])
+def test_subspace_split_cluster_rule(batch, blocks):
+    """K5 takes the largest cluster of 4, 3 and 2 blocks a matrix whose
+    clusters the card holds all at once for the batch, else one block (here
+    an H100's 30, 39 and 66 clusters at the analog split's shape)."""
+    assert cluster_size(batch, {4: 30, 3: 39, 2: 66}) == blocks
+    assert cluster_size(batch, {4: 0, 3: -1, 2: 0}) == 1
 
 
 def test_build_digest_covers_the_shared_headers(tmp_path):
@@ -405,16 +418,29 @@ def _subspace_input(kind, batch, rows, cols, chi, rng, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("left_isometric", [True, False], ids=["right", "left"])
-@pytest.mark.parametrize("iters", [1, 2])
+@pytest.mark.parametrize("iters", [0, 1, 2])
 @pytest.mark.parametrize(
     ("batch", "rows", "cols", "chi", "kind"),
-    [(32, 128, 128, 64, "random"), (512, 64, 64, 32, "random"), (4, 128, 128, 64, "rank1"), (3, 40, 24, 16, "random")],
+    [(32, 128, 128, 64, "random"), (512, 64, 64, 32, "random"), (4, 128, 128, 64, "rank1"), (3, 40, 24, 16, "random"),
+     (1, 128, 128, 64, "random"), (33, 128, 128, 64, "random"), (34, 128, 128, 64, "random"),
+     (66, 128, 128, 64, "random"), (67, 128, 128, 64, "random"), (133, 128, 128, 64, "random"),
+     ((4, 0), 128, 128, 64, "random"), ((4, 1), 128, 128, 64, "random"),
+     ((3, 0), 128, 128, 64, "random"), ((3, 1), 128, 128, 64, "random"), ((2, 0), 128, 128, 64, "random"),
+     ((2, 1), 128, 128, 64, "random"), (3, 3, 5, 2, "random")],
 )
 def test_subspace_split_kernel_matches_plain(cuda, batch, rows, cols, chi, kind, iters, left_isometric):
     """Random blocks: every factor within 1e-4 of the plain version.  Padded
     rank-1 blocks: the Newton-Schulz steps lift rounding noise in the empty
     directions (both versions, differently), so the reconstruction and the
-    values are held to 1e-4 and the factors are not compared."""
+    values are held to 1e-4 and the factors are not compared.  A batch
+    ``(C, delta)`` is the count of C-block clusters the card holds at once,
+    plus delta: either side of each step of the cluster rule.  (3, 5) at a
+    cluster of four leaves a block without rows or columns of m."""
+    if isinstance(batch, tuple):
+        blocks, delta = batch
+        batch = held_clusters(rows, cols, chi, cuda.index or 0)[blocks] + delta
+        assert cluster_size(batch, held_clusters(rows, cols, chi, cuda.index or 0)) == (
+            blocks if delta == 0 else {4: 3, 3: 2, 2: 1}[blocks])
     rng = np.random.default_rng(rows + cols + iters)
     m = _subspace_input(kind, batch, rows, cols, chi, rng, cuda)
     n = cols if left_isometric else rows
@@ -794,18 +820,24 @@ QR_SHAPES = [(32, 128, 64), (512, 64, 32), (3, 37, 37), (5, 20, 7)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("want_q", [True, False], ids=["q", "r_only"])
 @pytest.mark.parametrize("adjoint", [False, True])
 @pytest.mark.parametrize(("batch", "n", "k"), QR_SHAPES)
-def test_householder_qr_kernel_matches_plain(cuda, batch, n, k, adjoint):
+def test_householder_qr_kernel_matches_plain(cuda, batch, n, k, adjoint, want_q):
     gen = torch.Generator(device=cuda).manual_seed(6)
     a = _randc(gen, (batch, k, n) if adjoint else (batch, n, k), cuda)
     kernels.reset_launch_counts()
-    q, r = householder_qr(a, adjoint=adjoint)
+    q, r = householder_qr(a, adjoint=adjoint, want_q=want_q)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["householder_qr"] == 1
+    mode = "householder_qr" if want_q else "householder_qr_r"
+    assert kernels.launch_counts() == {**{name: 0 for name in kernels.LAUNCHES}, mode: 1}
     q_ref, r_ref = householder_qr_plain(a, adjoint=adjoint)
-    assert q.shape == (batch, n, k) and r.shape == (batch, k, k)
-    assert _rel_err(q, q_ref) <= 1e-4 and _rel_err(r, r_ref) <= 1e-4  # entry by entry
+    assert r.shape == (batch, k, k)
+    if want_q:
+        assert q.shape == (batch, n, k) and _rel_err(q, q_ref) <= 1e-4  # entry by entry
+    else:
+        assert q is None
+    assert _rel_err(r, r_ref) <= 1e-4
     assert bool((torch.tril(r, diagonal=-1) == 0).all())
     assert bool((torch.diagonal(r, dim1=-2, dim2=-1).imag == 0).all())
 
@@ -827,6 +859,11 @@ def test_householder_qr_kernel_on_padded_blocks(cuda):
     assert bool((torch.tril(r, diagonal=-1) == 0).all())
     assert (q @ r - q_ref @ r_ref).abs().max().item() <= 1e-5
     assert (q @ r - a).abs().max().item() <= 1e-6
+    kernels.reset_launch_counts()
+    q_none, r_only = householder_qr(a, want_q=False)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {**{name: 0 for name in kernels.LAUNCHES}, "householder_qr_r": 1}
+    assert q_none is None and torch.equal(r_only, r)
 
 
 @pytest.mark.cuda
@@ -877,10 +914,11 @@ def test_exact_path_reaches_the_decomp_kernels(cuda, monkeypatch):
                  lambda: mps_ops.bond_spectra(mps)):
         kernels.reset_launch_counts()
         call()
-        counts.append({k: kernels.launch_counts()[k] for k in ("svd_jacobi", "householder_qr")})
-    assert counts == [{"svd_jacobi": 1, "householder_qr": 0}, {"svd_jacobi": 0, "householder_qr": length - 1},
-                      {"svd_jacobi": 0, "householder_qr": 3},
-                      {"svd_jacobi": length - 1, "householder_qr": length - 1}]
+        counts.append({k: kernels.launch_counts()[k] for k in ("svd_jacobi", "householder_qr", "householder_qr_r")})
+    assert counts == [{"svd_jacobi": 1, "householder_qr": 0, "householder_qr_r": 0},
+                      {"svd_jacobi": 0, "householder_qr": length - 1, "householder_qr_r": 0},
+                      {"svd_jacobi": 0, "householder_qr": 3, "householder_qr_r": 0},
+                      {"svd_jacobi": length - 1, "householder_qr": 0, "householder_qr_r": length - 1}]
     kernels.reset_launch_counts()
     card, card_diag = yt.run_tjm_batch(t0, w, None, obs, plan, batch=1, device=cuda)
     assert min(kernels.launch_counts()[k] for k in ("svd_jacobi", "householder_qr")) > 0
@@ -903,3 +941,5 @@ def test_decomp_wrappers_raise_when_the_kernel_cannot_load(cuda, monkeypatch):
         svd(m)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         householder_qr(m)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        householder_qr(m, want_q=False)

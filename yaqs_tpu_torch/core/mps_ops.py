@@ -244,8 +244,8 @@ def compress(
 def bond_spectra(tensors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Schmidt spectra ``(B, L-1, chi)`` and von Neumann entropies
     ``(B, L-1)`` at every internal bond of states canonical at 0 with unit
-    norm: the center sweeps rightward by QR (kernel K14) and each bond's
-    spectrum is the singular values of the carried factor (kernel K9
+    norm: the center sweeps rightward by QR (kernel K14, R alone) and each
+    bond's spectrum is the singular values of the carried factor (kernel K9
     without vectors).  Complex64 QRs take the rank-noise floor here too,
     which the JAX package leaves out of this function: PyTorch's complex64
     QR on the CPU returns NaN on the exactly rank-deficient blocks of a
@@ -257,7 +257,7 @@ def bond_spectra(tensors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     spectra, ents = [], []
     for i in range(length - 1):
         m = torch.einsum("zlm,zsmr->zslr", center, tensors[:, i]).reshape(b, d * chi, chi)
-        _, center = householder_qr(m.contiguous())
+        _, center = householder_qr(m.contiguous(), want_q=False)
         s = svd(center, compute_uv=False)
         p = s * s
         p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=tiny)

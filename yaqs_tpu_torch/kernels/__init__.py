@@ -35,6 +35,7 @@ LAUNCHES: dict[str, int] = {
     "arnoldi_epilogue": 0,
     "svd_jacobi": 0,
     "householder_qr": 0,
+    "householder_qr_r": 0,
     "subspace_split": 0,
     "ns_canon": 0,
     "pair_weights": 0,

@@ -45,8 +45,10 @@ _SIGNATURES = {
     "lanczos_epilogue_launch": [_P, _P, _F, _F, _P, _P, _P, _P, _I, _I, _I, _P],
     # (a, stride_a, b, stride_b, gate, stride_gate, out, batch, l, m, r, stream)
     "bond_gate_launch": [_P, _LL, _P, _LL, _P, _LL, _P, _I, _I, _I, _I, _P],
-    # (m, omega, left, right, s, batch, rows, cols, chi, iters, left_isometric, stream)
-    "subspace_split_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (m, omega, left, right, s, batch, rows, cols, chi, iters, left_isometric, cluster, stream)
+    "subspace_split_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (rows, cols, chi, cluster) -> clusters the card holds at once
+    "subspace_split_max_clusters": [_I, _I, _I, _I],
     # (in, out, batch, L, d, chi, stream)
     "ns_canon_launch": [_P, _P, _I, _I, _I, _I, _P],
     # (tensors, left_envs, right_envs, bonds, wop, coeff, out, batch, L, chi, nc2, stream)
@@ -67,7 +69,7 @@ _SIGNATURES = {
     "arnoldi_step_launch": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _F, _P],
     # (hess, coeff_re, coeff_im, basis, nrm, x, out, small, batch, k, n, stream)
     "arnoldi_epilogue_launch": [_P, _F, _F, _P, _P, _P, _P, _P, _I, _I, _LL, _P],
-    # (in, stride_in, noise, q, r, batch, n, k, adjoint, stream)
+    # (in, stride_in, noise, q or null for R alone, r, batch, n, k, adjoint, stream)
     "householder_qr_launch": [_P, _LL, _P, _P, _P, _I, _I, _I, _I, _P],
     # (in, stride_in, u, s, vh, work, sweeps, off, record, batch, rows, cols, tol, max_sweeps, stream)
     "svd_jacobi_launch": [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],

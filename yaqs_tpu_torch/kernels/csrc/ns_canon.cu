@@ -56,7 +56,7 @@ ns_canon_kernel(const float2* __restrict__ in, float2* __restrict__ out, int L, 
   for (int i = L - 1; i >= 1; --i) {
     const float2* a = tz + i * site;
     for (int s = 0; s < d; ++s) {
-      smem_matmul<false>(a + s * cc, chi, sxg, chi, chi, chi, chi, [&](int l, int mm, float2 v) {
+      product<false>(a + s * cc, chi, 1, sxg, chi, chi, chi, chi, [&](int l, int mm, float2 v) {
         sm[l * dchi + s * chi + mm] = v;
         sx[(s * chi + mm) * chi + l] = conj2(v);
       });
@@ -69,11 +69,11 @@ ns_canon_kernel(const float2* __restrict__ in, float2* __restrict__ out, int L, 
       o[e] = (i == L - 1 && mm >= 1) ? make_float2(0.f, 0.f) : conj2(sx[(s * chi + mm) * chi + l]);
     }
     // c = M x: (chi, d chi) (d chi, chi), into the x g buffer
-    smem_matmul<false>(sm, dchi, sx, chi, chi, chi, dchi, [&](int l, int j, float2 v) { sxg[l * chi + j] = v; });
+    product<false>(sm, dchi, 1, sx, chi, chi, chi, dchi, [&](int l, int j, float2 v) { sxg[l * chi + j] = v; });
     __syncthreads();
   }
   for (int s = 0; s < d; ++s) {
-    smem_matmul<false>(tz + s * cc, chi, sxg, chi, chi, chi, chi, [&](int l, int mm, float2 v) {
+    product<false>(tz + s * cc, chi, 1, sxg, chi, chi, chi, chi, [&](int l, int mm, float2 v) {
       oz[s * cc + l * chi + mm] = l >= 1 ? make_float2(0.f, 0.f) : v;
     });
   }
@@ -88,7 +88,7 @@ extern "C" int ns_canon_launch(const void* in, void* out, int batch, int L, int 
   }
   const size_t dchi = static_cast<size_t>(d) * chi;
   const size_t smem = sizeof(float2) * (3 * dchi * chi + static_cast<size_t>(chi) * chi) +
-                      sizeof(float) * ns_scratch_floats(static_cast<int>(dchi), chi);
+                      sizeof(float) * ns_scratch_floats(chi);
   cudaError_t err = allow_smem(ns_canon_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   ns_canon_kernel<<<batch, kNsThreads, smem, static_cast<cudaStream_t>(stream)>>>(

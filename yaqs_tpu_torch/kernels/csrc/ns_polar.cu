@@ -56,7 +56,7 @@ extern "C" int ns_polar_launch(const void* in, void* out, int batch, int m, int 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = sizeof(float2) * (2 * static_cast<size_t>(m) * n + static_cast<size_t>(n) * n) +
-                      sizeof(float) * ns_scratch_floats(m, n);
+                      sizeof(float) * ns_scratch_floats(n);
   cudaError_t err = allow_smem(ns_polar_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   ns_polar_kernel<<<batch, kNsThreads, smem, static_cast<cudaStream_t>(stream)>>>(

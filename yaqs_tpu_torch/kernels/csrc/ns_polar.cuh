@@ -10,21 +10,28 @@
 //   2. 4 quintics  x = a x + b x g + c x g g,  g = x^H x, (a,b,c) = (3.4445, -4.7750, 2.0315)
 //   3. 2 quintics  with (2, -1.3333, 0.3333)
 //   4. 2 cubics    x = 1.5 x - 0.5 x g
+// The schedule is written once, in ns_polar_rows below: ns_polar_block (one
+// block holds the matrix; K4, K6 and K5's single-block kernel) and K5's
+// cluster kernel (the matrix's rows split over a thread block cluster) are
+// its two instantiations, and differ only in how a block's partial sums
+// (the scale's statistics, the Gram) are combined.
 //
-// Products are computed by the whole block with a 4x4 register micro-tile of
-// complex outputs per thread whose rows and columns are strided by a quarter
-// of the output, so that for a fixed tile slot consecutive threads read
-// consecutive B columns (no bank conflicts) and share A rows (broadcast).
-// Plain FP32 FMAs, no tensor cores: the port runs with TF32 off, and the
-// tuned schedule was validated at full float32 products.
+// Products are computed by the whole block with a register tile of TM x 4
+// complex outputs a thread (tile_product) whose rows are strided by M / TM
+// and columns by N / 4, so that for a fixed tile slot consecutive threads
+// read consecutive B columns (no bank conflicts) and share A rows
+// (broadcast).  Plain FP32 FMAs, no tensor cores: the port runs with TF32
+// off, and the tuned schedule was validated at full float32 products.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kNsThreads = 256;
+constexpr int kNsWarps = kNsThreads / 32;
 constexpr int kNsMaxRows = 128;
 constexpr int kNsMaxCols = 64;
 
@@ -37,45 +44,78 @@ __device__ __forceinline__ void cfma(float2& acc, float2 a, float2 b) {
 
 __device__ __forceinline__ float2 conj2(float2 a) { return make_float2(a.x, -a.y); }
 
-// C(i, j) = sum_k A(i, k) B(k, j) for i < M, j < N, k < K: fa(i, k) and
-// fb(k, j) read the operands (shared or device memory), and each output is
-// handed to epi(i, j, value) by the thread that computed it.  The mapping of
-// outputs to threads depends on (M, N) only, so two calls with the same
-// (M, N) hand each (i, j) to the same thread.
-template <typename FA, typename FB, typename Epi>
-__device__ __forceinline__ void tile_matmul(int M, int N, int K, FA fa, FB fb, Epi epi) {
-  const int tm = (M + 3) / 4;
-  const int tn = (N + 3) / 4;
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// Step `step` of the schedule's polynomial part: x = a x + b x g + c (x g) g
+// with g = x^H x; c = 0 marks a cubic step, whose (x g) g is not formed.
+struct NsStep {
+  float a, b, c;
+};
+constexpr int kNsSteps = 8;
+
+__host__ __device__ constexpr NsStep ns_step(int step) {
+  return step < 4 ? NsStep{3.4445f, -4.7750f, 2.0315f}
+                  : (step < 6 ? NsStep{2.0f, -1.3333f, 0.3333f} : NsStep{1.5f, -0.5f, 0.0f});
+}
+
+// C(i, j) = sum_k A(i, k) B(k, j) for i < M, j < N, k < K, with A(i, k) =
+// a[i * asi + k * ask] (conjugated when CONJ_A) and B(k, j) = b[k * ldb + j]
+// (shared or device memory).  Each thread takes a TM x 4 tile; its row and
+// column offsets are computed once, clamped into range, and the k loop
+// walks two pointers.  Each output goes to epi(i, j, value) from the thread
+// that computed it; the mapping of outputs to threads depends on (M, N)
+// only, so two calls with the same (M, N) hand each (i, j) to the same
+// thread.  Every output is summed over k in order, whatever TM.
+template <int TM, bool CONJ_A, typename Epi>
+__device__ __forceinline__ void tile_product(const float2* a, int asi, int ask, const float2* b, int ldb, int M, int N,
+                                             int K, Epi epi) {
+  constexpr int TN = 4;
+  const int tm = (M + TM - 1) / TM;
+  const int tn = (N + TN - 1) / TN;
   for (int t = threadIdx.x; t < tm * tn; t += blockDim.x) {
     const int it = t / tn;
     const int jt = t % tn;
-    float2 acc[4][4];
+    int ao[TM], bo[TN];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < TM; ++r) ao[r] = min(it + r * tm, M - 1) * asi;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = make_float2(0.f, 0.f);
+    for (int c = 0; c < TN; ++c) bo[c] = min(jt + c * tn, N - 1);
+    float2 acc[TM][TN];
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int c = 0; c < TN; ++c) acc[r][c] = make_float2(0.f, 0.f);
+    const float2* ak = a;
+    const float2* bk = b;
+#pragma unroll 4
     for (int k = 0; k < K; ++k) {
-      float2 av[4], bv[4];
+      float2 av[TM], bv[TN];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = it + r * tm;
-        av[r] = i < M ? fa(i, k) : make_float2(0.f, 0.f);
-      }
+      for (int r = 0; r < TM; ++r) av[r] = CONJ_A ? conj2(ak[ao[r]]) : ak[ao[r]];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = jt + c * tn;
-        bv[c] = j < N ? fb(k, j) : make_float2(0.f, 0.f);
-      }
+      for (int c = 0; c < TN; ++c) bv[c] = bk[bo[c]];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < TM; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) cfma(acc[r][c], av[r], bv[c]);
+        for (int c = 0; c < TN; ++c) cfma(acc[r][c], av[r], bv[c]);
+      ak += ask;
+      bk += ldb;
     }
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < TM; ++r) {
       const int i = it + r * tm;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < TN; ++c) {
         const int j = jt + c * tn;
         if (i < M && j < N) epi(i, j, acc[r][c]);
       }
@@ -83,110 +123,200 @@ __device__ __forceinline__ void tile_matmul(int M, int N, int K, FA fa, FB fb, E
   }
 }
 
-// C(i, j) = sum_k A(i, k) B(k, j) with row-major operands: A(i, k) =
-// conj(a[k * lda + i]) when CONJ_A (A = X^H of a row-major K x M matrix X),
-// else a[i * lda + k]; B(k, j) = b[k * ldb + j].
+// tile_product with the largest tile of 8, 4 or 2 rows that still gives
+// every thread of the block a tile: at (128, 128), chi = 64, 8 x 4 for
+// m^H X and for x g on 128 rows, 4 x 4 for the Gram, 2 x 4 for x g on the
+// 43 or 32 rows of a cluster block.  (A 3 x 4 tile for 43 rows, one tile a
+// thread, measured slower.)  A = X^H of a row-major (K, M) matrix x is
+// product<true>(x, 1, M, ...); a row-major (M, K) matrix a is
+// product<false>(a, K, 1, ...).
 template <bool CONJ_A, typename Epi>
-__device__ __forceinline__ void smem_matmul(const float2* a, int lda, const float2* b, int ldb, int M, int N, int K,
-                                            Epi epi) {
-  tile_matmul(
-      M, N, K,
-      [&](int i, int k) { return CONJ_A ? conj2(a[k * lda + i]) : a[i * lda + k]; },
-      [&](int k, int j) { return b[k * ldb + j]; }, epi);
+__device__ __forceinline__ void product(const float2* a, int asi, int ask, const float2* b, int ldb, int M, int N,
+                                        int K, Epi epi) {
+  const int tn = (N + 3) / 4;
+  if ((M + 7) / 8 * tn >= kNsThreads) {
+    tile_product<8, CONJ_A>(a, asi, ask, b, ldb, M, N, K, epi);
+  } else if ((M + 3) / 4 * tn >= kNsThreads) {
+    tile_product<4, CONJ_A>(a, asi, ask, b, ldb, M, N, K, epi);
+  } else {
+    tile_product<2, CONJ_A>(a, asi, ask, b, ldb, M, N, K, epi);
+  }
 }
 
-// Floats of scratch that ns_polar_block needs beside its three buffers.
-__host__ __device__ constexpr int ns_scratch_floats(int m, int n) { return 2 * n + m + 1; }
+// Block k's copy of a shared-memory pointer in a cluster of kC blocks
+// (kC = 1: the block's own).
+template <int kC, typename T>
+__device__ __forceinline__ T* rank_ptr(T* p, int k) {
+  if constexpr (kC > 1) {
+    return cooperative_groups::this_cluster().map_shared_rank(p, k);
+  } else {
+    return p;
+  }
+}
 
-// Replace x (m x n, row-major, shared memory) by its polar factor.  xg
-// (m * n) and g (n * n) are shared-memory work buffers, red holds
-// ns_scratch_floats(m, n) floats of shared memory.  The caller has written x
-// and synchronized the block; on return x holds the result and the block is
-// synchronized again.  m <= kNsMaxRows, n <= kNsMaxCols.
-__device__ void ns_polar_block(float2* x, float2* xg, float2* g, float* red, int m, int n) {
-  float* colsum = red;         // n
-  float* colsq = colsum + n;   // n
-  float* rowsum = colsq + n;   // m
-  float* bound = rowsum + m;   // 1
-  const int mn = m * n;
+// Synchronize the cluster (kC > 1) or the block.
+template <int kC>
+__device__ __forceinline__ void cluster_or_block_sync() {
+  if constexpr (kC > 1) {
+    cooperative_groups::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+}
 
-  // 1. scale by a guaranteed upper bound on sigma_max
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+// dst[e] = the sum over the cluster's blocks, in rank order, of src[e] in
+// each block's shared memory (e < n): every block that sums the same
+// elements gets the same bits.  src must not change until the cluster has
+// synchronized after this call.
+template <int kC>
+__device__ __forceinline__ void cluster_sum(float2* dst, float2* src, int n) {
+  const float2* part[kC];
+#pragma unroll
+  for (int k = 0; k < kC; ++k) part[k] = rank_ptr<kC>(src, k);
+  constexpr int kU = 4;  // elements in flight a thread
+  for (int e0 = threadIdx.x; e0 < n; e0 += kU * blockDim.x) {
+    float2 v[kU][kC];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int e = min(e0 + u * static_cast<int>(blockDim.x), n - 1);
+#pragma unroll
+      for (int k = 0; k < kC; ++k) v[u][k] = part[k][e];
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int e = e0 + u * static_cast<int>(blockDim.x);
+      float2 acc = v[u][0];
+#pragma unroll
+      for (int k = 1; k < kC; ++k) acc = make_float2(acc.x + v[u][k].x, acc.y + v[u][k].y);
+      if (e < n) dst[e] = acc;
+    }
+  }
+}
+
+// Floats of shared-memory scratch that ns_polar_rows needs for n columns:
+// the scale's statistics (2 n + 1, read by the cluster's other blocks) and
+// a block reduction (kNsWarps + 1).
+__host__ __device__ constexpr int ns_scratch_floats(int n) { return 2 * n + 1 + kNsWarps + 1; }
+
+// Replace x (nl x n, row-major, shared memory) by its rows of the polar
+// factor of a matrix whose rows are split over a cluster of kC blocks, each
+// holding nl of them (kC = 1: one block holds the whole matrix).  xg (nl *
+// n) and g (n * n) are work buffers; scratch holds ns_scratch_floats(n)
+// floats; with kC > 1, part holds two n x n Gram partials part_stride
+// elements apart, which the other blocks read.  Every block of the cluster
+// calls it with x written and the block synchronized; it returns with the
+// block (not the cluster) synchronized.  The partial sums of each block are
+// combined in rank order (cluster_sum, rank_ptr), so all blocks scale and
+// step alike; one cluster barrier for the scale and one a step.  nl <=
+// kNsMaxRows, n <= kNsMaxCols.
+template <int kC>
+__device__ void ns_polar_rows(float2* x, float2* xg, float2* g, float2* part, int part_stride, float* scratch, int nl,
+                              int n) {
+  float* stat = scratch;             // column abs sums (n), column squares (n), largest row abs sum
+  float* red = scratch + 2 * n + 1;  // kNsWarps + 1
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // 1. scale by min(frobenius, sqrt(norm1 * norminf)) + 1e-30, a guaranteed
+  // upper bound on sigma_max of the whole matrix
+  for (int j = tid; j < n; j += blockDim.x) {
     float s = 0.f, q = 0.f;
-    for (int i = 0; i < m; ++i) {
+    for (int i = 0; i < nl; ++i) {
       const float2 v = x[i * n + j];
       const float av = hypotf(v.x, v.y);
       s += av;
       q = fmaf(av, av, q);
     }
-    colsum[j] = s;
-    colsq[j] = q;
+    stat[j] = s;
+    stat[n + j] = q;
   }
-  {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    for (int i = warp; i < m; i += blockDim.x / 32) {
-      float s = 0.f;
-      for (int j = lane; j < n; j += 32) {
-        const float2 v = x[i * n + j];
-        s += hypotf(v.x, v.y);
-      }
+  float rmax = 0.f;
+  for (int i = warp; i < nl; i += kNsWarps) {
+    float s = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float2 v = x[i * n + j];
+      s += hypotf(v.x, v.y);
+    }
+    rmax = fmaxf(rmax, warp_sum(s));
+  }
+  if (lane == 0) red[warp] = rmax;
+  __syncthreads();
+  if (tid == 0) {
+    float r = 0.f;
+    for (int w = 0; w < kNsWarps; ++w) r = fmaxf(r, red[w]);
+    stat[2 * n] = r;
+  }
+  cluster_or_block_sync<kC>();
+  if (warp == 0) {
+    float norm1 = 0.f, sq = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      float s = 0.f, q = 0.f;
 #pragma unroll
-      for (int off = 16; off > 0; off /= 2) s += __shfl_down_sync(0xffffffffu, s, off);
-      if (lane == 0) rowsum[i] = s;
+      for (int k = 0; k < kC; ++k) {
+        const float* pk = rank_ptr<kC>(stat, k);
+        s += pk[j];
+        q += pk[n + j];
+      }
+      norm1 = fmaxf(norm1, s);
+      sq += q;
+    }
+    norm1 = warp_max(norm1);
+    sq = warp_sum(sq);
+    if (lane == 0) {
+      float norminf = 0.f;
+#pragma unroll
+      for (int k = 0; k < kC; ++k) norminf = fmaxf(norminf, rank_ptr<kC>(stat, k)[2 * n]);
+      red[kNsWarps] = fminf(sqrtf(sq), sqrtf(norm1 * norminf)) + 1e-30f;
     }
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float norm1 = 0.f, norminf = 0.f, sq = 0.f;
-    for (int j = 0; j < n; ++j) {
-      norm1 = fmaxf(norm1, colsum[j]);
-      sq += colsq[j];
-    }
-    for (int i = 0; i < m; ++i) norminf = fmaxf(norminf, rowsum[i]);
-    *bound = fminf(sqrtf(sq), sqrtf(norm1 * norminf)) + 1e-30f;
-  }
-  __syncthreads();
-  {
-    const float bnd = *bound;
-    for (int e = threadIdx.x; e < mn; e += blockDim.x) {
-      const float2 v = x[e];
-      x[e] = make_float2(v.x / bnd, v.y / bnd);
-    }
+  const float bnd = red[kNsWarps];
+  for (int e = tid; e < nl * n; e += blockDim.x) {
+    const float2 v = x[e];
+    x[e] = make_float2(v.x / bnd, v.y / bnd);
   }
   __syncthreads();
 
-  // 2-3. six quintic steps: x = a x + b xg + c (xg) g
-  const float qa[6] = {3.4445f, 3.4445f, 3.4445f, 3.4445f, 2.0f, 2.0f};
-  const float qb[6] = {-4.7750f, -4.7750f, -4.7750f, -4.7750f, -1.3333f, -1.3333f};
-  const float qc[6] = {2.0315f, 2.0315f, 2.0315f, 2.0315f, 0.3333f, 0.3333f};
-  for (int step = 0; step < 6; ++step) {
-    smem_matmul<true>(x, n, x, n, n, n, m, [&](int i, int j, float2 v) { g[i * n + j] = v; });
+  // 2-4. the schedule's eight steps: x = a x + b x g + c (x g) g, g = x^H x
+  // (over the cluster: the Gram partials double-buffered, so that one
+  // barrier a step suffices)
+  for (int step = 0; step < kNsSteps; ++step) {
+    const NsStep st = ns_step(step);
+    if constexpr (kC > 1) {
+      float2* p = part + (step & 1) * part_stride;
+      product<true>(x, 1, n, x, n, n, n, nl, [&](int i, int j, float2 v) { p[i * n + j] = v; });
+      cooperative_groups::this_cluster().sync();
+      cluster_sum<kC>(g, p, n * n);
+    } else {
+      product<true>(x, 1, n, x, n, n, n, nl, [&](int i, int j, float2 v) { g[i * n + j] = v; });
+    }
     __syncthreads();
-    smem_matmul<false>(x, n, g, n, m, n, n, [&](int i, int j, float2 v) { xg[i * n + j] = v; });
+    product<false>(x, n, 1, g, n, nl, n, n, [&](int i, int j, float2 v) { xg[i * n + j] = v; });
     __syncthreads();
-    const float a = qa[step], b = qb[step], c = qc[step];
-    // each (i, j) of x is read and written by the thread that owns it only
-    smem_matmul<false>(xg, n, g, n, m, n, n, [&](int i, int j, float2 v) {
-      const float2 xv = x[i * n + j];
-      const float2 yv = xg[i * n + j];
-      x[i * n + j] = make_float2(a * xv.x + b * yv.x + c * v.x, a * xv.y + b * yv.y + c * v.y);
-    });
-    __syncthreads();
-  }
-
-  // 4. two cubic steps: x = 1.5 x - 0.5 x g
-  for (int step = 0; step < 2; ++step) {
-    smem_matmul<true>(x, n, x, n, n, n, m, [&](int i, int j, float2 v) { g[i * n + j] = v; });
-    __syncthreads();
-    smem_matmul<false>(x, n, g, n, m, n, n, [&](int i, int j, float2 v) { xg[i * n + j] = v; });
-    __syncthreads();
-    for (int e = threadIdx.x; e < mn; e += blockDim.x) {
-      const float2 xv = x[e];
-      const float2 yv = xg[e];
-      x[e] = make_float2(1.5f * xv.x - 0.5f * yv.x, 1.5f * xv.y - 0.5f * yv.y);
+    if (st.c != 0.f) {
+      // each (i, j) of x is read and written by the thread that owns it only
+      product<false>(xg, n, 1, g, n, nl, n, n, [&](int i, int j, float2 v) {
+        const float2 xv = x[i * n + j];
+        const float2 yv = xg[i * n + j];
+        x[i * n + j] = make_float2(st.a * xv.x + st.b * yv.x + st.c * v.x, st.a * xv.y + st.b * yv.y + st.c * v.y);
+      });
+    } else {
+      for (int e = tid; e < nl * n; e += blockDim.x) {
+        const float2 xv = x[e];
+        const float2 yv = xg[e];
+        x[e] = make_float2(st.a * xv.x + st.b * yv.x, st.a * xv.y + st.b * yv.y);
+      }
     }
     __syncthreads();
   }
+}
+
+// Replace x (m x n, row-major, shared memory), held whole by this block, by
+// its polar factor: ns_polar_rows on one block.  xg (m * n) and g (n * n)
+// are work buffers, red holds ns_scratch_floats(n) floats.  The caller has
+// written x and synchronized the block; on return x holds the result and
+// the block is synchronized again.
+__device__ __forceinline__ void ns_polar_block(float2* x, float2* xg, float2* g, float* red, int m, int n) {
+  ns_polar_rows<1>(x, xg, g, nullptr, 0, red, m, n);
 }
 
 // Set the dynamic shared-memory limit of a kernel and report the error.

@@ -5,7 +5,10 @@ Replaces the per-site ``jnp.linalg.qr`` of ``yaqs_tpu.core.mps_ops``
 QR of its adjoint), ``shift_center_right`` and ``bond_spectra``.  The
 kernel keeps LAPACK's Householder conventions (real diagonal of R,
 ``beta = -sign(Re alpha) ||x||``), so its Q and R match the plain version's
-entry by entry on full-rank blocks.
+entry by entry on full-rank blocks.  It factors in panels of 8 columns
+(the compact WY form).  ``want_q=False`` (the bond spectra, which keep R
+only) skips forming and writing Q and returns ``(None, r)``; its launches
+count under ``householder_qr_r``, those with Q under ``householder_qr``.
 
 A complex64 block takes the JAX package's rank-noise floor first (one
 float32 ulp of the block's norm plus 1e-16, along a fixed unit-norm real
@@ -40,27 +43,35 @@ def _rank_noise(rows: int, cols: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor((nz / np.linalg.norm(nz)).astype(np.float32)).to(device)
 
 
-def householder_qr_plain(a: torch.Tensor, *, adjoint: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+def householder_qr_plain(
+    a: torch.Tensor, *, adjoint: bool = False, want_q: bool = True
+) -> tuple[torch.Tensor | None, torch.Tensor]:
     """Plain PyTorch version: ``torch.linalg.qr`` of ``a`` (or of ``a^H``),
-    after the rank-noise floor for complex64.  Returns thin ``(q, r)``."""
+    after the rank-noise floor for complex64.  Returns thin ``(q, r)``, or
+    ``(None, r)`` from ``mode="r"`` without ``want_q``."""
     w = a.mH if adjoint else a
     if w.dtype == torch.complex64:
         scale = _EPS32 * torch.linalg.matrix_norm(w) + 1e-16
         w = w + scale.to(w.dtype)[..., None, None] * _rank_noise(*w.shape[-2:], w.device)
+    if not want_q:
+        return None, torch.linalg.qr(w, mode="r")[1]
     return torch.linalg.qr(w)
 
 
-def householder_qr(a: torch.Tensor, *, adjoint: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+def householder_qr(
+    a: torch.Tensor, *, adjoint: bool = False, want_q: bool = True
+) -> tuple[torch.Tensor | None, torch.Tensor]:
     """Thin QR of each block of ``a (B, n, k)``, or with ``adjoint`` of each
     ``a[z]^H`` for ``a (B, k, n)``, after the rank-noise floor for complex64.
-    Returns ``q (B, n, k)``, ``r (B, k, k)`` upper triangular.
+    Returns ``q (B, n, k)``, ``r (B, k, k)`` upper triangular; ``q`` is
+    ``None`` without ``want_q``.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches
     ``householder_qr`` (complex64, ``k <= n <= 128``, ``k <= 64``, each block
     contiguous with any stride between blocks) or raises ``ValueError``.
     """
     if not on_card("householder_qr", a):
-        return householder_qr_plain(a, adjoint=adjoint)
+        return householder_qr_plain(a, adjoint=adjoint, want_q=want_q)
     if a.dtype != torch.complex64 or a.dim() != 3:
         msg = f"householder_qr takes complex64 (B, rows, cols) blocks, got {a.dtype} {tuple(a.shape)}"
         raise ValueError(msg)
@@ -75,16 +86,17 @@ def householder_qr(a: torch.Tensor, *, adjoint: bool = False) -> tuple[torch.Ten
     if not inner_contiguous(a):
         msg = "householder_qr takes blocks that are contiguous with their conjugation resolved"
         raise ValueError(msg)
-    q = a.new_empty((b, n, k))
+    q = a.new_empty((b, n, k)) if want_q else None
     r = a.new_empty((b, k, k))
     if b == 0:
         return q, r
     lib = load_library()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = lib.householder_qr_launch(
-        a.data_ptr(), a.stride(0), _rank_noise(n, k, a.device).data_ptr(), q.data_ptr(), r.data_ptr(),
-        b, n, k, int(adjoint), stream,
+        a.data_ptr(), a.stride(0), _rank_noise(n, k, a.device).data_ptr(), q.data_ptr() if want_q else None,
+        r.data_ptr(), b, n, k, int(adjoint), stream,
     )
-    check(err, "householder_qr")
-    LAUNCHES["householder_qr"] += 1
+    name = "householder_qr" if want_q else "householder_qr_r"
+    check(err, name)
+    LAUNCHES[name] += 1
     return q, r

@@ -10,9 +10,24 @@ factor is the isometry; otherwise ``omega`` is ``(rows, chi)`` and the right
 factor is.  Returns ``left (B, rows, chi)``, ``right (B, chi, cols)`` and the
 approximate singular values ``s (B, chi)``: the row norms of ``right`` or
 the column norms of ``left``.
+
+On the card each matrix runs on a thread block cluster of ``C`` blocks:
+the largest of 4, 3 and 2 whose clusters the card holds all at once for the
+whole batch, else one block a matrix (:func:`cluster_size`, with the
+counts from :func:`held_clusters`).  An H100 holds 30 clusters of four at
+the analog shape, so the analog path's B = 32 takes clusters of three; the
+digital B = 512 takes one block a matrix.
+
+The cluster's blocks add their partial Gram and ``m^H X`` sums in rank
+order, so a matrix's result is the same from run to run, but its rounding
+depends on ``C``: one trajectory's split can differ, within the 1e-4 that
+the card tests hold it to against the plain version, with the batch it runs
+in and with the card's cluster occupancy.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -20,7 +35,28 @@ from . import LAUNCHES, on_card
 from .build import check, load_library
 from .ns_polar import MAX_COLS, MAX_ROWS, newton_schulz_orthogonalize_plain
 
-__all__ = ["subspace_split", "subspace_split_plain"]
+__all__ = ["cluster_size", "held_clusters", "subspace_split", "subspace_split_plain"]
+
+CLUSTER_SIZES = (4, 3, 2)
+
+
+def cluster_size(batch: int, held: dict[int, int]) -> int:
+    """Thread blocks a matrix: the largest ``C`` of 4, 3 and 2 with ``batch
+    <= held[C]``, the clusters of ``C`` blocks the card holds at once, so
+    that the whole batch runs in one wave; else 1."""
+    return next((c for c in CLUSTER_SIZES if batch <= held.get(c, 0)), 1)
+
+
+@functools.cache
+def held_clusters(rows: int, cols: int, chi: int, device_index: int) -> dict[int, int]:
+    """The clusters of 4, 3 and 2 blocks of this shape that the card holds
+    at once (``cudaOccupancyMaxActiveClusters``), by cluster size."""
+    lib = load_library()
+    with torch.cuda.device(device_index):
+        held = {c: lib.subspace_split_max_clusters(rows, cols, chi, c) for c in CLUSTER_SIZES}
+    for c, n in held.items():
+        check(max(-n, 0), f"subspace_split_max_clusters ({c} blocks)")
+    return held
 
 
 def subspace_split_plain(m: torch.Tensor, omega: torch.Tensor, chi: int, iters: int, left_isometric: bool):
@@ -59,7 +95,8 @@ def subspace_split(m: torch.Tensor, omega: torch.Tensor, chi: int, iters: int, l
     ``(rows, cols)`` block of ``m (..., rows, cols)``.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches
-    ``subspace_split`` (one thread block per block), which takes complex64,
+    ``subspace_split`` (``cluster_size`` thread blocks a matrix; a cluster
+    the card cannot place raises), which takes complex64,
     ``rows, cols <= 128``, ``chi <= 64``, ``iters >= 0`` and an ``omega`` of
     the right shape on the same device; anything else raises ``ValueError``.
     Any view of ``m`` goes in (it is made contiguous first).
@@ -90,7 +127,7 @@ def subspace_split(m: torch.Tensor, omega: torch.Tensor, chi: int, iters: int, l
     stream = torch.cuda.current_stream(m.device).cuda_stream
     err = lib.subspace_split_launch(
         mc.data_ptr(), om.data_ptr(), left.data_ptr(), right.data_ptr(), s.data_ptr(), batch, rows, cols, chi,
-        iters, int(left_isometric), stream,
+        iters, int(left_isometric), cluster_size(batch, held_clusters(rows, cols, chi, m.device.index)), stream,
     )
     check(err, "subspace_split")
     LAUNCHES["subspace_split"] += 1
