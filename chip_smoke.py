@@ -136,6 +136,9 @@ import torch
 NS_TOL = 1e-5
 NS_ISOMETRY_TOL = 1e-4
 KERNEL_TOL = 1e-5  # relative: complex64 with another summation order
+# K1 and K2 (the one-launch Lanczos solves) against the plain loop, relative:
+# k chained matvecs and reductions, each summed in another order
+SOLVE_TOL = 1e-4  # the basis etc.: or 4x the plain loop's own change under a 1e-7 change of v (solve_errors)
 GUARD_TOL = 1e-3
 CPU_PARITY_TOL = 1e-3
 ORACLE_TOL = 1e-3
@@ -154,18 +157,30 @@ XXZ = dict(batch=16, jx=1.0, jy=1.0, jz=0.5, h=0.2)  # bench.py analog_run(model
 MCWF = dict(length=20, batch=16, steps=10, dt=0.1, gamma=0.05, krylov_dim=25)
 MCWF_KERNELS = ("sv_mpo_matvec", "arnoldi_step", "arnoldi_epilogue")
 STAT_SIGMAS = 5.0  # the noisy MCWF guard: |mean - exact| <= 5 standard errors + GUARD_TOL
-TDVP_KERNELS = ("heff2", "heff1", "lanczos_step", "env_update")
+# the TDVP kernels of the table; the sweep runs the solves, env_update and
+# the epilogue, while heff2 and heff1 stay the single-matvec entry
+# (heff_two_site_merged, heff_one_site_merged), on no path
+TDVP_KERNELS = ("heff2", "heff1", "lanczos_solve2", "lanczos_solve1", "env_update")
+SWEEP_KERNELS = ("lanczos_solve2", "lanczos_solve1", "env_update")
 NEWTON_KERNELS = ("subspace_split", "ns_canon")
-ANALOG_KERNELS = (*NEWTON_KERNELS, "lanczos_epilogue", "moment_scan", *TDVP_KERNELS)
+ANALOG_KERNELS = (*NEWTON_KERNELS, "lanczos_epilogue", "moment_scan", *SWEEP_KERNELS)
 DIGITAL_KERNELS = ("bond_gate", "moment_scan", "sample_shots", *NEWTON_KERNELS)
 # the kernels of the analog path with two-site noise (phase 4d)
 TWO_SITE_KERNELS = (*ANALOG_KERNELS, "pair_weights", "svd_jacobi", "householder_qr", "bond_gate")
 # the fast analog cell's K5 and K6 launches: one a split, one a canonicalization
 ANALOG_NEWTON_LAUNCHES = dict(subspace_split=1970, ns_canon=11)
+# its Lanczos launches: one solve and one epilogue a local evolution (197
+# two-site and 196 one-site solves a sweep, one sweep a step)
+ANALOG_SOLVE_LAUNCHES = dict(lanczos_solve2=1970, lanczos_solve1=1960, lanczos_epilogue=3930)
+# device events a step of the same profiled runs before the one-launch
+# solves (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W): phases 4 and 4c as
+# PERF.md's section 5 had them, 4d from a run of that design beside this one
+EVENTS_BEFORE = dict(analog=11209, analog_exact=21243, analog_two_site=17535)
 # the path whose run gives a kernel's launch count in the kernel table: the
 # slice that ported it, or the analog path for the TDVP kernels
 TABLE_PATH = dict(ns_polar="analog", lanczos_epilogue="analog", bond_gate="digital", moment_scan="digital",
-                  sample_shots="digital", heff2="analog", heff1="analog", lanczos_step="analog", env_update="analog",
+                  sample_shots="digital", heff2="analog", heff1="analog", lanczos_solve2="analog",
+                  lanczos_solve1="analog", env_update="analog",
                   sv_mpo_matvec="mcwf", arnoldi_step="mcwf", arnoldi_epilogue="mcwf", svd_jacobi="analog_exact",
                   householder_qr="analog_exact", householder_qr_r="analog_exact", subspace_split="analog",
                   ns_canon="analog",
@@ -177,7 +192,7 @@ NEWTON_TOL = 1e-4  # K5 and K6 against their plain versions (relative; the Newto
 PAIR_GAMMA = 0.01  # crosstalk_zz and the correlated decay on every adjacent pair
 LOWERING = np.array([[0, 1], [0, 0]], dtype=np.complex128)
 DECOMP_KERNELS = ("svd_jacobi", "householder_qr", "householder_qr_r")
-EXACT_KERNELS = (*DECOMP_KERNELS, "lanczos_epilogue", "moment_scan", *TDVP_KERNELS)
+EXACT_KERNELS = (*DECOMP_KERNELS, "lanczos_epilogue", "moment_scan", *SWEEP_KERNELS)
 DECOMP_TOL = 1e-4  # K9 and K14 against their plain versions (relative; complex64, another algorithm for K9)
 # cuSOLVER kernel names that must not appear in the GPU-defaults run's profile
 CUSOLVER_MARKS = ("gesvd", "geqrf", "larft", "orgqr", "ungqr")
@@ -298,7 +313,8 @@ def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops,
     syncs (the batched SVD does): host-paced over 3 windows of 3 calls, kept
     out of the profiler.  ``slow_plain`` (a plain version and library call
     that call cuSOLVER's SVD, which lost the profiler's later device rows,
-    and take up to seconds): the plain version one call at a time between
+    and take up to seconds; or the gate window's plain Lanczos loop, 838
+    launches a call): the plain version one call at a time between
     CUDA events (1 warm-up, the median of 3 calls; host-paced is then the
     same figure), the library call host-paced over 3 single calls after 1
     warm-up."""
@@ -1033,16 +1049,59 @@ def two_site_kernel_rows(dev, randc, gen, bond_gate_row):
     return {"pair_weights": k15}
 
 
+def solve_errors(got, ref, moved):
+    """Relative errors of a solve against its plain loop, and their limits:
+    the result ``exp(-0.5i H) v`` (the epilogue over each basis) within
+    SOLVE_TOL; the basis, alphas, betas and nrm within SOLVE_TOL or 4x the
+    plain loop's own change ``moved`` under a 1e-7 relative change of v,
+    the larger (a long three-term recurrence loses orthogonality, and its
+    basis then moves by ~1e-3 under rounding-level changes while the
+    result does not)."""
+    from yaqs_tpu_torch.kernels.lanczos_epilogue import lanczos_epilogue_plain
+
+    res = [lanczos_epilogue_plain(x[1], x[2], -0.5j, x[0], x[3], x[0][:, 0]) for x in (got, ref)]
+    errs = [rel_err(res[0], res[1])] + [rel_err(x, y) for x, y in zip(got, ref)]
+    limits = [SOLVE_TOL] + [max(SOLVE_TOL, 4 * rel_err(x, y)) for x, y in zip(moved, ref)]
+    return errs, limits
+
+
+def hermitian_heff(f, g, w, v, p):
+    """Inputs of a solve whose H_eff is Hermitian, as on the paths: each
+    environment component ``f[:, :, w, :]``, ``g[:, :, u, :]`` and each
+    operator (c -> x) of the merged MPO matrix made Hermitian; trajectory 1
+    with boundary environments starts on an eigenvector of its local
+    operator (it breaks down after one step), trajectory 2 from zero."""
+    def herm(t):  # (..., m, m)
+        return (t + t.conj().transpose(-1, -2)) / 2
+
+    b, chi, dw, _ = f.shape
+    hf = herm(f.transpose(1, 2)).transpose(1, 2).contiguous() / chi
+    hg = herm(g.transpose(1, 2)).transpose(1, 2).contiguous() / chi
+    ops = herm(w.reshape(dw, p, p, dw).permute(0, 3, 2, 1))  # ops[w, u][x, c]
+    hw = ops.permute(0, 3, 2, 1).reshape(dw * p, p * dw).contiguous()
+    hv = v.reshape(b, p, chi, chi).clone()
+    hf[1], hg[1] = 0, 0
+    hf[1, :, 0, :] = torch.eye(chi, device=f.device)
+    hg[1, :, dw - 1, :] = torch.eye(chi, device=f.device)
+    hv[1] = torch.linalg.eigh(ops[0, dw - 1])[1][:, -1][:, None, None] * hv[1, 0]
+    hv[2] = 0
+    return hf, hg, hw, hv.reshape(v.shape)
+
+
 def tdvp_kernel_rows(dev, randc, gen):
-    """``heff2``, ``heff1``, ``env_update`` and ``lanczos_step`` against
-    their plain versions and timed, at the analog TFIM shape (the table's
-    row), the XXZ shape (Dw=5) and the gate-window shape; the environments
-    and sites are strided views, as the sweep passes them."""
+    """``heff2``, ``heff1`` (the single matvec), ``env_update`` and the
+    one-launch solves ``lanczos_solve2``, ``lanczos_solve1`` against their
+    plain versions and timed, at the analog TFIM shape (the table's row),
+    the XXZ shape (Dw=5) and the gate-window shape; the environments and
+    sites are strided views, as the sweep passes them, and the solves take
+    Hermitian inputs with one trajectory on an eigenvector and one zero."""
     from yaqs_tpu_torch.kernels.env_update import (
         env_update_left, env_update_left_plain, env_update_right, env_update_right_plain,
     )
     from yaqs_tpu_torch.kernels.heff import heff1, heff1_plain, heff2, heff2_plain
-    from yaqs_tpu_torch.kernels.lanczos_step import lanczos_step, lanczos_step_plain
+    from yaqs_tpu_torch.kernels.lanczos_solve import (
+        cluster_blocks, lanczos_solve, lanczos_solve_plain, solve_clusters_held,
+    )
 
     rows = {name: dict(max_abs_err=0.0) for name in TDVP_KERNELS}
     for path, (b, chi, dw) in TDVP_SHAPES.items():
@@ -1086,52 +1145,59 @@ def tdvp_kernel_rows(dev, randc, gen):
             t = timings(f"{name} (B={b}, chi={chi}, Dw={dw})", kernel_fn, plain_fn, library_fn, (name,), nbytes, flops)
             rows[name][path] = dict(shape=[b, chi, dw], library_call=library_call, **t)
 
-        # lanczos_step: the analog solves (n = d^2 chi^2, k = 4) and the window's (k = 25)
-        n, k = 4 * chi * chi, (25 if path == "window" else BENCH["krylov_dim"])
-        j = k // 2
-        for reorth in (False, True):
-            basis = torch.zeros((b, k, n), dtype=torch.complex64, device=dev)
-            basis[:, : j + 1] = torch.linalg.qr(randc(b, n, j + 1))[0].mT
-            q, q_prev = basis[:, j].clone(), basis[:, j - 1].clone()
-            w_vec = randc(b, n)
-            w_vec[2] = basis[2, : j + 1].sum(dim=0)  # inside the span: breaks down when reorthogonalizing
-            alive = torch.ones(b, dtype=torch.bool, device=dev)
-            alive[1] = False
-            q[1] = 0
-            basis[1, j] = 0
-            scal = [torch.rand((b, k), generator=gen, device=dev), torch.rand((b, k), generator=gen, device=dev),
-                    torch.rand((b,), generator=gen, device=dev)]
-            state = [w_vec, q, q_prev, basis, *scal, alive]
-            mine, ref_state = [x.clone() for x in state], [x.clone() for x in state]
-            got = lanczos_step(*mine, j, reorth, BREAKDOWN_TOL)
-            ref = lanczos_step_plain(*ref_state, j, reorth, BREAKDOWN_TOL)
-            torch.cuda.synchronize()
-            same_mask = torch.equal(mine[-1], ref_state[-1])
-            err = max(rel_err(got, ref), rel_err(mine[0], ref_state[0]), rel_err(mine[4], ref_state[4]),
-                      rel_err(mine[5], ref_state[5]))
-            variant = "reorth" if reorth else "three-term"
-            log(f"[phase 3] lanczos_step {variant} (B={b}, k={k}, n={n}, j={j}): rel err {err:.3e}, "
-                f"identical alive masks {same_mask} ({int(mine[-1].sum())} of {b} alive)")
-            check(err <= KERNEL_TOL and same_mask, f"lanczos_step ({variant}) disagrees with its plain version")
-            check(bool(mine[-1][2]) != reorth, "the in-span trajectory's breakdown was not detected")
-            rows["lanczos_step"]["max_abs_err"] = max(rows["lanczos_step"]["max_abs_err"], (got - ref).abs().max().item())
-            # timed with q_prev = 0, so repeated calls stay a projection of w
-            timed = [x.clone() for x in state]
-            timed[2].zero_()
-            vecs = (j + 6) if reorth else 6
-            flops = b * n * ((4 * (j + 1) + 2) if reorth else 4) * CMAC_FLOPS
-            t = timings(f"lanczos_step {variant} (B={b}, k={k}, n={n})",
-                        lambda: lanczos_step(*timed, j, reorth, BREAKDOWN_TOL),
-                        lambda: lanczos_step_plain(*timed, j, reorth, BREAKDOWN_TOL), None, ("lanczos_step",),
-                        vecs * b * n * C64 + b * (2 * k + 2) * 4, flops)
-            rows["lanczos_step"][f"{path}_{variant}"] = dict(shape=[b, k, n, j], library_call="none", **t)
+        # the one-launch solves at the paths' Krylov dimensions and variants:
+        # analog k = 4 three-term (fast knobs) and reorthogonalizing (GPU
+        # defaults), XXZ k = 4 three-term, the gate window k = 25 in both
+        # (fast knobs; window parity with the exact knobs)
+        variants = {"window": [(25, False), (25, True)], "xxz": [(4, False)]}.get(path, [(4, False), (4, True)])
+        for p, name, v0, wmat in ((4, "lanczos_solve2", theta, w12), (2, "lanczos_solve1", a, wm)):
+            hf, hg, hw, hv = hermitian_heff(f, g, wmat, v0, p)
+            if p == 4:  # read in place as the sweep hands it over: a merged block comes out permuted
+                hv = hv.permute(0, 1, 3, 2, 4).contiguous().permute(0, 1, 3, 2, 4)
+            n = p * chi * chi
+            for k, reorth in variants:
+                blocks = cluster_blocks(dw, chi)
+                held = solve_clusters_held(chi, dw, p, dev.index or 0)
+                got = lanczos_solve(hf, hw, hg, hv, k, reorth, BREAKDOWN_TOL)
+                ref = lanczos_solve_plain(hf, hw, hg, hv, k, reorth, BREAKDOWN_TOL)
+                moved = lanczos_solve_plain(hf, hw, hg, hv * (1 + 1e-7 * torch.randn(hv.shape, generator=gen,
+                                                                                      device=dev)),
+                                            k, reorth, BREAKDOWN_TOL)
+                torch.cuda.synchronize()
+                errs, limits = solve_errors(got, ref, moved)
+                same = torch.equal(got[2] == 0, ref[2] == 0)
+                variant = "reorth" if reorth else "three-term"
+                log(f"[phase 3] {name} {variant} (B={b}, chi={chi}, Dw={dw}, k={k}): {blocks} blocks a cluster, "
+                    f"the card holds {held} such clusters at once ({b} in the batch); rel err of the result, basis, "
+                    f"alphas, betas, nrm " + ", ".join(f"{e:.3e}" for e in errs) + " (limits "
+                    + ", ".join(f"{x:.1e}" for x in limits) + f"), identical breakdowns {same}")
+                check(all(e <= x for e, x in zip(errs, limits)) and same,
+                      f"{name} ({variant}) disagrees with its plain version: {errs} against {limits}")
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                                max((x - y).abs().max().item() for x, y in zip(got, ref)))
+                # bound: v, f, g and W read once, the basis, alphas, betas and nrm
+                # written once; k matvecs and the recurrence's dot products and updates
+                mv_flops = 2 * p * dw * chi**3 + (p * dw) ** 2 * chi * chi
+                rec = sum(4 * (j + 1) + 2 for j in range(k)) if reorth else 4 * k
+                nbytes = (b * n * (k + 1) + 2 * b * chi * dw * chi + (p * dw) ** 2) * C64 + b * (2 * k + 1) * 4
+                t = timings(f"{name} {variant} (B={b}, chi={chi}, Dw={dw}, k={k})",
+                            lambda hv=hv, hf=hf, hg=hg, hw=hw, k=k, r=reorth: lanczos_solve(
+                                hf, hw, hg, hv, k, r, BREAKDOWN_TOL),
+                            lambda hv=hv, hf=hf, hg=hg, hw=hw, k=k, r=reorth: lanczos_solve_plain(
+                                hf, hw, hg, hv, k, r, BREAKDOWN_TOL),
+                            None, (name,), nbytes, b * (k * mv_flops + rec * n) * CMAC_FLOPS)
+                key = f"{path}_{variant}"
+                rows[name][key] = dict(shape=[b, chi, dw, k], cluster_blocks=blocks, held_clusters=held,
+                                       library_call="none", **t)
 
-    sources = dict(heff2="heff.cu", heff1="heff.cu", lanczos_step="lanczos_step.cu", env_update="env_update.cu")
+    sources = dict(heff2="heff.cu", heff1="heff.cu", lanczos_solve2="lanczos_solve.cu",
+                   lanczos_solve1="lanczos_solve.cu", env_update="env_update.cu")
     replaces = dict(heff2="yaqs_tpu/methods/tdvp.py:173", heff1="yaqs_tpu/methods/tdvp.py:188",
-                    lanczos_step="yaqs_tpu/ops/krylov.py:74", env_update="yaqs_tpu/methods/tdvp.py:98")
+                    lanczos_solve2="yaqs_tpu/ops/krylov.py:31", lanczos_solve1="yaqs_tpu/ops/krylov.py:31",
+                    env_update="yaqs_tpu/methods/tdvp.py:98")
     out = {}
     for name, row in rows.items():
-        main = row["analog_three-term"] if name == "lanczos_step" else row["analog"]
+        main = row["analog_three-term"] if name.startswith("lanczos_solve") else row["analog"]
         out[name] = dict(source=f"yaqs_tpu_torch/kernels/csrc/{sources[name]}", replaces=replaces[name], **main, **row)
     return out
 
@@ -1191,6 +1257,12 @@ def phase_slice(dev):
     check(launches["ns_polar"] == 0, f"the fast analog run launched ns_polar {launches['ns_polar']} times")
     for name, count in ANALOG_NEWTON_LAUNCHES.items():
         check(launches[name] == count, f"{name} launched {launches[name]} times, not {count}")
+    log(f"[phase 4] Lanczos launches: " + ", ".join(f"{name} {launches[name]}" for name in ANALOG_SOLVE_LAUNCHES)
+        + f", heff2 {launches['heff2']}, heff1 {launches['heff1']} (expected {ANALOG_SOLVE_LAUNCHES}: one solve "
+        "and one epilogue a local evolution, no separate matvec)")
+    for name, count in ANALOG_SOLVE_LAUNCHES.items():
+        check(launches[name] == count, f"{name} launched {launches[name]} times, not {count}")
+    check(launches["heff2"] == 0 and launches["heff1"] == 0, "the sweep launched a separate matvec")
     log(f"[phase 4] TJM L={length} chi={chi} B={b} {steps} steps: {seconds:.3f} s, "
         f"{out['traj_per_s']:.4f} traj/s, {out['ms_per_step']:.1f} ms/step, peak {peak / 2**20:.1f} MiB, "
         f"launches {launches}")
@@ -1206,6 +1278,7 @@ def phase_slice(dev):
     log(f"[phase 4] before the TDVP kernels (PERF.md, same card model): 2.1282 traj/s, 1503.6 ms/step, ~70,850 device events "
         f"per step, ~21% busy; this run: {out['traj_per_s']:.4f} traj/s, {out['ms_per_step']:.1f} ms/step, "
         f"{out['profile']['events_per_step']:.0f} events per step, {100 * out['profile']['busy']:.1f}% busy")
+    events_before_after("phase 4", "analog", out["profile"])
     return out
 
 
@@ -1281,6 +1354,7 @@ def phase_two_site(dev):
           f"svd_jacobi did not converge on a block of the two-site run: {record}")
     out["profile"] = profile_run("phase 4d, one step", lambda: run_tjm_batch(
         t0, w, noise, obs, plan_for(1, chi), device=dev, dtype=torch.complex64, batch=b), steps=1)
+    events_before_after("phase 4d", "analog_two_site", out["profile"])
     k9_in_path("phase 4d", out, record)
     return out
 
@@ -1448,6 +1522,7 @@ def phase_exact(dev):
         f"{out['mean_entropy_final']:.6f}; max bond per column {out['max_bond']}")
     out["profile"] = profile_run("phase 4c, one step", lambda: run_tjm_batch(
         t0, w, noise, obs, exact_plan(1, chi), batch=b, **kw), steps=1)
+    events_before_after("phase 4c", "analog_exact", out["profile"])
     k9_in_path("phase 4c", out, record)
     solver = [name for name in out["profile"].pop("names") if any(mark in name for mark in CUSOLVER_MARKS)]
     log(f"[phase 4c] cuSOLVER device rows in the profiled step: {solver}")
@@ -1612,7 +1687,7 @@ def phase_digital_window(dev):
     check(tuple(z.shape) == (b, n, 3) and bool(torch.isfinite(z).all()), "non-finite or misshaped window result")
     check(z.abs().max().item() <= 1.0 + 1e-3, "an observable of the window run left [-1, 1]")
     check(sum(res.counts.values()) == shots, f"window run counts sum to {sum(res.counts.values())}")
-    for name in TDVP_KERNELS:
+    for name in SWEEP_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched by the digital window run")
     log(f"[phase 7b] ns_polar launches left: {launches['ns_polar']} (the window sweeps' splits are K5's, the "
         f"canonicalizations K6's; the center shift is K14)")
@@ -2019,6 +2094,15 @@ def profile_run(label, run, steps=1):
     return dict(wall_s=wall, device_s=device_s, busy=device_s / wall, events=events, events_per_step=events / steps,
                 top=top, names=[r.key for r in rows],
                 rows={r.key[:80]: dict(ms=r.self_device_time_total / 1e3, count=r.count) for r in rows})
+
+
+def events_before_after(label, path, profile):
+    """Device events a step of this profiled run beside those before the
+    one-launch Lanczos solves (``EVENTS_BEFORE``, from PERF.md)."""
+    before = EVENTS_BEFORE.get(path)
+    was = "not recorded" if before is None else f"{before:,}"
+    log(f"[{label}] device events a step: before the one-launch solves {was}, now "
+        f"{profile['events_per_step']:,.0f}")
 
 
 def k9_in_path(label, out, record):

@@ -39,7 +39,12 @@ from yaqs_tpu_torch.kernels.env_update import (
 )
 from yaqs_tpu_torch.kernels.heff import heff1, heff1_plain, heff2, heff2_plain
 from yaqs_tpu_torch.kernels.lanczos_epilogue import lanczos_epilogue, lanczos_epilogue_plain
-from yaqs_tpu_torch.kernels.lanczos_step import lanczos_step, lanczos_step_plain
+from yaqs_tpu_torch.kernels.lanczos_solve import (
+    cluster_blocks,
+    lanczos_solve,
+    lanczos_solve_plain,
+    solve_clusters_held,
+)
 from yaqs_tpu_torch.kernels.moment_scan import (
     site_moment_matrices,
     site_moment_matrices_plain,
@@ -89,29 +94,6 @@ def _tdvp_inputs(rng, batch, chi, dw, device="cpu"):
     w12 = _complex(rng, (dw * 4, 4 * dw)).to(device)
     wm = _complex(rng, (dw * 2, 2 * dw)).to(device)
     return envs[:, 0], envs[:, 2], sites, w, theta, w12, wm
-
-
-def _step_inputs(rng, batch, k, n, j, device="cpu"):
-    """Lanczos state at iteration ``j``: orthonormal basis rows 0..j (zero
-    beyond), trajectory 1 already broken down (q = 0), trajectory 2 about to
-    break down (w inside the span of the basis)."""
-    z = _complex(rng, (batch, n, j + 1)).to(torch.complex128)
-    qs, _ = torch.linalg.qr(z)
-    basis = torch.zeros((batch, k, n), dtype=torch.complex128)
-    basis[:, : j + 1] = qs.mT
-    q = basis[:, j].clone()
-    q_prev = basis[:, j - 1].clone() if j > 0 else torch.zeros_like(q)
-    w = _complex(rng, (batch, n)).to(torch.complex128)
-    alive = torch.ones(batch, dtype=torch.bool)
-    alive[1] = False
-    basis[1, j] = 0
-    q[1] = 0
-    w[2] = basis[2, : j + 1].sum(dim=0) * 0.5
-    alphas = torch.tensor(rng.standard_normal((batch, k)), dtype=torch.float32)
-    betas = torch.tensor(np.abs(rng.standard_normal((batch, k))), dtype=torch.float32)
-    beta_prev = torch.tensor(np.abs(rng.standard_normal(batch)), dtype=torch.float32)
-    vecs = [t.to(torch.complex64).to(device) for t in (w, q, q_prev, basis)]
-    return [*vecs, alphas.to(device), betas.to(device), beta_prev.to(device), alive.to(device)]
 
 
 def _randc(gen, shape, device):
@@ -194,12 +176,9 @@ def test_wrappers_take_plain_path_on_cpu_without_building():
     torch.testing.assert_close(left, env_update_left_plain(f, sites[:, 0], sites[:, 1], w), rtol=0, atol=0)
     right = env_update_right(g, sites[:, 0], sites[:, 1], w)
     torch.testing.assert_close(right, env_update_right_plain(g, sites[:, 0], sites[:, 1], w), rtol=0, atol=0)
-    state = _step_inputs(rng, 3, 6, 40, 2)
-    copy = [t.clone() for t in state]
-    q_next = lanczos_step(*state, 2, True, 1e-5)
-    torch.testing.assert_close(q_next, lanczos_step_plain(*copy, 2, True, 1e-5), rtol=0, atol=0)
-    for got, ref in zip(state, copy):
-        assert torch.equal(got, ref)
+    for v, w_mpo in ((theta, w12), (sites[:, 0], wm)):
+        for got, ref in zip(lanczos_solve(f, w_mpo, g, v, 4, True, 1e-5), lanczos_solve_plain(f, w_mpo, g, v, 4, True, 1e-5)):
+            torch.testing.assert_close(got, ref, rtol=0, atol=0)
     wm, psi, local = _sv_inputs(0, 2, 5, 3)
     torch.testing.assert_close(sv_mpo_matvec(wm, psi, local), sv_mpo_matvec_plain(wm, psi, local), rtol=0, atol=0)
     state = _arnoldi_inputs(0, 3, 6, 40, 2)
@@ -236,11 +215,19 @@ def test_wrappers_take_plain_path_on_cpu_without_building():
     torch.testing.assert_close(pair_weights(*pair_args), pair_weights_plain(*pair_args), rtol=0, atol=0)
     assert set(kernels.launch_counts()) == {
         "ns_polar", "lanczos_epilogue", "bond_gate", "moment_scan", "sample_shots", "heff2", "heff1",
-        "lanczos_step", "env_update", "sv_mpo_matvec", "arnoldi_step", "arnoldi_epilogue", "svd_jacobi",
+        "lanczos_solve2", "lanczos_solve1", "env_update", "sv_mpo_matvec", "arnoldi_step", "arnoldi_epilogue", "svd_jacobi",
         "householder_qr", "householder_qr_r", "subspace_split", "ns_canon", "pair_weights",
     }
     assert not any(kernels.launch_counts().values())
     assert build.load_library.cache_info().currsize == 0  # nothing was built
+
+
+@pytest.mark.parametrize(("dw", "chi", "blocks"), [(3, 64, 6), (1, 32, 2), (5, 64, 11), (1, 64, 4), (2, 64, 4),
+                                             (4, 64, 8), (6, 64, 13), (6, 7, 2), (2, 5, 1), (4, 9, 2)])
+def test_lanczos_solve_cluster_blocks(dw, chi, blocks):
+    """A solve's cluster is a block per tile of TA = min(16, 33 // Dw) rows
+    a, so that phase 1's TA * Dw sums stay within 33 register pairs."""
+    assert cluster_blocks(dw, chi) == blocks
 
 
 @pytest.mark.parametrize(("batch", "blocks"), [(1, 4), (30, 4), (31, 3), (32, 3), (39, 3), (40, 2), (66, 2), (67, 1),
@@ -256,7 +243,8 @@ def test_subspace_split_cluster_rule(batch, blocks):
 def test_build_digest_covers_the_shared_headers(tmp_path):
     """An edited header changes the library's name, so the kernels that
     include it are rebuilt rather than loaded stale; the sources in the
-    repository include ``ns_polar.cuh`` and the build hashes it."""
+    repository include ``ns_polar.cuh`` and ``heff.cuh`` and the build
+    hashes both."""
     src, hdr = tmp_path / "k.cu", tmp_path / "k.cuh"
     src.write_text('#include "k.cuh"\n')
     hdr.write_text("// one\n")
@@ -264,9 +252,11 @@ def test_build_digest_covers_the_shared_headers(tmp_path):
     hdr.write_text("// two\n")
     assert build._digest([src], [hdr]) != before
     assert build._digest([src], [hdr]) == build._digest([src], [hdr])
-    assert [h.name for h in build._headers()] == ["ns_polar.cuh"]
+    assert [h.name for h in build._headers()] == ["heff.cuh", "ns_polar.cuh"]
     includers = [p.name for p in build._sources() if '#include "ns_polar.cuh"' in p.read_text()]
     assert includers == ["ns_canon.cu", "ns_polar.cu", "subspace_split.cu"]
+    includers = [p.name for p in build._sources() if '#include "heff.cuh"' in p.read_text()]
+    assert includers == ["heff.cu", "lanczos_solve.cu"]
 
 
 def test_wrappers_refuse_non_cuda_devices():
@@ -294,7 +284,9 @@ def test_wrappers_refuse_non_cuda_devices():
             update(env, t[:, 0], t[:, 1], w12[:4, :9].reshape(2, 2, 3, 3))
     w = v[:, 0]
     with pytest.raises(ValueError, match="unsupported device"):
-        lanczos_step(w, w, w, v, v.real[:, :, 0], v.real[:, :, 0], v.real[:, 0, 0], v.real[:, 0, 0] > 0, 0, True, 1e-5)
+        lanczos_solve(env, w12, env, t[:, :2].reshape(2, 2, 2, 4, 4), 4, True, 1e-5)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lanczos_solve(env, w12[:6, :6], env, t[:, 0], 4, False, 1e-5)
     hess = v[:, :, :4]
     with pytest.raises(ValueError, match="unsupported device"):
         arnoldi_step(w, v, hess, v.real[:, 0, 0] > 0, 0, 1e-5)
@@ -591,24 +583,110 @@ def test_env_update_kernel_matches_plain(cuda, batch, chi, dw):
         env_update_left(f, sites[:, 0].conj(), sites[:, 2], w)  # a conjugated view
 
 
+def _hermitian_heff_inputs(gen, batch, chi, dw, p, device):
+    """Environments whose components ``f[:, :, w, :]``, ``g[:, :, u, :]`` are
+    Hermitian and a merged MPO matrix whose operators (c -> x) are, so that
+    H_eff is Hermitian, as on the sweep's paths; a start block ``(B, p,
+    chi, chi)``.  Trajectory 1 (where B > 2) has boundary environments
+    (H_eff a local operator on the physical legs) and starts on one of its
+    eigenvectors; trajectory 2 starts from zero."""
+    def herm(shape):
+        a = _randc(gen, shape, device)
+        return (a + a.conj().transpose(-1, -2)) / 2
+
+    f = herm((batch, dw, chi, chi)).transpose(1, 2).contiguous() / chi
+    g = herm((batch, dw, chi, chi)).transpose(1, 2).contiguous() / chi
+    ops = herm((dw, dw, p, p))  # ops[w, u][x, c]
+    w = ops.permute(0, 3, 2, 1).reshape(dw * p, p * dw).contiguous()
+    v = _randc(gen, (batch, p, chi, chi), device)
+    if batch > 2:
+        f[1], g[1] = 0, 0
+        f[1, :, 0, :] = torch.eye(chi, device=device)
+        g[1, :, dw - 1, :] = torch.eye(chi, device=device)
+        _, vecs = torch.linalg.eigh(ops[0, dw - 1])
+        v[1] = vecs[:, -1][:, None, None] * _randc(gen, (chi, chi), device)
+        v[2] = 0
+    return f, w, g, v
+
+
+# the shapes the driven paths give the solves: the analog TFIM (B=32, chi=64,
+# Dw=3, k=4; clusters of 6), XXZ (B=16, Dw=5; clusters of 11), the gate
+# window (B=512, chi=32, Dw=1, k=12 and 25; clusters of 2), B=1, odd small
+# shapes and k = 64
+SOLVE_SHAPES = [(32, 64, 3, 4), (16, 64, 5, 4), (512, 32, 1, 12), (512, 32, 1, 25), (1, 64, 3, 4), (3, 5, 2, 6),
+                (3, 7, 6, 9), (2, 64, 6, 4), (4, 16, 4, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("reorth", [False, True], ids=["three-term", "reorth"])
-@pytest.mark.parametrize(("batch", "k", "n", "j"), [(32, 4, 16384, 2), (512, 25, 4096, 17), (3, 37, 999, 36)])
-def test_lanczos_step_kernel_matches_plain(cuda, batch, k, n, j, reorth):
-    state = _step_inputs(np.random.default_rng(8), batch, k, n, j, cuda)
-    copy = [t.clone() for t in state]
+@pytest.mark.parametrize("p", [4, 2], ids=["solve2", "solve1"])
+@pytest.mark.parametrize(("batch", "chi", "dw", "k"), SOLVE_SHAPES)
+def test_lanczos_solve_kernel_matches_plain(cuda, batch, chi, dw, k, p, reorth):
+    """One launch a solve against the plain loop on the card: the solve's
+    result exp(-0.5i H) v within 1e-4 relative; basis, alphas, betas and
+    nrm within 1e-4 relative (k chained products and sums in another
+    order) or 4x the plain loop's own change under a 1e-7 relative change
+    of v, the larger; identical breakdowns (an eigenvector breaks down
+    after one step, a zero start vector stays zero); a permuted start block
+    read in place."""
+    gen = torch.Generator(device=cuda).manual_seed(batch + chi + dw + k)
+    f, w, g, v = _hermitian_heff_inputs(gen, batch, chi, dw, p, cuda)
+    if p == 4:  # as a merged block comes out of its product: (B, s, t, l, r) with l, r permuted
+        v = v.reshape(batch, 2, 2, chi, chi).permute(0, 1, 3, 2, 4).contiguous().permute(0, 1, 3, 2, 4)
+    else:  # a site inside a chain
+        v = torch.stack([v, v], dim=1)[:, 1]
+    name = "lanczos_solve2" if p == 4 else "lanczos_solve1"
     kernels.reset_launch_counts()
-    got = lanczos_step(*state, j, reorth, 1.1920929e-05)
+    got = lanczos_solve(f, w, g, v, k, reorth, 1.1920929e-05)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["lanczos_step"] == 1
-    ref = lanczos_step_plain(*copy, j, reorth, 1.1920929e-05)
-    w, _, _, basis, alphas, betas, beta_prev, alive = state
-    rw, _, _, rbasis, ralphas, rbetas, rbeta_prev, ralive = copy
-    assert torch.equal(alive, ralive)  # identical breakdown masks
-    assert not alive[1] and (reorth == (not alive[2].item()))  # w of trajectory 2 lies in the basis span
-    assert _rel_err(got, ref) <= 1e-5 and _rel_err(basis, rbasis) <= 1e-5 and _rel_err(w, rw) <= 1e-5
-    for a, b in ((alphas, ralphas), (betas, rbetas), (beta_prev, rbeta_prev)):
-        assert _rel_err(a, b) <= 1e-5
+    assert kernels.launch_counts()[name] == 1
+    ref = lanczos_solve_plain(f, w, g, v, k, reorth, 1.1920929e-05)
+    # the plain loop's own change when v moves by 1e-7 relative: a long
+    # three-term recurrence loses orthogonality, and its basis then moves by
+    # ~1e-3 under rounding-level changes, while the result does not
+    noise = 1 + 1e-7 * torch.randn(v.shape, generator=gen, device=cuda)
+    moved = lanczos_solve_plain(f, w, g, v * noise, k, reorth, 1.1920929e-05)
+    results = [lanczos_epilogue_plain(x[1], x[2], -0.5j, x[0], x[3], x[0][:, 0]) for x in (got, ref, moved)]
+    for a, b, c in zip((*got, results[0]), (*ref, results[1]), (*moved, results[2])):
+        assert a.shape == b.shape and _rel_err(a, b) <= max(1e-4, 4 * _rel_err(c, b))
+    assert _rel_err(results[0], results[1]) <= 1e-4
+    basis, alphas, betas, nrm = got
+    assert torch.equal(betas == 0, ref[2] == 0)  # identical breakdowns
+    if batch > 2:
+        assert betas[1, 0] == 0 and not alphas[1, 1:].any() and not basis[1, 1:].any()
+        assert nrm[2] == 0 and not basis[2].any()
+
+
+@pytest.mark.cuda
+def test_lanczos_solve_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    f, w, g, v = _hermitian_heff_inputs(gen, 2, 8, 3, 4, cuda)
+    theta = v.reshape(2, 2, 2, 8, 8)
+    with pytest.raises(ValueError):
+        lanczos_solve(*(t.to(torch.complex128) for t in (f, w, g, theta)), 4, False, 1e-5)
+    with pytest.raises(ValueError):
+        lanczos_solve(f, w, g, theta, 65, False, 1e-5)  # k > 64
+    with pytest.raises(ValueError):
+        lanczos_solve(f.mT, w, g, theta, 4, False, 1e-5)  # environment not contiguous inside a trajectory
+    with pytest.raises(ValueError):
+        lanczos_solve(f, w, g, theta.conj(), 4, False, 1e-5)  # conjugation not resolved
+    with pytest.raises(ValueError):
+        lanczos_solve(f, w, g, torch.zeros((2, 3, 8, 8), dtype=torch.complex64, device=cuda), 4, False, 1e-5)  # d = 3
+    big = torch.zeros((1, 65, 1, 65), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError):
+        lanczos_solve(big, w[:8, :8], big, torch.zeros((1, 2, 65, 65), dtype=torch.complex64, device=cuda), 4, False,
+                      1e-5)  # chi > 64
+    env7 = torch.zeros((1, 8, 7, 8), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError):
+        lanczos_solve(env7, torch.zeros((14, 14), dtype=torch.complex64, device=cuda), env7, v[:1, :2], 4, False,
+                      1e-5)  # Dw > 6
+
+
+@pytest.mark.cuda
+def test_lanczos_solve_clusters_fit_the_card(cuda):
+    """Every cluster shape a path takes is one the card can place."""
+    for chi, dw, p in ((64, 3, 4), (64, 3, 2), (64, 5, 4), (64, 5, 2), (32, 1, 4), (32, 1, 2)):
+        assert solve_clusters_held(chi, dw, p, cuda.index or 0) >= 1, (chi, dw, p)
 
 
 @pytest.mark.cuda
@@ -628,7 +706,7 @@ def test_default_tdvp_config_runs_on_card(cuda):
     card = yt.run_tjm_batch(t0, w, None, obs, plan, batch=2, device=cuda).cpu()
     counts = kernels.launch_counts()
     cpu = yt.run_tjm_batch(t0, w, None, obs, plan, batch=2, device="cpu")
-    assert all(counts[name] > 0 for name in ("heff2", "heff1", "lanczos_step", "env_update", "lanczos_epilogue"))
+    assert all(counts[name] > 0 for name in ("lanczos_solve2", "lanczos_solve1", "env_update", "lanczos_epilogue"))
     assert (card.double() - cpu).abs().max().item() <= 1e-3
 
 

@@ -7,11 +7,12 @@ x64) and the port's plain version on the CPU:
   ``heff_one_site_merged``, and ``env_update`` (left, right, written into a
   strided slot) against ``update_left_env``, ``update_right_env``, at
   Dw in {1, 3, 5} (the gate window, TFIM, XXZ);
-- ``lanczos_expm_apply`` (matvec then ``lanczos_step``) at k in {4, 25},
-  both variants, with one start vector in a 2-dimensional invariant
-  subspace (breakdown after two steps);
+- ``lanczos_expm_apply`` (matvec then ``lanczos_step_plain``) at k in
+  {4, 25}, both variants, with one start vector in a 2-dimensional
+  invariant subspace (breakdown after two steps);
 - the plain K3 epilogue's small exponential at k = 25, float32 and float64;
-- a TDVP sweep hands every kernel the layout it takes on the card.
+- a TDVP sweep hands every kernel (the solves K1 and K2, K3, K8) the
+  layout it takes on the card.
 
 Tolerances: 1e-10 in complex128 against JAX x64; 1e-5 relative for the
 complex64 plain versions against the same x64 result; for the float32
@@ -190,18 +191,21 @@ def test_expm_col_tridiag_k25_matches_jax(dtype):
 
 def test_sweep_hands_kernels_their_layout(monkeypatch):
     """On the card the wrappers refuse other layouts; on the CPU the sweep's
-    calls are checked here: per-trajectory blocks contiguous (any stride
-    between trajectories), MPO matrices contiguous, Lanczos state contiguous."""
-    from yaqs_tpu_torch.kernels import lanczos_step as ls_mod
+    calls are checked here: the solves (K1, K2) and environment updates get
+    environments with contiguous per-trajectory blocks (any stride between
+    trajectories) and contiguous MPO matrices, the solves a start block
+    with its conjugation resolved (read in place, any strides), and the
+    epilogue (K3) contiguous Krylov state and a start vector with contiguous
+    rows."""
+    from yaqs_tpu_torch.kernels.lanczos_solve import lanczos_solve_plain
 
-    calls = {"heff2": 0, "heff1": 0, "env": 0, "step": 0}
+    calls = {"solve2": 0, "solve1": 0, "env": 0, "epilogue": 0}
 
-    def heff_checked(name, plain):
-        def fn(f, w, g, v):
-            assert inner_contiguous(f) and inner_contiguous(g) and inner_contiguous(v) and w.is_contiguous(), name
-            calls[name] += 1
-            return plain(f, w, g, v)
-        return fn
+    def solve_checked(f, w, g, v, k, reorth, tol):
+        assert inner_contiguous(f) and inner_contiguous(g) and w.is_contiguous()
+        assert not v.is_conj()  # read in place, any strides
+        calls["solve2" if v.dim() == 5 else "solve1"] += 1
+        return lanczos_solve_plain(f, w, g, v, k, reorth, tol)
 
     def env_checked(plain):
         def fn(env, a_bra, a_ket, w, out=None):
@@ -212,18 +216,17 @@ def test_sweep_hands_kernels_their_layout(monkeypatch):
             return res if out is None else out.copy_(res)
         return fn
 
-    original_step = ls_mod.lanczos_step_plain
+    original_epilogue = tkr.lanczos_epilogue
 
-    def step_checked(*args):
-        assert all(t.is_contiguous() for t in args[:8])
-        calls["step"] += 1
-        return original_step(*args)
+    def epilogue_checked(alphas, betas, coeff, basis, nrm, x):
+        assert all(t.is_contiguous() for t in (alphas, betas, basis, nrm)) and inner_contiguous(x)
+        calls["epilogue"] += 1
+        return original_epilogue(alphas, betas, coeff, basis, nrm, x)
 
-    monkeypatch.setattr(tt, "heff2", heff_checked("heff2", heff2_plain))
-    monkeypatch.setattr(tt, "heff1", heff_checked("heff1", heff1_plain))
+    monkeypatch.setattr(tkr, "lanczos_solve", solve_checked)
+    monkeypatch.setattr(tkr, "lanczos_epilogue", epilogue_checked)
     monkeypatch.setattr(tt, "env_update_left", env_checked(env_update_left_plain))
     monkeypatch.setattr(tt, "env_update_right", env_checked(env_update_right_plain))
-    monkeypatch.setattr(tkr, "lanczos_step", step_checked)
     length, k = 5, 3
     rng = np.random.default_rng(60)
     t = _rnd(rng, B, length, D, CHI, CHI) / np.sqrt(2 * CHI)
@@ -233,7 +236,7 @@ def test_sweep_hands_kernels_their_layout(monkeypatch):
     out = tt.sweep_2site(convert.to_torch(t).mT.contiguous().mT, convert.to_torch(_mpo(3, length)), 0.1, cfg)
     assert torch.isfinite(out).all()
     bonds = length - 1
-    # 2 bonds - 1 two-site and 2 (bonds - 1) one-site solves of k steps each;
-    # L right environments, then one update per bond and direction
-    assert calls == {"heff2": (2 * bonds - 1) * k, "heff1": 2 * (bonds - 1) * k,
-                     "env": length + 2 * (bonds - 1) + 1, "step": (4 * bonds - 3) * k}
+    # 2 bonds - 1 two-site and 2 (bonds - 1) one-site solves, each ending in
+    # one epilogue; L right environments, then one update per bond and direction
+    assert calls == {"solve2": 2 * bonds - 1, "solve1": 2 * (bonds - 1), "env": length + 2 * (bonds - 1) + 1,
+                     "epilogue": 4 * bonds - 3}

@@ -28,7 +28,8 @@ LAUNCHES: dict[str, int] = {
     "sample_shots": 0,
     "heff2": 0,
     "heff1": 0,
-    "lanczos_step": 0,
+    "lanczos_solve2": 0,
+    "lanczos_solve1": 0,
     "env_update": 0,
     "sv_mpo_matvec": 0,
     "arnoldi_step": 0,

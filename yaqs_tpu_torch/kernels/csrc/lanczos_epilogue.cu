@@ -72,7 +72,7 @@ template <int kEntries>
 __global__ void __launch_bounds__(kThreads)
 lanczos_epilogue_kernel(const float* __restrict__ alphas, const float* __restrict__ betas, float cre,
                         float cim, const float2* __restrict__ v, const float* __restrict__ nrm,
-                        const float2* __restrict__ x, float2* __restrict__ out, int k, int n) {
+                        const float2* __restrict__ x, long long sx, float2* __restrict__ out, int k, int n) {
   extern __shared__ float2 smem[];
   __shared__ float2 small[kMaxK];  // column 0
   __shared__ float colsum[kMaxK];  // column sums of |A|
@@ -153,7 +153,8 @@ lanczos_epilogue_kernel(const float* __restrict__ alphas, const float* __restric
 
   const float nb = nrm[b];
   const size_t vb = static_cast<size_t>(b) * k * n;
-  const size_t xb = static_cast<size_t>(b) * n;
+  const size_t xb = static_cast<size_t>(b) * sx;
+  const size_t ob = static_cast<size_t>(b) * n;
   const int col0 = blockIdx.x * kThreads * kColsPerThread + tid;
 #pragma unroll
   for (int p = 0; p < kColsPerThread; ++p) {
@@ -171,13 +172,13 @@ lanczos_epilogue_kernel(const float* __restrict__ alphas, const float* __restric
     } else {
       res = x[xb + j];
     }
-    out[xb + j] = res;
+    out[ob + j] = res;
   }
 }
 
 template <int kEntries>
 int launch(const float* alphas, const float* betas, float cre, float cim, const float2* v, const float* nrm,
-           const float2* x, float2* out, int batch, int k, int n, cudaStream_t stream) {
+           const float2* x, long long sx, float2* out, int batch, int k, int n, cudaStream_t stream) {
   constexpr size_t kMaxSmem = sizeof(float2) * 3 * kEntries * kThreads;
   if constexpr (kMaxSmem > 48 * 1024) {  // above the default limit: raise it once per process
     static const cudaError_t configured = cudaFuncSetAttribute(
@@ -187,14 +188,17 @@ int launch(const float* alphas, const float* betas, float cre, float cim, const 
   const int per_block = kThreads * kColsPerThread;
   const dim3 grid((n + per_block - 1) / per_block, batch);
   const size_t smem = sizeof(float2) * 3 * static_cast<size_t>(k) * k;
-  lanczos_epilogue_kernel<kEntries><<<grid, kThreads, smem, stream>>>(alphas, betas, cre, cim, v, nrm, x, out, k, n);
+  lanczos_epilogue_kernel<kEntries><<<grid, kThreads, smem, stream>>>(alphas, betas, cre, cim, v, nrm, x, sx, out, k, n);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// alphas, betas (batch, k) float; v (batch, k, n); nrm (batch,) float; out
+// (batch, n), all contiguous; x (batch, n) with contiguous rows, sx elements
+// apart (a start vector handed over in place, such as a site of the MPS).
 extern "C" int lanczos_epilogue_launch(const void* alphas, const void* betas, float coeff_re, float coeff_im,
-                                       const void* v, const void* nrm, const void* x, void* out, int batch,
+                                       const void* v, const void* nrm, const void* x, long long sx, void* out, int batch,
                                        int k, int n, void* stream) {
   if (batch <= 0 || batch > 65535 || k <= 0 || k > kMaxK || n <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -206,7 +210,7 @@ extern "C" int lanczos_epilogue_launch(const void* alphas, const void* betas, fl
   const auto xx = static_cast<const float2*>(x);
   const auto o = static_cast<float2*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (k * k <= kThreads) return launch<1>(a, bt, coeff_re, coeff_im, vv, nr, xx, o, batch, k, n, s);
-  if (k * k <= 4 * kThreads) return launch<4>(a, bt, coeff_re, coeff_im, vv, nr, xx, o, batch, k, n, s);
-  return launch<16>(a, bt, coeff_re, coeff_im, vv, nr, xx, o, batch, k, n, s);
+  if (k * k <= kThreads) return launch<1>(a, bt, coeff_re, coeff_im, vv, nr, xx, sx, o, batch, k, n, s);
+  if (k * k <= 4 * kThreads) return launch<4>(a, bt, coeff_re, coeff_im, vv, nr, xx, sx, o, batch, k, n, s);
+  return launch<16>(a, bt, coeff_re, coeff_im, vv, nr, xx, sx, o, batch, k, n, s);
 }

@@ -209,9 +209,14 @@ __host__ __device__ constexpr int ns_scratch_floats(int n) { return 2 * n + 1 + 
 // combined in rank order (cluster_sum, rank_ptr), so all blocks scale and
 // step alike; one cluster barrier for the scale and one a step.  nl <=
 // kNsMaxRows, n <= kNsMaxCols.
+//
+// Never inlined: one copy a kernel.  The single-block split calls it six
+// times (through ns_polar_block), and six inlined copies of its twelve
+// product tiles made subspace_split.cu nearly all of the library's build
+// time.
 template <int kC>
-__device__ void ns_polar_rows(float2* x, float2* xg, float2* g, float2* part, int part_stride, float* scratch, int nl,
-                              int n) {
+__device__ __noinline__ void ns_polar_rows(float2* x, float2* xg, float2* g, float2* part, int part_stride,
+                                           float* scratch, int nl, int n) {
   float* stat = scratch;             // column abs sums (n), column squares (n), largest row abs sum
   float* red = scratch + 2 * n + 1;  // kNsWarps + 1
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;

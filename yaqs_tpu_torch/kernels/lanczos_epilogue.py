@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES, on_card
+from . import LAUNCHES, inner_contiguous, on_card
 from .build import check, load_library
 
 __all__ = ["expm_col_tridiag", "lanczos_epilogue", "lanczos_epilogue_plain"]
@@ -90,7 +90,9 @@ def lanczos_epilogue(
     ``alphas, betas (B, k)`` real, ``v (B, k, n)``, ``nrm (B,)`` real,
     ``x (B, n)`` -> ``(B, n)``.  A CPU tensor takes the plain version; a CUDA
     tensor launches ``lanczos_epilogue`` (complex64 / float32 only,
-    ``k <= 64``, contiguous inputs), or raises ``ValueError``.
+    ``k <= 64``, contiguous inputs; ``x`` may have any stride between its
+    contiguous rows, so a start vector is handed over in place), or raises
+    ``ValueError``.
     """
     if not on_card("lanczos_epilogue", v):
         return lanczos_epilogue_plain(alphas, betas, coeff, v, nrm, x)
@@ -103,7 +105,6 @@ def lanczos_epilogue(
         "betas": (betas, (b, k), torch.float32),
         "V": (v, (b, k, n), torch.complex64),
         "nrm": (nrm, (b,), torch.float32),
-        "x": (x, (b, n), torch.complex64),
     }
     for name, (t, shape, dtype) in shapes.items():
         if t.device != v.device or t.dtype != dtype or tuple(t.shape) != shape:
@@ -115,6 +116,12 @@ def lanczos_epilogue(
         if not t.is_contiguous() or t.is_conj():
             msg = f"lanczos_epilogue: {name} must be contiguous with its conjugation resolved"
             raise ValueError(msg)
+    if x.device != v.device or x.dtype != torch.complex64 or tuple(x.shape) != (b, n):
+        msg = f"lanczos_epilogue: x must be torch.complex64 {(b, n)} on {v.device}, got {x.dtype} {tuple(x.shape)} on {x.device}"
+        raise ValueError(msg)
+    if not inner_contiguous(x):
+        msg = "lanczos_epilogue: x must have contiguous rows with its conjugation resolved"
+        raise ValueError(msg)
     if not 1 <= k <= MAX_K or b > MAX_BATCH:
         msg = f"lanczos_epilogue takes 1 <= k <= {MAX_K} and B <= {MAX_BATCH}, got k={k}, B={b}"
         raise ValueError(msg)
@@ -126,7 +133,7 @@ def lanczos_epilogue(
     stream = torch.cuda.current_stream(v.device).cuda_stream
     err = lib.lanczos_epilogue_launch(
         alphas.data_ptr(), betas.data_ptr(), c.real, c.imag, v.data_ptr(),
-        nrm.data_ptr(), x.data_ptr(), out.data_ptr(), b, k, n, stream,
+        nrm.data_ptr(), x.data_ptr(), x.stride(0), out.data_ptr(), b, k, n, stream,
     )
     check(err, "lanczos_epilogue")
     LAUNCHES["lanczos_epilogue"] += 1

@@ -3,10 +3,11 @@
 Port of ``yaqs_tpu.methods.tdvp`` (two-site mode).  The MPS batch is one
 ``(B, L, d, chi, chi)`` tensor, environments are ``(B, chi, Dw, chi)``, the
 MPO ``(L, d, d, Dw, Dw)`` is shared by the batch, and every local evolution
-is a fixed-iteration Lanczos ``exp(-i dt H_eff) v`` (:mod:`..ops.krylov`)
-with the merged-MPO matrix-free H_eff (kernels K1 ``heff2`` and K2
-``heff1``); the environment updates are kernel K8 (``env_update``).  Sweep
-structure:
+is a fixed-iteration Lanczos ``exp(-i dt H_eff) v`` with the merged-MPO
+matrix-free H_eff (:func:`..ops.krylov.lanczos_expm_heff`: on the card one
+launch of kernel K1 ``lanczos_solve2`` or K2 ``lanczos_solve1`` a solve,
+then the K3 epilogue); the environment updates are kernel K8
+(``env_update``).  Sweep structure:
 
 - L->R over bonds 0..L-3: evolve the merged block by ``+dt/2``, split with
   the singular values moving right, absorb the new left tensor into the left
@@ -24,7 +25,7 @@ import torch
 from ..kernels.env_update import env_update_left, env_update_right
 from ..kernels.heff import heff1, heff2
 from ..ops.decomp import merge_two_site, split_two_site_subspace, split_two_site_truncated
-from ..ops.krylov import lanczos_expm_apply
+from ..ops.krylov import lanczos_expm_heff
 
 __all__ = [
     "TDVPConfig",
@@ -166,34 +167,25 @@ def sweep_2site(tensors: torch.Tensor, mpo: torch.Tensor, dt: float, cfg: TDVPCo
     w12_all = merge_mpo_pair(mpo[:-1], mpo[1:])
     wm_all = merge_mpo_site(mpo)
 
-    def evolve_theta(f, w12, g, theta, coeff):
-        return lanczos_expm_apply(
-            lambda th: heff2(f, w12, g, th), theta, coeff,
-            k=kdim, reorthogonalize=cfg.lanczos_reorth,
-        )
-
-    def evolve_site(f, wm, g, a, coeff):
-        return lanczos_expm_apply(
-            lambda x: heff1(f, wm, g, x), a, coeff,
-            k=kdim, reorthogonalize=cfg.lanczos_reorth,
-        )
+    def evolve(f, w, g, v, coeff):
+        return lanczos_expm_heff(f, w, g, v, coeff, k=kdim, reorthogonalize=cfg.lanczos_reorth)
 
     # L->R over bonds 0..L-3
     f_all = [left_boundary(b, chi, dw, tensors.dtype, tensors.device)]
     for i in range(length - 2):
         g = r_envs[:, i + 2]
         theta = merge_two_site(tensors[:, i], tensors[:, i + 1])
-        theta = evolve_theta(f_all[i], w12_all[i], g, theta, half)
+        theta = evolve(f_all[i], w12_all[i], g, theta, half)
         a_new, b_new, _, _ = _split_cfg(theta, chi, cfg, "right")
         tensors[:, i] = a_new
         f_next = env_update_left(f_all[i], tensors[:, i], tensors[:, i], mpo[i])
-        tensors[:, i + 1] = evolve_site(f_next, wm_all[i + 1], g, b_new, -half)
+        tensors[:, i + 1] = evolve(f_next, wm_all[i + 1], g, b_new, -half)
         f_all.append(f_next)
 
     # last bond: full dt, singular values left
     i = length - 2
     theta = merge_two_site(tensors[:, i], tensors[:, i + 1])
-    theta = evolve_theta(f_all[i], w12_all[i], r_envs[:, i + 2], theta, 2 * half)
+    theta = evolve(f_all[i], w12_all[i], r_envs[:, i + 2], theta, 2 * half)
     a_new, b_new, _, _ = _split_cfg(theta, chi, cfg, "left")
     tensors[:, i] = a_new
     tensors[:, i + 1] = b_new
@@ -204,9 +196,9 @@ def sweep_2site(tensors: torch.Tensor, mpo: torch.Tensor, dt: float, cfg: TDVPCo
 
     # R->L over bonds L-3..0
     for i in range(length - 3, -1, -1):
-        a2 = evolve_site(f_all[i + 1], wm_all[i + 1], g, tensors[:, i + 1], -half)
+        a2 = evolve(f_all[i + 1], wm_all[i + 1], g, tensors[:, i + 1], -half)
         theta = merge_two_site(tensors[:, i], a2)
-        theta = evolve_theta(f_all[i], w12_all[i], g, theta, half)
+        theta = evolve(f_all[i], w12_all[i], g, theta, half)
         a_new, b_new, _, _ = _split_cfg(theta, chi, cfg, "left")
         tensors[:, i] = a_new
         tensors[:, i + 1] = b_new

@@ -5,11 +5,15 @@ reorthogonalizing and the three-term variant) and ``arnoldi_expm_apply``: a
 fixed number ``k`` of iterations with per-trajectory breakdown masking (an
 ``alive`` mask over the batch axis in place of the JAX package's scalar
 one), so a trajectory whose Krylov space closed early keeps the exact
-result.  Each Lanczos iteration is the matvec, then kernel K1's recurrence
-step (``kernels/lanczos_step.py``); its epilogue — the small exponential
-``exp(coeff T) e0`` and the basis combination — is kernel K3
-(``kernels/lanczos_epilogue.py``).  Each Arnoldi iteration is the matvec,
-then kernel K13's step, and its epilogue is K13's (``kernels/arnoldi.py``).
+result.  The TDVP sweep's solves, whose operator is the merged-MPO
+effective Hamiltonian, take :func:`lanczos_expm_heff`: on the card the
+prologue, the ``k`` matvecs and the recurrence are one launch (kernels K1
+and K2, ``kernels/lanczos_solve.py``).  :func:`lanczos_expm_apply` takes
+any matvec and runs the plain loop (CPU tensors only).  Both end in the
+epilogue — the small exponential ``exp(coeff T) e0`` and the basis
+combination — kernel K3 (``kernels/lanczos_epilogue.py``).  Each Arnoldi
+iteration is the matvec, then kernel K13's step, and its epilogue is K13's
+(``kernels/arnoldi.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Callable
 
 import torch
 
+from ..kernels import on_card
 from ..kernels.arnoldi import arnoldi_epilogue, arnoldi_step
 from ..kernels.lanczos_epilogue import (
     expm_col_tridiag,
@@ -25,12 +30,13 @@ from ..kernels.lanczos_epilogue import (
     lanczos_epilogue_plain,
     tridiag,
 )
-from ..kernels.lanczos_step import lanczos_step
+from ..kernels.lanczos_solve import lanczos_loop_plain, lanczos_solve
 
 __all__ = [
     "DEFAULT_KRYLOV_DIM",
     "arnoldi_expm_apply",
     "lanczos_expm_apply",
+    "lanczos_expm_heff",
     "lanczos_epilogue",
     "lanczos_epilogue_plain",
     "expm_col_tridiag",
@@ -38,6 +44,12 @@ __all__ = [
 ]
 
 DEFAULT_KRYLOV_DIM = 25
+
+
+def _breakdown_tol(v: torch.Tensor) -> float:
+    """``100 eps`` of ``v``'s real type: a ``beta`` at or below it closes a
+    trajectory's Krylov space (breakdown)."""
+    return float(torch.finfo(v.dtype).eps) * 100.0
 
 
 def lanczos_expm_apply(
@@ -51,37 +63,45 @@ def lanczos_expm_apply(
 
     ``v (B, ...)`` is flattened per trajectory; ``matvec`` maps ``(B, ...)``
     to a new ``(B, ...)`` tensor (the recurrence overwrites it).  Returns a
-    tensor of ``v``'s shape.  A trajectory whose ``beta`` falls to
-    ``100 eps`` has closed its Krylov space (breakdown).
+    tensor of ``v``'s shape.  The loop is plain PyTorch, so a CUDA tensor
+    raises ``ValueError``: on the card the TDVP solves take
+    :func:`lanczos_expm_heff`.
     """
     shape = v.shape
     b = shape[0]
     x = v.reshape(b, -1)
-    n = x.shape[1]
-    cdtype = x.dtype
-    breakdown_tol = float(torch.finfo(x.real.dtype).eps) * 100.0
-
-    nrm = torch.linalg.vector_norm(x, dim=-1)
-    safe_nrm = torch.where(nrm > 0, nrm, torch.ones_like(nrm))
-    q = x / safe_nrm.to(cdtype)[:, None]
-    kk = min(k, n)
-
-    basis = x.new_zeros((b, kk, n))
-    basis[:, 0] = q  # row j + 1 is written by step j
-    alphas = nrm.new_zeros((b, kk))
-    betas = nrm.new_zeros((b, kk))  # betas[:, j] couples j and j+1
-    q_prev = torch.zeros_like(q)
-    beta_prev = torch.zeros_like(nrm)
-    alive = torch.ones(b, dtype=torch.bool, device=x.device)
-    for j in range(kk):
-        w = matvec(q.reshape(shape)).reshape(b, n).contiguous()
-        q_next = lanczos_step(
-            w, q, q_prev, basis, alphas, betas, beta_prev, alive, j, reorthogonalize, breakdown_tol
-        )
-        q_prev, q = q, q_next
-
+    if on_card("lanczos_expm_apply", x):
+        msg = "lanczos_expm_apply runs the plain loop, CPU tensors only; on the card use lanczos_expm_heff"
+        raise ValueError(msg)
+    basis, alphas, betas, nrm = lanczos_loop_plain(
+        lambda q: matvec(q.reshape(shape)), x, k, reorthogonalize, _breakdown_tol(x)
+    )
     out = lanczos_epilogue(alphas, betas, coeff, basis, nrm, x.contiguous())
     return out.reshape(shape)
+
+
+def lanczos_expm_heff(
+    f: torch.Tensor,
+    w: torch.Tensor,
+    g: torch.Tensor,
+    v: torch.Tensor,
+    coeff: complex,
+    k: int = DEFAULT_KRYLOV_DIM,
+    reorthogonalize: bool = True,
+) -> torch.Tensor:
+    """``exp(coeff * H_eff) @ v`` for the merged-MPO effective Hamiltonian,
+    per trajectory: ``v`` a two-site block ``theta (B, d, d, chi, chi)``
+    with the merged pair ``w`` (``heff_two_site_merged``) or a site ``(B, d,
+    chi, chi)`` with ``w`` the merged site (``heff_one_site_merged``),
+    environments ``f, g (B, chi, Dw, chi)``.  The solve (K1 or K2), then the
+    epilogue (K3): two launches on the card, ``v`` read in place.  Returns a
+    new tensor of ``v``'s shape; a zero start vector comes back unchanged
+    (the epilogue passes basis row 0 through, which is ``v`` itself where
+    its norm is zero).
+    """
+    basis, alphas, betas, nrm = lanczos_solve(f, w, g, v, k, reorthogonalize, _breakdown_tol(v))
+    out = lanczos_epilogue(alphas, betas, coeff, basis, nrm, basis[:, 0])
+    return out.reshape(v.shape)
 
 
 def arnoldi_expm_apply(
