@@ -8,7 +8,8 @@ Phases (any failure raises and exits non-zero):
 2. build the hand-written kernels from ``yaqs_tpu_torch/kernels/csrc``;
 3. each kernel against its plain PyTorch version at the paths' shapes: the
    error, the device time per call from ``torch.profiler`` device rows (the
-   kernel's own time over its launch count, 20 calls), the host-paced time
+   kernel's own time over its launch count, 20 calls; K6, a kernel of
+   milliseconds, one call at a time between CUDA events), the host-paced time
    per call (CUDA events around 20 back-to-back calls), the host-paced time
    of the nearest PyTorch library call, and the bound (bytes over 3.35 TB/s
    or FP32 operations over 67 TFLOP/s, the larger); the TDVP kernels at the
@@ -27,8 +28,12 @@ Phases (any failure raises and exits non-zero):
    distributions, the same at the XXZ batch of 16, and at (512, 64, 64),
    chi=32, with the cluster size each
    batch takes (factors and reconstruction within 1e-4); each K5 and K14
-   row beside its earlier design's time; K6 ``ns_canon`` over a (32, 100, 2, 64, 64) chain (the
-   full-rank sites and the site moments within 1e-4); K15
+   row beside its earlier design's time; K7 ``moment_scan`` at (512, 20, 2, 32, 32) and (32, 100, 2,
+   64, 64), the moments, the norm and both Gram environments within 1e-5, the blocks a scan chain,
+   and its two launches (the Gram scans, the moment pass) timed apart beside the earlier design's;
+   K6 ``ns_canon`` over a (32, 100, 2, 64, 64) and a (512, 20, 2, 32, 32) chain (the full-rank
+   sites and the site moments within 1e-4), with the blocks a trajectory and the blocks an SM,
+   beside the earlier design's time; K15
    ``pair_weights`` at B=32, L=100, 99 channels, and K10 with a gate per
    trajectory at (32, chi=64);
 4. the analog slice, order-2 TJM at the benchmark shape (TFIM L=100, chi=64,
@@ -202,10 +207,16 @@ TDVP_SHAPES = {"analog": (BENCH["batch"], BENCH["chi"], 3), "xxz": (XXZ["batch"]
                "window": (DIGITAL["num_traj"], DIGITAL["chi"], 1)}
 BREAKDOWN_TOL = 100 * float(np.finfo(np.float32).eps)
 # device ms of the earlier designs of K5 (one block a matrix) and K14
-# (unblocked, always forming Q), from PERF.md's kernel table (NVIDIA H100
-# 80GB HBM3, 700.00 W), printed beside this run's rows
+# (unblocked, always forming Q), from PERF.md's kernel table, and of K7's two
+# launches and K6 (one block a chain), from a probe of the parent tree in
+# PERF.md's call 13 (all NVIDIA H100 80GB HBM3, 700.00 W), printed beside
+# this run's rows
 EARLIER_MS = dict(subspace_split=dict(analog_right=1.6681, analog_left=1.7038, digital=1.0635),
-              householder_qr=dict(analog=0.3903, window=0.1212, bond_spectra=0.3903))
+              householder_qr=dict(analog=0.3903, window=0.1212, bond_spectra=0.3903),
+              moment_scan=dict(digital=dict(scan=1.3982, moments=0.7636), analog=dict(scan=15.5103, moments=2.7182)),
+              ns_canon=dict(analog=33.6467, digital=6.0492))
+# the profiler names of K7's two launches
+MOMENT_SCAN_LAUNCHES = dict(scan="gram_scan_cluster_kernel", moments="moments_kernel")
 
 
 def log(msg: str) -> None:
@@ -269,10 +280,33 @@ def device_ms(fn, calls: int = 20, names: tuple[str, ...] = (), per_call: int = 
     over ``calls``.  With ``names`` (the kernels of one wrapper, each launched
     ``per_call`` times a call: once, or once a site for ``sv_mpo_matvec``):
     every device row must be one of them, and the time per call is the sum
-    over them of each kernel's own time over its recorded launch count,
-    times ``per_call``, so a launch the tracer drops does not shorten the
-    figure.  Where the profiler records no device row, one call at a time
-    between CUDA events (source ``"events"``)."""
+    over them of each kernel's own time over its launch count, times
+    ``per_call``.  Each kernel's row must hold all ``calls * per_call`` of
+    its launches: the profiler has been seen to keep as few as 1 of 20 late
+    in a run, once with a duration half the host-paced time.  Where a row
+    holds fewer, or the profiler records no device row at all, the figure
+    is one call at a time between CUDA events (source ``"events"``), and a
+    line says so."""
+    rows = device_rows(fn, calls)
+    events = sum(r.count for r in rows)
+    if not rows:
+        log("[timing] torch.profiler recorded no device row; one call at a time between CUDA events instead")
+        return single_call_ms(fn, calls), float("nan"), "events"
+    if not names:
+        return sum(r.self_device_time_total for r in rows) / 1e3 / calls, events / calls, "profiler"
+    strangers = [r.key for r in rows if not any(n in r.key for n in names)]
+    check(not strangers, f"device rows other than {names}: {strangers}")
+    short = {r.key[:60]: r.count for r in rows if r.count < calls * per_call}
+    if short:
+        log(f"[timing] torch.profiler kept fewer than the {calls * per_call} launches of {short}; one call at a "
+            f"time between CUDA events instead")
+        return single_call_ms(fn, calls), events / calls, "events"
+    return per_call * sum(r.self_device_time_total / r.count for r in rows) / 1e3, events / calls, "profiler"
+
+
+def device_rows(fn, calls: int):
+    """``torch.profiler``'s device rows (``key_averages``) over ``calls``
+    calls of ``fn``, after 3 warm-up calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -283,16 +317,27 @@ def device_ms(fn, calls: int = 20, names: tuple[str, ...] = (), per_call: int = 
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    rows = [r for r in prof.key_averages() if r.device_type == DeviceType.CUDA and r.count > 0]
-    events = sum(r.count for r in rows)
-    if not rows:
-        log("[timing] torch.profiler recorded no device row; one call at a time between CUDA events instead")
-        return single_call_ms(fn, calls), float("nan"), "events"
-    if not names:
-        return sum(r.self_device_time_total for r in rows) / 1e3 / calls, events / calls, "profiler"
-    strangers = [r.key for r in rows if not any(n in r.key for n in names)]
-    check(not strangers, f"device rows other than {names}: {strangers}")
-    return per_call * sum(r.self_device_time_total / r.count for r in rows) / 1e3, events / calls, "profiler"
+    return [r for r in prof.key_averages() if r.device_type == DeviceType.CUDA and r.count > 0]
+
+
+def kernel_ms_by_name(fn, kernels: dict[str, str], calls: int = 20) -> dict[str, float]:
+    """Device ms per call of each of a wrapper's kernels (each launched once
+    a call), by the profiler row whose name holds ``kernels[key]``: each
+    kernel's own time over its recorded launch count, and under
+    ``key + "_kept"`` that count.  A line says so where the profiler kept
+    fewer than ``calls`` launches of a kernel (``device_ms``): the figure
+    then rests on the launches kept."""
+    rows = device_rows(fn, calls)
+    out = {}
+    for key, name in kernels.items():
+        found = [r for r in rows if name in r.key]
+        check(bool(found), f"no device row of {name} in the profile")
+        kept = sum(r.count for r in found)
+        if kept < calls:
+            log(f"[timing] torch.profiler kept {kept} of the {calls} launches of {name}; its figure rests on those")
+        out[key] = sum(r.self_device_time_total / r.count for r in found) / 1e3
+        out[key + "_kept"] = kept
+    return out
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -317,8 +362,14 @@ def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops,
     launches a call): the plain version one call at a time between
     CUDA events (1 warm-up, the median of 3 calls; host-paced is then the
     same figure), the library call host-paced over 3 single calls after 1
-    warm-up."""
+    warm-up.  Where ``device_ms`` falls back to CUDA events, the kernel's
+    time is the smaller of one call at a time (a launch and a synchronize
+    more) and host-paced (the host's pace between launches): both bound
+    its device time from above."""
     ms, launches, source = device_ms(kernel_fn, names=kernel_names, per_call=per_call)
+    host_ms = host_paced_ms(kernel_fn)
+    if source == "events":
+        ms = min(ms, host_ms)
     if slow_plain:
         plain_ms, plain_events, plain_source = single_call_ms(plain_fn, calls=3, warmup=1), float("nan"), "events"
         plain_host_ms = plain_ms
@@ -329,7 +380,7 @@ def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops,
         library_ms = None if library_fn is None else host_paced_ms(library_fn, windows=3, calls=3)
     bound_ms, bound_by = bound(nbytes, flops)
     out = dict(
-        ms=ms, ms_source=source, launches_per_call=launches, host_ms=host_paced_ms(kernel_fn), plain_ms=plain_ms,
+        ms=ms, ms_source=source, launches_per_call=launches, host_ms=host_ms, plain_ms=plain_ms,
         plain_ms_source=plain_source, plain_events_per_call=plain_events, plain_host_ms=plain_host_ms,
         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
     )
@@ -356,7 +407,8 @@ def phase_kernels(dev):
     from yaqs_tpu_torch.core.mps_ops import normalize_canonical
     from yaqs_tpu_torch.kernels.bond_gate import bond_gate, bond_gate_plain
     from yaqs_tpu_torch.kernels.lanczos_epilogue import lanczos_epilogue, lanczos_epilogue_plain, tridiag
-    from yaqs_tpu_torch.kernels.moment_scan import site_moment_matrices, site_moment_matrices_plain
+    from yaqs_tpu_torch.kernels.moment_scan import (
+        _moments_plain, scan_cluster, site_moment_matrices, site_moment_matrices_plain, site_moments_and_environments)
     from yaqs_tpu_torch.kernels.ns_polar import newton_schulz_orthogonalize, newton_schulz_orthogonalize_plain
     from yaqs_tpu_torch.kernels.sample_shots import sample_shots, sample_shots_plain
 
@@ -482,27 +534,46 @@ def phase_kernels(dev):
         ),
     )
 
-    # moment_scan at the digital and at the analog shape
+    # moment_scan at the digital, the analog and the XXZ path's shape (whose
+    # batch takes another cluster size): the moments, the norm and both Gram
+    # environments (which K15 reads) against the plain version; at the first
+    # two the scan and the moment pass timed apart
     ms_err, ms_extra = 0.0, {}
-    for bm, lm, cm in ((nd, ld, cd), (b, BENCH["length"], chi)):
+    for key, (bm, lm, cm) in {"digital": (nd, ld, cd), "analog": (b, BENCH["length"], chi),
+                              "xxz": (XXZ["batch"], BENCH["length"], chi)}.items():
         t = random_mps(gen, dev, bm, lm, cm)
-        moments, n2 = site_moment_matrices(t)
-        ref_m, ref_n2 = site_moment_matrices_plain(t)
+        moments, n2, left_envs, right_envs = site_moments_and_environments(t)
+        ref_m, ref_n2, ref_left, ref_right = _moments_plain(t)
         torch.cuda.synchronize()
-        err = max(rel_err(moments, ref_m), rel_err(n2, ref_n2))
-        log(f"[phase 3] moment_scan (B={bm}, L={lm}, chi={cm}): rel err {err:.3e}")
-        check(err <= KERNEL_TOL, f"moment_scan disagrees with its plain version: {err} > {KERNEL_TOL}")
+        errs = dict(moments=rel_err(moments, ref_m), norm2=rel_err(n2, ref_n2), left_envs=rel_err(left_envs, ref_left),
+                    right_envs=rel_err(right_envs, ref_right))
+        cluster = scan_cluster(bm, d, cm, dev.index or 0)
+        log(f"[phase 3] moment_scan (B={bm}, L={lm}, chi={cm}), {cluster} blocks a scan chain: rel err "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        check(max(errs.values()) <= KERNEL_TOL, f"moment_scan disagrees with its plain version: {errs} > {KERNEL_TOL}")
         ms_err = max(ms_err, (moments - ref_m).abs().max().item())
-        ms_extra[bm] = timings(
+        if key == "xxz":
+            ms_extra[key] = dict(cluster=cluster, rel_errs=errs)
+            continue
+        apart = kernel_ms_by_name(lambda t=t: site_moment_matrices(t), MOMENT_SCAN_LAUNCHES)
+        earlier = EARLIER_MS["moment_scan"][key]
+        log(f"[phase 3] moment_scan (B={bm}, L={lm}, chi={cm}) apart: Gram scans {apart['scan']:.4f} ms on "
+            f"{cluster} blocks a chain, moment pass {apart['moments']:.4f} ms (profiler, {apart['scan_kept']} and "
+            f"{apart['moments_kept']} of 20 launches kept); earlier design (one block a chain) "
+            f"{earlier['scan']:.4f} and {earlier['moments']:.4f} ms")
+        ms_extra[key] = dict(cluster=cluster, rel_errs=errs, scan_ms=apart["scan"], moments_ms=apart["moments"],
+                             kept=[apart["scan_kept"], apart["moments_kept"]],
+                             earlier_ms=earlier, **timings(
             f"moment_scan (B={bm}, L={lm}, chi={cm})", lambda t=t: site_moment_matrices(t),
-            lambda t=t: site_moment_matrices_plain(t), None, ("gram_scan_kernel", "moments_kernel"),
+            lambda t=t: site_moment_matrices_plain(t), None, tuple(MOMENT_SCAN_LAUNCHES.values()),
             bm * lm * d * cm * cm * C64 + bm * lm * d * d * C64 + bm * 4,
             6 * bm * lm * d * cm**3 * CMAC_FLOPS,
-        )
+        ))
     rows["moment_scan"] = dict(
         source="yaqs_tpu_torch/kernels/csrc/moment_scan.cu", replaces="yaqs_tpu/core/mps_ops.py:396",
-        max_abs_err=ms_err, shape=[nd, ld, d, cd, cd], **ms_extra[nd], library_call="none",
-        analog_shape=dict(shape=[b, BENCH["length"], d, chi, chi], **ms_extra[b]),
+        max_abs_err=ms_err, shape=[nd, ld, d, cd, cd], **ms_extra["digital"], library_call="none",
+        analog_shape=dict(shape=[b, BENCH["length"], d, chi, chi], **ms_extra["analog"]),
+        xxz_shape=dict(shape=[XXZ["batch"], BENCH["length"], d, chi, chi], **ms_extra["xxz"]),
     )
 
     # sample_shots: one shot from each of 512 trajectories, and 4096 shots of one
@@ -915,10 +986,13 @@ def newton_kernel_rows(dev, randc, gen):
     size), and at the digital one (512, 64, 64), chi = 32: every factor within 1e-4
     of the plain version's (relative), the reconstruction left @ right too;
     the library call is the SVD of the block.  K6 ``ns_canon`` over a
-    random (32, 100, 2, 64, 64) chain: the full-rank sites and every site's
-    moments within 1e-4 (``canon_errors``); the library call is the chain of
-    batched QRs."""
-    from yaqs_tpu_torch.kernels.ns_canon import ns_canon_scan, ns_canon_scan_plain
+    random (32, 100, 2, 64, 64) chain, the same at the XXZ path's batch
+    (16, another cluster size; held, not timed) and a digital (512, 20, 2,
+    32, 32) one, with the blocks a trajectory and the blocks an SM: the
+    full-rank sites and every site's moments within 1e-4
+    (``canon_errors``); the library call is the chain of batched QRs."""
+    from yaqs_tpu_torch.kernels.ns_canon import (
+        canon_blocks_per_sm, canon_cluster, canon_clusters_held, ns_canon_scan, ns_canon_scan_plain)
     from yaqs_tpu_torch.kernels.subspace_split import subspace_split, subspace_split_plain
     from yaqs_tpu_torch.ops.decomp import _range_finder
 
@@ -963,28 +1037,41 @@ def newton_kernel_rows(dev, randc, gen):
                        library_call="torch.linalg.svd of the block (one call)",
                        **t)
 
-    mps = random_mps(gen, dev, b, length, chi)
-    got, ref = ns_canon_scan(mps), ns_canon_scan_plain(mps)
-    torch.cuda.synchronize()
-    errs = canon_errors(got, ref)
-    log(f"[phase 3] ns_canon (B={b}, L={length}, chi={chi}): rel err of the full-rank sites {errs['full_rank_sites']:.3e}, "
-        f"of the site moments {errs['moments']:.3e}, of every site {errs['all_sites']:.3e} (the rank-deficient "
-        f"blocks near the chain's end: rounding lifted by the polar steps, in both versions)")
-    check(max(errs["full_rank_sites"], errs["moments"]) <= NEWTON_TOL,
-          f"ns_canon disagrees with its plain version: {errs} > {NEWTON_TOL}")
-    t = timings(f"ns_canon (B={b}, L={length}, chi={chi})", lambda: ns_canon_scan(mps),
-                lambda: ns_canon_scan_plain(mps), lambda: qr_chain_canonicalize(mps), ("ns_canon",),
-                2 * b * length * d * chi * chi * C64,
-                (length - 1) * (ns_cmacs(b, d * chi, chi) + 2 * b * d * chi**3) * CMAC_FLOPS, slow_plain=True)
-    full = length - int(np.ceil(np.log2(chi) / np.log2(d)))
-    k6 = dict(max_abs_err=(got[:, :full] - ref[:, :full]).abs().max().item(), rel_errs=errs,
-              shape=[b, length, d, chi, chi],
-              library_call="one batched torch.linalg.qr a site (the chain)", **t)
+    k6 = dict(max_abs_err=0.0)
+    for key, (bs, ls, cs) in {"analog": (b, length, chi), "xxz": (XXZ["batch"], length, chi),
+                              "digital": (nd, DIGITAL["qubits"], cd)}.items():
+        mps = random_mps(gen, dev, bs, ls, cs)
+        got, ref = ns_canon_scan(mps), ns_canon_scan_plain(mps)
+        torch.cuda.synchronize()
+        errs = canon_errors(got, ref)
+        cluster = canon_cluster(bs, d, cs, dev.index or 0)
+        per_sm = canon_blocks_per_sm(d, cs, dev.index or 0)
+        log(f"[phase 3] ns_canon (B={bs}, L={ls}, chi={cs}), {cluster} blocks a trajectory (clusters of 4, 3 and 2 "
+            f"held: {canon_clusters_held(d, cs, dev.index or 0)}; {per_sm} blocks an SM at one block a trajectory): "
+            f"rel err of the full-rank sites {errs['full_rank_sites']:.3e}, of the site moments {errs['moments']:.3e}, "
+            f"of every site {errs['all_sites']:.3e} (the rank-deficient blocks near the chain's end: rounding lifted "
+            f"by the polar steps, in both versions)")
+        check(max(errs["full_rank_sites"], errs["moments"]) <= NEWTON_TOL,
+              f"ns_canon ({key}) disagrees with its plain version: {errs} > {NEWTON_TOL}")
+        full = ls - int(np.ceil(np.log2(cs) / np.log2(d)))
+        k6["max_abs_err"] = max(k6["max_abs_err"], (got[:, :full] - ref[:, :full]).abs().max().item())
+        if key == "xxz":
+            k6[key] = dict(rel_errs=errs, shape=[bs, ls, d, cs, cs], cluster=cluster)
+            continue
+        t = timings(f"ns_canon (B={bs}, L={ls}, chi={cs})", lambda m=mps: ns_canon_scan(m),
+                    lambda m=mps: ns_canon_scan_plain(m), lambda m=mps: qr_chain_canonicalize(m), ("ns_canon",),
+                    2 * bs * ls * d * cs * cs * C64,
+                    (ls - 1) * (ns_cmacs(bs, d * cs, cs) + 2 * bs * d * cs**3) * CMAC_FLOPS, slow_plain=True)
+        earlier = EARLIER_MS["ns_canon"][key]
+        log(f"[phase 3] ns_canon {key}: device {t['ms']:.4f} ms on {cluster} blocks a trajectory, earlier design "
+            f"(one block a trajectory, one block an SM) {earlier:.4f} ms")
+        k6[key] = dict(rel_errs=errs, shape=[bs, ls, d, cs, cs], cluster=cluster, blocks_per_sm=per_sm,
+                       earlier_ms=earlier, library_call="one batched torch.linalg.qr a site (the chain)", **t)
     return {
         "subspace_split": dict(source="yaqs_tpu_torch/kernels/csrc/subspace_split.cu",
                                replaces="yaqs_tpu/ops/decomp.py:181", **k5["analog_right"], **k5),
         "ns_canon": dict(source="yaqs_tpu_torch/kernels/csrc/ns_canon.cu", replaces="yaqs_tpu/core/mps_ops.py:240",
-                         **k6),
+                         **k6["analog"], **k6),
     }
 
 

@@ -46,11 +46,14 @@ from yaqs_tpu_torch.kernels.lanczos_solve import (
     solve_clusters_held,
 )
 from yaqs_tpu_torch.kernels.moment_scan import (
+    left_gram_environments,
+    right_gram_environments,
+    scan_cluster,
     site_moment_matrices,
     site_moment_matrices_plain,
     site_moments_and_environments,
 )
-from yaqs_tpu_torch.kernels.ns_canon import ns_canon_scan, ns_canon_scan_plain
+from yaqs_tpu_torch.kernels.ns_canon import canon_blocks_per_sm, canon_cluster, ns_canon_scan, ns_canon_scan_plain
 from yaqs_tpu_torch.kernels.ns_polar import newton_schulz_orthogonalize, newton_schulz_orthogonalize_plain
 from yaqs_tpu_torch.kernels.pair_weights import pair_weights, pair_weights_plain
 from yaqs_tpu_torch.kernels.qr import householder_qr, householder_qr_plain
@@ -240,11 +243,34 @@ def test_subspace_split_cluster_rule(batch, blocks):
     assert cluster_size(batch, {4: 0, 3: -1, 2: 0}) == 1
 
 
+@pytest.mark.parametrize(("batch", "blocks"), [(1, 4), (15, 4), (16, 3), (19, 3), (20, 2), (32, 2), (33, 2), (34, 1),
+                                              (512, 1)])
+def test_moment_scan_cluster_rule(monkeypatch, batch, blocks):
+    """K7's Gram scans take K5's rule over the 2 B chains (a left and a
+    right scan a trajectory): here an H100's 30, 39 and 66 clusters of 4, 3
+    and 2 held at the analog shape, so B = 32 takes two blocks a chain."""
+    from yaqs_tpu_torch.kernels import moment_scan
+
+    monkeypatch.setattr(moment_scan, "scan_clusters_held", lambda d, chi, dev: {4: 30, 3: 39, 2: 66})
+    assert moment_scan.scan_cluster(batch, 2, 64, 0) == blocks
+
+
+@pytest.mark.parametrize(("batch", "blocks"), [(16, 4), (30, 4), (32, 3), (39, 3), (40, 2), (66, 2), (70, 1),
+                                              (512, 1)])
+def test_ns_canon_cluster_rule(monkeypatch, batch, blocks):
+    """K6 takes K5's rule over its B chains: B = 32 takes three blocks a
+    trajectory with an H100's 30, 39 and 66 clusters held at chi = 64."""
+    from yaqs_tpu_torch.kernels import ns_canon
+
+    monkeypatch.setattr(ns_canon, "canon_clusters_held", lambda d, chi, dev: {4: 30, 3: 39, 2: 66})
+    assert ns_canon.canon_cluster(batch, 2, 64, 0) == blocks
+
+
 def test_build_digest_covers_the_shared_headers(tmp_path):
     """An edited header changes the library's name, so the kernels that
     include it are rebuilt rather than loaded stale; the sources in the
-    repository include ``ns_polar.cuh`` and ``heff.cuh`` and the build
-    hashes both."""
+    repository include ``ns_polar.cuh``, ``heff.cuh`` and ``launch.cuh``
+    (through ``ns_polar.cuh`` too) and the build hashes all three."""
     src, hdr = tmp_path / "k.cu", tmp_path / "k.cuh"
     src.write_text('#include "k.cuh"\n')
     hdr.write_text("// one\n")
@@ -252,9 +278,12 @@ def test_build_digest_covers_the_shared_headers(tmp_path):
     hdr.write_text("// two\n")
     assert build._digest([src], [hdr]) != before
     assert build._digest([src], [hdr]) == build._digest([src], [hdr])
-    assert [h.name for h in build._headers()] == ["heff.cuh", "ns_polar.cuh"]
+    assert [h.name for h in build._headers()] == ["heff.cuh", "launch.cuh", "ns_polar.cuh"]
     includers = [p.name for p in build._sources() if '#include "ns_polar.cuh"' in p.read_text()]
-    assert includers == ["ns_canon.cu", "ns_polar.cu", "subspace_split.cu"]
+    assert includers == ["moment_scan.cu", "ns_canon.cu", "ns_polar.cu", "subspace_split.cu"]
+    assert '#include "launch.cuh"' in (build.CSRC / "ns_polar.cuh").read_text()
+    includers = [p.name for p in build._sources() if '#include "launch.cuh"' in p.read_text()]
+    assert includers == ["householder_qr.cu", "lanczos_solve.cu", "pair_weights.cu", "svd_jacobi.cu"]
     includers = [p.name for p in build._sources() if '#include "heff.cuh"' in p.read_text()]
     assert includers == ["heff.cu", "lanczos_solve.cu"]
 
@@ -456,10 +485,28 @@ def test_subspace_split_kernel_matches_plain(cuda, batch, rows, cols, chi, kind,
         subspace_split(m.to(torch.complex128), omega.to(torch.complex128), chi, iters, left_isometric)
 
 
+# (batch, length, chi, state, the blocks a trajectory the wrapper chooses on
+# an H100: 30, 39 and 66 clusters of 4, 3 and 2 held at chi = 64)
+NS_CANON_CARD_CASES = [(32, 100, 64, "random", 3), (32, 100, 64, "x+", 3), (512, 20, 32, "random", 1),
+                       (3, 4, 5, "random", 4), (16, 30, 64, "random", 4), (40, 20, 64, "random", 2),
+                       (70, 12, 64, "random", 1)]
+# (batch, length, chi, d, the blocks a scan chain the wrapper chooses on an
+# H100: 2 B chains against 30, 39 and 66 clusters of 4, 3 and 2 held at
+# d = 2, chi = 64)
+MOMENT_SCAN_CARD_CASES = [(512, 20, 32, 2, 1), (32, 100, 64, 2, 2), (16, 30, 64, 2, 3), (8, 12, 64, 2, 4),
+                          (40, 6, 64, 2, 1), (3, 5, 7, 2, 4), (4, 6, 64, 4, 4), (36, 4, 64, 4, 1), (5, 7, 64, 3, 4)]
+
+
+@pytest.mark.parametrize("cases", [NS_CANON_CARD_CASES, MOMENT_SCAN_CARD_CASES], ids=["ns_canon", "moment_scan"])
+def test_card_cases_take_every_cluster_size(cases):
+    """The card tests of K6 and K7 between them expect each cluster size
+    the wrappers can choose, so that none goes untested on the card."""
+    assert {case[-1] for case in cases} == {1, 2, 3, 4}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(("batch", "length", "chi", "state"),
-                         [(32, 100, 64, "random"), (32, 100, 64, "x+"), (512, 20, 32, "random"), (3, 4, 5, "random")])
-def test_ns_canon_kernel_matches_plain(cuda, batch, length, chi, state):
+@pytest.mark.parametrize(("batch", "length", "chi", "state", "blocks"), NS_CANON_CARD_CASES)
+def test_ns_canon_kernel_matches_plain(cuda, batch, length, chi, state, blocks):
     """Random chains and a padded product state (exactly rank 1 at every
     site, with exact zeros): the boundary pads zero; on the product state
     every site within 1e-4 of the plain version (relative); on a random
@@ -468,7 +515,11 @@ def test_ns_canon_kernel_matches_plain(cuda, batch, length, chi, state):
     1e-4.  Nearer the end the blocks are exactly rank deficient, and the
     polar steps lift float32 rounding in their empty directions (both
     versions, differently), so those rows are partial isometries, as in the
-    JAX package."""
+    JAX package.  The batches take each cluster size the wrapper chooses
+    on an H100 (30, 39 and 66 clusters of 4, 3 and 2 held at chi = 64), as
+    ``blocks`` says: 16 and the small one four blocks a trajectory, 32
+    three, 40 two, 70 and 512 one (512 at chi = 32 with the 2-row tiles,
+    four blocks an SM)."""
     import yaqs_tpu_torch as yt
 
     if state == "random":
@@ -480,6 +531,8 @@ def test_ns_canon_kernel_matches_plain(cuda, batch, length, chi, state):
     got = ns_canon_scan(t)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["ns_canon"] == 1 and kernels.launch_counts()["ns_polar"] == 0
+    assert canon_cluster(batch, 2, chi, cuda.index or 0) == blocks
+    assert canon_blocks_per_sm(2, chi, cuda.index or 0) >= 1
     ref = ns_canon_scan_plain(t)
     assert bool((got[:, 0, :, 1:, :] == 0).all()) and bool((got[:, -1, :, :, 1:] == 0).all())
     if state != "random":
@@ -519,16 +572,25 @@ def test_pair_weights_kernel_matches_plain(cuda, batch, length, chi, nc2):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize(("batch", "length", "chi"), [(512, 20, 32), (32, 100, 64), (3, 5, 7)])
-def test_moment_scan_kernel_matches_plain(cuda, batch, length, chi):
-    t = _random_mps(np.random.default_rng(4), batch, length, chi, device=cuda)
+@pytest.mark.parametrize(("batch", "length", "chi", "d", "blocks"), MOMENT_SCAN_CARD_CASES)
+def test_moment_scan_kernel_matches_plain(cuda, batch, length, chi, d, blocks):
+    """The moments, the norm and both Gram environments (which K15 reads)
+    within 1e-5 of the plain version.  The batches take each cluster size
+    the wrapper chooses on an H100, as ``blocks`` says: 512 and 40 one
+    block a chain (at chi = 32 and at 64, where one site buffer is
+    reloaded), 32 two, 16 three, 8 and the small ones four; d = 4 at chi =
+    64 and one block a chain (36) contracts one s at a time."""
+    t = _random_mps(np.random.default_rng(4), batch, length, chi, d=d, device=cuda)
     kernels.reset_launch_counts()
-    moments, n2 = site_moment_matrices(t)
+    moments, n2, left_envs, right_envs = site_moments_and_environments(t)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["moment_scan"] == 1
     ref_m, ref_n2 = site_moment_matrices_plain(t)
     assert _rel_err(moments, ref_m) <= 1e-5
     assert _rel_err(n2, ref_n2) <= 1e-5
+    assert _rel_err(left_envs, left_gram_environments(t)) <= 1e-5
+    assert _rel_err(right_envs, right_gram_environments(t)) <= 1e-5
+    assert scan_cluster(batch, d, chi, cuda.index or 0) == blocks
 
 
 @pytest.mark.cuda

@@ -49,12 +49,18 @@ _SIGNATURES = {
     "subspace_split_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # (rows, cols, chi, cluster) -> clusters the card holds at once
     "subspace_split_max_clusters": [_I, _I, _I, _I],
-    # (in, out, batch, L, d, chi, stream)
-    "ns_canon_launch": [_P, _P, _I, _I, _I, _I, _P],
+    # (in, out, batch, L, d, chi, cluster, stream)
+    "ns_canon_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # (d, chi, cluster) -> clusters the card holds at once
+    "ns_canon_max_clusters": [_I, _I, _I],
+    # (d, chi) -> blocks of one SM at one block a trajectory
+    "ns_canon_blocks_per_sm": [_I, _I],
     # (tensors, left_envs, right_envs, bonds, wop, coeff, out, batch, L, chi, nc2, stream)
     "pair_weights_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # (tensors, envs scratch, moments, norm2, batch, L, d, chi, stream)
-    "moment_scan_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (tensors, envs scratch, moments, norm2, batch, L, d, chi, cluster, stream)
+    "moment_scan_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (d, chi, cluster) -> clusters of the Gram scan the card holds at once
+    "moment_scan_max_clusters": [_I, _I, _I],
     # (tensors, gumbel, out, batch, shots, L, d, chi, stream)
     "sample_shots_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (f, stride_f, v, stride_v, W, g, stride_g, out, batch, chi, dw, p, stream)

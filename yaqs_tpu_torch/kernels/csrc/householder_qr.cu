@@ -51,6 +51,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -59,7 +61,6 @@ constexpr int kMaxRows = 128;
 constexpr int kMaxCols = 64;
 constexpr int kNb = 8;  // the panel width
 constexpr float kEps32 = 1.1920928955078125e-07f;
-constexpr size_t kSmemLimit = 227 * 1024;
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -452,8 +453,7 @@ extern "C" int householder_qr_launch(const void* in, long long stride_in, const 
   const size_t smem = smem_bytes(n, k, q_out != nullptr);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = n <= 64 ? householder_qr_kernel<2> : householder_qr_kernel<4>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_bytes(kMaxRows, kMaxCols, true)));
+  cudaError_t err = allow_smem(kernel, smem_bytes(kMaxRows, kMaxCols, true));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(in), stride_in, static_cast<const float*>(noise), static_cast<float2*>(q_out),

@@ -50,6 +50,7 @@
 #include <cooperative_groups.h>
 
 #include "heff.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -351,23 +352,14 @@ cudaLaunchConfig_t solve_config(int batch, int chi, cudaStream_t stream, cudaLau
   const int cluster = (chi + T::TA - 1) / T::TA;
   // once per instantiation: the opt-in limits for the largest chi it takes
   static const cudaError_t configured = [&] {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(SolveLayout<P, DW>::bytes(kMaxChi)));
+    cudaError_t e = allow_smem(kernel, SolveLayout<P, DW>::bytes(kMaxChi));
     if (e == cudaSuccess) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     return e;
   }();
   *err = configured;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(batch * cluster);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = SolveLayout<P, DW>::bytes(chi);
-  config.stream = stream;
-  attribute[0].id = cudaLaunchAttributeClusterDimension;
-  attribute[0].val.clusterDim.x = cluster;
-  attribute[0].val.clusterDim.y = 1;
-  attribute[0].val.clusterDim.z = 1;
-  config.attrs = attribute;
-  config.numAttrs = 1;
+  cudaLaunchConfig_t config =
+      cluster_config(batch, cluster, kThreads, SolveLayout<P, DW>::bytes(chi), stream, attribute);
+  config.numAttrs = 1;  // a cluster of one block too: the occupancy query needs its size
   return config;
 }
 

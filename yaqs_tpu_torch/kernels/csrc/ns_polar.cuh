@@ -1,7 +1,8 @@
 // The Newton–Schulz polar factor of one complex64 block held in shared
 // memory, and the shared-memory products it is built from.  Used by K4
 // (ns_polar.cu), K5 (subspace_split.cu) and K6 (ns_canon.cu), so that the
-// three run one schedule and cannot drift apart.
+// three run one schedule and cannot drift apart; K7 (moment_scan.cu) runs
+// its scans and moments on the same products.
 //
 // The schedule (yaqs_tpu/ops/decomp.py newton_schulz_orthogonalize) must
 // never change: in complex64 an extra lift promotes sub-eps noise directions
@@ -27,6 +28,8 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -68,17 +71,18 @@ __host__ __device__ constexpr NsStep ns_step(int step) {
                   : (step < 6 ? NsStep{2.0f, -1.3333f, 0.3333f} : NsStep{1.5f, -0.5f, 0.0f});
 }
 
-// C(i, j) = sum_k A(i, k) B(k, j) for i < M, j < N, k < K, with A(i, k) =
-// a[i * asi + k * ask] (conjugated when CONJ_A) and B(k, j) = b[k * ldb + j]
-// (shared or device memory).  Each thread takes a TM x 4 tile; its row and
-// column offsets are computed once, clamped into range, and the k loop
-// walks two pointers.  Each output goes to epi(i, j, value) from the thread
-// that computed it; the mapping of outputs to threads depends on (M, N)
-// only, so two calls with the same (M, N) hand each (i, j) to the same
-// thread.  Every output is summed over k in order, whatever TM.
-template <int TM, bool CONJ_A, typename Epi>
-__device__ __forceinline__ void tile_product(const float2* a, int asi, int ask, const float2* b, int ldb, int M, int N,
-                                             int K, Epi epi) {
+// C(i, j) = sum_k A(i, k) B(k, j) for i < M, j < N and k = (k1, k2), k1 <
+// K1, k2 < K2, with A(i, k) = a[aoff(i) + k1 a1 + k2 a2] (conjugated when
+// CONJ_A) and B(k, j) = b[boff(j) + k1 b1 + k2 b2] (shared or device
+// memory).  Each thread takes a TM x 4 tile; its row and column offsets are
+// computed once, clamped into range, and the k loop walks two pointers.
+// Each output goes to epi(i, j, value) from the thread that computed it; the
+// mapping of outputs to threads depends on (M, N) only, so two calls with
+// the same (M, N) hand each (i, j) to the same thread.  Every output is
+// summed over k in order, whatever TM.
+template <int TM, bool CONJ_A, typename AO, typename BO, typename Epi>
+__device__ __forceinline__ void tile_product(const float2* a, AO aoff, int a1, int a2, const float2* b, BO boff,
+                                             int b1, int b2, int M, int N, int K1, int K2, Epi epi) {
   constexpr int TN = 4;
   const int tm = (M + TM - 1) / TM;
   const int tn = (N + TN - 1) / TN;
@@ -87,29 +91,31 @@ __device__ __forceinline__ void tile_product(const float2* a, int asi, int ask, 
     const int jt = t % tn;
     int ao[TM], bo[TN];
 #pragma unroll
-    for (int r = 0; r < TM; ++r) ao[r] = min(it + r * tm, M - 1) * asi;
+    for (int r = 0; r < TM; ++r) ao[r] = aoff(min(it + r * tm, M - 1));
 #pragma unroll
-    for (int c = 0; c < TN; ++c) bo[c] = min(jt + c * tn, N - 1);
+    for (int c = 0; c < TN; ++c) bo[c] = boff(min(jt + c * tn, N - 1));
     float2 acc[TM][TN];
 #pragma unroll
     for (int r = 0; r < TM; ++r)
 #pragma unroll
       for (int c = 0; c < TN; ++c) acc[r][c] = make_float2(0.f, 0.f);
-    const float2* ak = a;
-    const float2* bk = b;
+    for (int k1 = 0; k1 < K1; ++k1) {
+      const float2* ak = a + k1 * a1;
+      const float2* bk = b + k1 * b1;
 #pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      float2 av[TM], bv[TN];
+      for (int k2 = 0; k2 < K2; ++k2) {
+        float2 av[TM], bv[TN];
 #pragma unroll
-      for (int r = 0; r < TM; ++r) av[r] = CONJ_A ? conj2(ak[ao[r]]) : ak[ao[r]];
+        for (int r = 0; r < TM; ++r) av[r] = CONJ_A ? conj2(ak[ao[r]]) : ak[ao[r]];
 #pragma unroll
-      for (int c = 0; c < TN; ++c) bv[c] = bk[bo[c]];
+        for (int c = 0; c < TN; ++c) bv[c] = bk[bo[c]];
 #pragma unroll
-      for (int r = 0; r < TM; ++r)
+        for (int r = 0; r < TM; ++r)
 #pragma unroll
-        for (int c = 0; c < TN; ++c) cfma(acc[r][c], av[r], bv[c]);
-      ak += ask;
-      bk += ldb;
+          for (int c = 0; c < TN; ++c) cfma(acc[r][c], av[r], bv[c]);
+        ak += a2;
+        bk += b2;
+      }
     }
 #pragma unroll
     for (int r = 0; r < TM; ++r) {
@@ -127,20 +133,38 @@ __device__ __forceinline__ void tile_product(const float2* a, int asi, int ask, 
 // every thread of the block a tile: at (128, 128), chi = 64, 8 x 4 for
 // m^H X and for x g on 128 rows, 4 x 4 for the Gram, 2 x 4 for x g on the
 // 43 or 32 rows of a cluster block.  (A 3 x 4 tile for 43 rows, one tile a
-// thread, measured slower.)  A = X^H of a row-major (K, M) matrix x is
-// product<true>(x, 1, M, ...); a row-major (M, K) matrix a is
-// product<false>(a, K, 1, ...).
-template <bool CONJ_A, typename Epi>
+// thread, measured slower.)  kMaxTM caps the tile's rows: a kernel whose
+// products never take the taller tiles (ns_fits_small_tiles) leaves them
+// out, and with them the registers they would hold.
+template <bool CONJ_A, int kMaxTM = 8, typename AO, typename BO, typename Epi>
+__device__ __forceinline__ void product(const float2* a, AO aoff, int a1, int a2, const float2* b, BO boff, int b1,
+                                        int b2, int M, int N, int K1, int K2, Epi epi) {
+  const int tn = (N + 3) / 4;
+  if (kMaxTM >= 8 && (M + 7) / 8 * tn >= kNsThreads) {
+    tile_product<(kMaxTM >= 8 ? 8 : 2), CONJ_A>(a, aoff, a1, a2, b, boff, b1, b2, M, N, K1, K2, epi);
+  } else if (kMaxTM >= 4 && (M + 3) / 4 * tn >= kNsThreads) {
+    tile_product<(kMaxTM >= 4 ? 4 : 2), CONJ_A>(a, aoff, a1, a2, b, boff, b1, b2, M, N, K1, K2, epi);
+  } else {
+    tile_product<2, CONJ_A>(a, aoff, a1, a2, b, boff, b1, b2, M, N, K1, K2, epi);
+  }
+}
+
+// The same over one k < K, with A(i, k) = a[i asi + k ask] and B(k, j) =
+// b[k ldb + j].  A = X^H of a row-major (K, M) matrix x is product<true>(x,
+// 1, M, ...); a row-major (M, K) matrix a is product<false>(a, K, 1, ...).
+template <bool CONJ_A, int kMaxTM = 8, typename Epi>
 __device__ __forceinline__ void product(const float2* a, int asi, int ask, const float2* b, int ldb, int M, int N,
                                         int K, Epi epi) {
-  const int tn = (N + 3) / 4;
-  if ((M + 7) / 8 * tn >= kNsThreads) {
-    tile_product<8, CONJ_A>(a, asi, ask, b, ldb, M, N, K, epi);
-  } else if ((M + 3) / 4 * tn >= kNsThreads) {
-    tile_product<4, CONJ_A>(a, asi, ask, b, ldb, M, N, K, epi);
-  } else {
-    tile_product<2, CONJ_A>(a, asi, ask, b, ldb, M, N, K, epi);
-  }
+  product<CONJ_A, kMaxTM>(
+      a, [asi](int i) { return i * asi; }, 0, ask, b, [](int j) { return j; }, 0, ldb, M, N, 1, K, epi);
+}
+
+// True when no product of M x N outputs for M, N <= (m, n) takes a tile of
+// more than 2 rows (for a polar factor the tallest is x g, m x n; for K7's
+// scans tmp, chi x d chi), so product<..., 2> computes the same sums in the
+// same threads.
+__host__ __device__ constexpr bool ns_fits_small_tiles(int m, int n) {
+  return (m + 3) / 4 * ((n + 3) / 4) < kNsThreads;
 }
 
 // Block k's copy of a shared-memory pointer in a cluster of kC blocks
@@ -202,7 +226,8 @@ __host__ __device__ constexpr int ns_scratch_floats(int n) { return 2 * n + 1 + 
 // factor of a matrix whose rows are split over a cluster of kC blocks, each
 // holding nl of them (kC = 1: one block holds the whole matrix).  xg (nl *
 // n) and g (n * n) are work buffers; scratch holds ns_scratch_floats(n)
-// floats; with kC > 1, part holds two n x n Gram partials part_stride
+// floats, and may share g's memory (scratch serves the scale only, g the
+// steps after the scale's barriers); with kC > 1, part holds two n x n Gram partials part_stride
 // elements apart, which the other blocks read.  Every block of the cluster
 // calls it with x written and the block synchronized; it returns with the
 // block (not the cluster) synchronized.  The partial sums of each block are
@@ -214,7 +239,7 @@ __host__ __device__ constexpr int ns_scratch_floats(int n) { return 2 * n + 1 + 
 // times (through ns_polar_block), and six inlined copies of its twelve
 // product tiles made subspace_split.cu nearly all of the library's build
 // time.
-template <int kC>
+template <int kC, int kMaxTM = 8>
 __device__ __noinline__ void ns_polar_rows(float2* x, float2* xg, float2* g, float2* part, int part_stride,
                                            float* scratch, int nl, int n) {
   float* stat = scratch;             // column abs sums (n), column squares (n), largest row abs sum
@@ -288,18 +313,18 @@ __device__ __noinline__ void ns_polar_rows(float2* x, float2* xg, float2* g, flo
     const NsStep st = ns_step(step);
     if constexpr (kC > 1) {
       float2* p = part + (step & 1) * part_stride;
-      product<true>(x, 1, n, x, n, n, n, nl, [&](int i, int j, float2 v) { p[i * n + j] = v; });
+      product<true, kMaxTM>(x, 1, n, x, n, n, n, nl, [&](int i, int j, float2 v) { p[i * n + j] = v; });
       cooperative_groups::this_cluster().sync();
       cluster_sum<kC>(g, p, n * n);
     } else {
-      product<true>(x, 1, n, x, n, n, n, nl, [&](int i, int j, float2 v) { g[i * n + j] = v; });
+      product<true, kMaxTM>(x, 1, n, x, n, n, n, nl, [&](int i, int j, float2 v) { g[i * n + j] = v; });
     }
     __syncthreads();
-    product<false>(x, n, 1, g, n, nl, n, n, [&](int i, int j, float2 v) { xg[i * n + j] = v; });
+    product<false, kMaxTM>(x, n, 1, g, n, nl, n, n, [&](int i, int j, float2 v) { xg[i * n + j] = v; });
     __syncthreads();
     if (st.c != 0.f) {
       // each (i, j) of x is read and written by the thread that owns it only
-      product<false>(xg, n, 1, g, n, nl, n, n, [&](int i, int j, float2 v) {
+      product<false, kMaxTM>(xg, n, 1, g, n, nl, n, n, [&](int i, int j, float2 v) {
         const float2 xv = x[i * n + j];
         const float2 yv = xg[i * n + j];
         x[i * n + j] = make_float2(st.a * xv.x + st.b * yv.x + st.c * v.x, st.a * xv.y + st.b * yv.y + st.c * v.y);
@@ -322,12 +347,6 @@ __device__ __noinline__ void ns_polar_rows(float2* x, float2* xg, float2* g, flo
 // the block is synchronized again.
 __device__ __forceinline__ void ns_polar_block(float2* x, float2* xg, float2* g, float* red, int m, int n) {
   ns_polar_rows<1>(x, xg, g, nullptr, 0, red, m, n);
-}
-
-// Set the dynamic shared-memory limit of a kernel and report the error.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
 }
 
 }  // namespace

@@ -36,6 +36,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -48,22 +50,6 @@ constexpr int kStage = 2 * kChunk * kStageLd;  // float2: the A chunk, then the 
 __device__ __forceinline__ void cfma(float2& acc, float2 a, float2 b) {
   acc.x = fmaf(a.x, b.x, fmaf(-a.y, b.y, acc.x));
   acc.y = fmaf(a.x, b.y, fmaf(a.y, b.x, acc.y));
-}
-
-// 8 bytes from device memory into shared memory, asynchronously; zeros when
-// !valid (no device read: the address given is then `base`)
-__device__ __forceinline__ void cp_async8(float2* dst, const float2* base, long long offset, bool valid) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const float2* src = valid ? base + offset : base;
-  const int bytes = valid ? 8 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(saddr), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
 // The k loop of one product over K = chi in chunks of kChunk: load(chunk,
@@ -308,8 +294,7 @@ extern "C" int pair_weights_launch(const void* t, const void* left_envs, const v
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = smem_bytes(chi);
-  cudaError_t err = cudaFuncSetAttribute(pair_weights_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaError_t err = allow_smem(pair_weights_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   pair_weights_kernel<<<dim3(nc2, batch), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(t), static_cast<const float2*>(left_envs), static_cast<const float2*>(right_envs),

@@ -137,8 +137,6 @@ subspace_split_kernel(const float2* __restrict__ m, const float2* __restrict__ o
 
 namespace cg = cooperative_groups;
 
-constexpr size_t kSmemLimit = 227 * 1024;
-
 // dst (n x chi, row-major) = the whole of a matrix split by rows over the
 // cluster, block k holding rows [k share, (k + 1) share) in its src.
 template <int kC>
@@ -309,18 +307,8 @@ cudaError_t launch_cluster(cudaStream_t stream, const float2* m, const float2* o
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(batch * kC);
-  config.blockDim = dim3(kNsThreads);
-  config.dynamicSmemBytes = smem;
-  config.stream = stream;
   cudaLaunchAttribute attribute[1];
-  attribute[0].id = cudaLaunchAttributeClusterDimension;
-  attribute[0].val.clusterDim.x = kC;
-  attribute[0].val.clusterDim.y = 1;
-  attribute[0].val.clusterDim.z = 1;
-  config.attrs = attribute;
-  config.numAttrs = 1;
+  const cudaLaunchConfig_t config = cluster_config(batch, kC, kNsThreads, smem, stream, attribute);
   return cudaLaunchKernelEx(&config, kernel, m, omega, left, right, s, rows, cols, chi, iters, left_isometric);
 }
 
@@ -335,19 +323,10 @@ extern "C" int subspace_split_max_clusters(int rows, int cols, int chi, int clus
                                       : reinterpret_cast<const void*>(subspace_split_cluster_kernel<2>);
   const size_t smem = ClusterLayout(rows, cols, chi, cluster).bytes();
   if (smem > kSmemLimit) return -static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(cluster);
-  config.blockDim = dim3(kNsThreads);
-  config.dynamicSmemBytes = smem;
   cudaLaunchAttribute attribute[1];
-  attribute[0].id = cudaLaunchAttributeClusterDimension;
-  attribute[0].val.clusterDim.x = cluster;
-  attribute[0].val.clusterDim.y = 1;
-  attribute[0].val.clusterDim.z = 1;
-  config.attrs = attribute;
-  config.numAttrs = 1;
+  const cudaLaunchConfig_t config = cluster_config(1, cluster, kNsThreads, smem, nullptr, attribute);
   int count = 0;
   err = cudaOccupancyMaxActiveClusters(&count, kernel, &config);
   return err == cudaSuccess ? count : -static_cast<int>(err);

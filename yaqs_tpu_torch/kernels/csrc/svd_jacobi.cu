@@ -50,6 +50,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -61,7 +63,6 @@ constexpr int kSms = 132;
 constexpr int kMaxDim = 128;     // columns (the short side)
 constexpr int kMaxRows = 4096;   // rows (the long side)
 constexpr float kTiny = 1e-30f;  // a column with ||w||^2 below it (scaled units) counts as zero
-constexpr size_t kSmemLimit = 227 * 1024;
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -627,26 +628,15 @@ cudaError_t launch(const Placement& p, int batch, cudaStream_t stream, const flo
                    float2* u_out, float* s_out, float2* vh_out, float2* work, int* sweeps_out, float* off_out,
                    int* record, int rows, int cols, float tol, int max_sweeps) {
   auto kernel = svd_jacobi_kernel<kWShared, kThreads, kBlocks>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(p.smem));
+  cudaError_t err = allow_smem(kernel, p.smem);
   if (err != cudaSuccess) return err;
   if constexpr (kBlocks == 1) {
     kernel<<<batch, kThreads, p.smem, stream>>>(in, stride_in, u_out, s_out, vh_out, work, sweeps_out, off_out,
                                                  record, rows, cols, p.v_in_smem ? 1 : 0, tol, max_sweeps);
     return cudaSuccess;
   }
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(batch * kBlocks);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = p.smem;
-  config.stream = stream;
   cudaLaunchAttribute attribute[1];
-  attribute[0].id = cudaLaunchAttributeClusterDimension;
-  attribute[0].val.clusterDim.x = kBlocks;
-  attribute[0].val.clusterDim.y = 1;
-  attribute[0].val.clusterDim.z = 1;
-  config.attrs = attribute;
-  config.numAttrs = 1;
+  const cudaLaunchConfig_t config = cluster_config(batch, kBlocks, kThreads, p.smem, stream, attribute);
   return cudaLaunchKernelEx(&config, kernel, in, stride_in, u_out, s_out, vh_out, work, sweeps_out, off_out, record,
                             rows, cols, p.v_in_smem ? 1 : 0, tol, max_sweeps);
 }

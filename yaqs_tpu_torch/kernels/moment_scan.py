@@ -8,19 +8,31 @@ one left and one right Gram scan.  The scans and the plain version live here;
 ``core.mps_ops`` re-exports them.  :func:`site_moments_and_environments`
 also returns the two scans' environments, which the two-site jump weights
 (kernel K15, ``pair_weights.py``) contract, from the same launch.
+
+On the card each of the 2 B scan chains (trajectory, direction) runs on a
+thread block cluster of ``C`` blocks, each block forming a slice of the
+environment's columns: the largest of 4, 3 and 2 whose clusters the card
+holds at once for all 2 B chains (:func:`scan_cluster`, K5's rule), else
+one block a chain.  Every environment entry is summed whole by one thread,
+in the same order for every ``C``, so the result does not depend on it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import LAUNCHES, on_card
 from .build import check, load_library
+from .subspace_split import cluster_size, clusters_held
 
 __all__ = [
     "transfer_right",
     "left_gram_environments",
     "right_gram_environments",
+    "scan_cluster",
+    "scan_clusters_held",
     "site_moment_matrices",
     "site_moment_matrices_plain",
     "site_moments_and_environments",
@@ -29,6 +41,19 @@ __all__ = [
 MAX_CHI = 64
 MAX_D = 4
 MAX_BATCH = 65535  # grid.y of the moment pass
+
+
+@functools.cache
+def scan_clusters_held(d: int, chi: int, device_index: int) -> dict[int, int]:
+    """The Gram scan's clusters of 4, 3 and 2 blocks at ``(d, chi)`` that
+    the card holds at once, by size."""
+    return clusters_held("moment_scan_max_clusters", (d, chi), device_index)
+
+
+def scan_cluster(batch: int, d: int, chi: int, device_index: int) -> int:
+    """Thread blocks a scan chain for a batch of ``batch`` trajectories:
+    :func:`~.subspace_split.cluster_size` over the ``2 batch`` chains."""
+    return cluster_size(2 * batch, scan_clusters_held(d, chi, device_index))
 
 
 def transfer_right(env: torch.Tensor, a_bra: torch.Tensor, a_ket: torch.Tensor) -> torch.Tensor:
@@ -83,8 +108,8 @@ def site_moment_matrices(tensors: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     Returns ``(T (B, L, d, d), norm2 (B,))``; the state may be in any gauge
     and unnormalized.  A CPU tensor takes the plain version.  A CUDA tensor
     launches ``moment_scan`` (complex64, ``d <= 4``, ``chi <= 64``,
-    ``B <= 65535``; any view, made contiguous first), or raises
-    ``ValueError``.
+    ``B <= 65535``; any view, made contiguous first; ``scan_cluster``
+    blocks a scan chain), or raises ``ValueError``.
     """
     return site_moments_and_environments(tensors)[:2]
 
@@ -113,8 +138,9 @@ def site_moments_and_environments(tensors: torch.Tensor):
     t = tensors.resolve_conj().contiguous()
     lib = load_library()
     stream = torch.cuda.current_stream(t.device).cuda_stream
+    cluster = scan_cluster(b, d, chi, t.device.index or 0)
     err = lib.moment_scan_launch(
-        t.data_ptr(), envs.data_ptr(), moments.data_ptr(), norm2.data_ptr(), b, length, d, chi, stream
+        t.data_ptr(), envs.data_ptr(), moments.data_ptr(), norm2.data_ptr(), b, length, d, chi, cluster, stream
     )
     check(err, "moment_scan")
     LAUNCHES["moment_scan"] += 1

@@ -35,7 +35,7 @@ from . import LAUNCHES, on_card
 from .build import check, load_library
 from .ns_polar import MAX_COLS, MAX_ROWS, newton_schulz_orthogonalize_plain
 
-__all__ = ["cluster_size", "held_clusters", "subspace_split", "subspace_split_plain"]
+__all__ = ["cluster_size", "clusters_held", "held_clusters", "subspace_split", "subspace_split_plain"]
 
 CLUSTER_SIZES = (4, 3, 2)
 
@@ -47,16 +47,23 @@ def cluster_size(batch: int, held: dict[int, int]) -> int:
     return next((c for c in CLUSTER_SIZES if batch <= held.get(c, 0)), 1)
 
 
-@functools.cache
-def held_clusters(rows: int, cols: int, chi: int, device_index: int) -> dict[int, int]:
-    """The clusters of 4, 3 and 2 blocks of this shape that the card holds
-    at once (``cudaOccupancyMaxActiveClusters``), by cluster size."""
+def clusters_held(query: str, shape: tuple[int, ...], device_index: int) -> dict[int, int]:
+    """The clusters of 4, 3 and 2 blocks that the card holds at once, by
+    cluster size, from the library's ``query(*shape, C)`` (a kernel's
+    ``cudaOccupancyMaxActiveClusters``, or minus a CUDA error)."""
     lib = load_library()
     with torch.cuda.device(device_index):
-        held = {c: lib.subspace_split_max_clusters(rows, cols, chi, c) for c in CLUSTER_SIZES}
+        held = {c: getattr(lib, query)(*shape, c) for c in CLUSTER_SIZES}
     for c, n in held.items():
-        check(max(-n, 0), f"subspace_split_max_clusters ({c} blocks)")
+        check(max(-n, 0), f"{query} ({c} blocks)")
     return held
+
+
+@functools.cache
+def held_clusters(rows: int, cols: int, chi: int, device_index: int) -> dict[int, int]:
+    """K5's clusters of 4, 3 and 2 blocks of this shape that the card holds
+    at once, by cluster size."""
+    return clusters_held("subspace_split_max_clusters", (rows, cols, chi), device_index)
 
 
 def subspace_split_plain(m: torch.Tensor, omega: torch.Tensor, chi: int, iters: int, left_isometric: bool):
