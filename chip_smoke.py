@@ -35,7 +35,13 @@ Phases (any failure raises and exits non-zero):
    sites and the site moments within 1e-4), with the blocks a trajectory and the blocks an SM,
    beside the earlier design's time; K15
    ``pair_weights`` at B=32, L=100, 99 channels, and K10 with a gate per
-   trajectory at (32, chi=64);
+   trajectory at (32, chi=64); K12 ``sv_mpo_matvec`` at (16, L=20), Dw 3
+   and 5, with its passes, the vectors they move, the bound on W's nonzero
+   entries beside the dense one and each count of sites a round, and held
+   at the shapes where its pass plan changes; K13's step at j = 0 .. 24
+   (identical breakdown masks; the vectors its design moves), the whole
+   ``arnoldi_expm_apply`` with kernel steps against plain steps, and the
+   epilogue; each of K12 and K13 beside its earlier design's time;
 4. the analog slice, order-2 TJM at the benchmark shape (TFIM L=100, chi=64,
    B=32, z + lowering noise 0.05, 10 steps of dt=0.1, complex64, fast knob
    set): trajectories/s, ms per step, peak memory, proof that its eight
@@ -207,14 +213,19 @@ TDVP_SHAPES = {"analog": (BENCH["batch"], BENCH["chi"], 3), "xxz": (XXZ["batch"]
                "window": (DIGITAL["num_traj"], DIGITAL["chi"], 1)}
 BREAKDOWN_TOL = 100 * float(np.finfo(np.float32).eps)
 # device ms of the earlier designs of K5 (one block a matrix) and K14
-# (unblocked, always forming Q), from PERF.md's kernel table, and of K7's two
+# (unblocked, always forming Q), from PERF.md's kernel table, of K7's two
 # launches and K6 (one block a chain), from a probe of the parent tree in
-# PERF.md's call 13 (all NVIDIA H100 80GB HBM3, 700.00 W), printed beside
-# this run's rows
+# PERF.md's call 13, and of K12 (a pass a site) and K13's step (CGS2, four
+# launches), from PERF.md's kernel table (all NVIDIA H100 80GB HBM3, 700.00
+# W), printed beside this run's rows
 EARLIER_MS = dict(subspace_split=dict(analog_right=1.6681, analog_left=1.7038, digital=1.0635),
               householder_qr=dict(analog=0.3903, window=0.1212, bond_spectra=0.3903),
               moment_scan=dict(digital=dict(scan=1.3982, moments=0.7636), analog=dict(scan=15.5103, moments=2.7182)),
-              ns_canon=dict(analog=33.6467, digital=6.0492))
+              ns_canon=dict(analog=33.6467, digital=6.0492),
+              sv_mpo_matvec=dict(ising=5.3555, heisenberg=9.7478), arnoldi_step={0: 0.8930, 12: 2.2651, 24: 4.1999})
+# K12's shapes held (not timed) in phase 3 where its pass plan changes: (B, L, Dw)
+SV_BOUNDARY_SHAPES = ((64, 11, 3), (64, 12, 3), (16, 13, 3), (4, 22, 3), (4, 20, 8), (1, 27, 8), (3, 1, 2),
+                      (8, 9, 8))
 # the profiler names of K7's two launches
 MOMENT_SCAN_LAUNCHES = dict(scan="gram_scan_cluster_kernel", moments="moments_kernel")
 
@@ -807,18 +818,49 @@ def mcwf_inputs(length, gamma=None, model="ising"):
     return w, yt.to_statevector(yt.named_product_state("x+", length, 1)), noise, obs
 
 
+def sv_mpo_work(w, b, plan, local):
+    """K12's complex multiply-adds at one shape: dense (every entry of each
+    W_i within its bonds, as the bound of the earlier design counted) and
+    nonzero (what the kernel does: it skips the exact zeros of W_i), each with
+    the one-site terms (one diagonal product an index, one more a site with
+    off-diagonal entries); and the vectors of 2^L complex64 a trajectory that
+    the pass plan moves through device memory."""
+    length, dw = w.shape[0], w.shape[-1]
+    n = 2**length
+    dws = [1] + [dw] * (length - 1) + [1]
+    nnz = 0
+    for i in range(length):
+        nnz += int(torch.count_nonzero(w[i, :, :, : dws[i], : dws[i + 1]]).item())
+    off = 0 if local is None else int((local[:, 0, 1].abs() + local[:, 1, 0].abs() > 0).sum().item())
+    terms = 0 if local is None else b * n * (1 + off)
+    dense = b * n * 2 * sum(dws[i] * dws[i + 1] for i in range(length)) + terms
+    nonzero = b * (n // 2) * nnz + terms
+    vectors = 0
+    for p, (first, sites, _) in enumerate(plan):
+        last = first + sites == length
+        vectors += (1 if p == 0 else dw) + (1 if last else dw)  # the bond vector in and out
+        if local is not None:  # psi again after the first pass; out written, read and written
+            vectors += (0 if p == 0 else 1) + (0 if p == 0 or last else 1) + (0 if last and p == 0 else 1)
+    return dense, nonzero, vectors
+
+
 def mcwf_kernel_rows(dev, randc, gen):
     """K12 ``sv_mpo_matvec`` at the full-width MCWF shape (B=16, L=20) with
     the TFIM MPO (Dw=3) and the XXZ MPO (Dw=5), each with the one-site terms
-    of z + lowering noise; K13 ``arnoldi_step`` at j = 0, 4, ..., 24 (one j
-    per row-count bucket; j = 0, 12, 24 timed) with identical breakdown
-    masks, and ``arnoldi_epilogue`` at k=25, both also at the noisy guard's
+    of z + lowering noise, its pass plan printed, and held (not timed) at the
+    shapes where the plan changes; K13 ``arnoldi_step`` at j = 0, 4, ..., 24
+    (one j per row-count bucket; j = 0, 12, 24 timed) with identical
+    breakdown masks, the whole ``arnoldi_expm_apply`` against its plain
+    loop, and ``arnoldi_epilogue`` at k=25, both also at the noisy guard's
     shape (B=4096, k=n=16)."""
     from yaqs_tpu_torch.analog.mcwf import local_jump_channels, make_mcwf_local_context
     from yaqs_tpu_torch.kernels.arnoldi import (
         arnoldi_epilogue, arnoldi_epilogue_plain, arnoldi_step, arnoldi_step_plain, step_blocks,
     )
-    from yaqs_tpu_torch.kernels.sv_mpo import sv_mpo_matvec, sv_mpo_matvec_plain
+    from yaqs_tpu_torch.kernels.sv_mpo import (
+        pass_plan, sv_mpo_matvec, sv_mpo_matvec_plain,
+    )
+    from yaqs_tpu_torch.ops import krylov
 
     length, b, k = MCWF["length"], MCWF["batch"], MCWF["krylov_dim"]
     n = 2**length
@@ -832,37 +874,82 @@ def mcwf_kernel_rows(dev, randc, gen):
         ref = sv_mpo_matvec_plain(tab.mpo, psi, tab.local)
         torch.cuda.synchronize()
         err = rel_err(got, ref)
-        log(f"[phase 3] sv_mpo_matvec (B={b}, L={length}, Dw={dw}, one-site terms): rel err {err:.3e}")
+        plan = pass_plan(length, dw, True)
+        log(f"[phase 3] sv_mpo_matvec (B={b}, L={length}, Dw={dw}, one-site terms): rel err {err:.3e}; "
+            f"{len(plan)} passes (first site, sites, contiguous bits) {plan}")
         check(err <= KERNEL_TOL, f"sv_mpo_matvec disagrees with its plain version: {err} > {KERNEL_TOL}")
         rows["sv_mpo_matvec"]["max_abs_err"] = max(rows["sv_mpo_matvec"]["max_abs_err"], (got - ref).abs().max().item())
-        dws = [1] + [dw] * (length - 1) + [1]
-        cmacs = b * n * (2 * sum(dws[i] * dws[i + 1] for i in range(length)) + 1)  # + the diagonal one-site terms
+        dense, nonzero, vectors = sv_mpo_work(tab.mpo, b, plan, tab.local)
+        nbytes = (2 * b * n + length * 4 * (dw * dw + 1)) * C64
         t = timings(f"sv_mpo_matvec (B={b}, L={length}, Dw={dw})", lambda: sv_mpo_matvec(tab.mpo, psi, tab.local),
                     lambda: sv_mpo_matvec_plain(tab.mpo, psi, tab.local), lambda: sv_mpo_matvec_plain(tab.mpo, psi),
-                    ("sv_mpo_site_kernel",), (2 * b * n + length * 4 * (dw * dw + 1)) * C64, cmacs * CMAC_FLOPS,
-                    per_call=length)
-        # the same passes without the one-site terms: what riding them on the last site's pass costs
-        bare_ms, _, _ = device_ms(lambda: sv_mpo_matvec(tab.mpo, psi), names=("sv_mpo_site_kernel",), per_call=length)
-        log(f"[phase 3] sv_mpo_matvec (B={b}, L={length}, Dw={dw}) without the one-site terms: device {bare_ms:.4f} ms")
+                    ("sv_mpo_pass_kernel",), nbytes, nonzero * CMAC_FLOPS, per_call=len(plan))
+        dense_ms, dense_by = bound(nbytes, dense * CMAC_FLOPS)
+        log(f"[phase 3] sv_mpo_matvec (B={b}, L={length}, Dw={dw}): bound {t['bound_ms']:.4f} ms on the nonzero "
+            f"entries of W ({nonzero / dense:.3f} of the dense work), dense bound {dense_ms:.4f} ms ({dense_by}); "
+            f"the plan moves {vectors} vectors of 2^{length} a trajectory ({vectors * b * n * C64 / 1e9:.2f} GB, "
+            f"{1e3 * vectors * b * n * C64 / HBM_BYTES_PER_S:.4f} ms at the memory rate); earlier design (a pass "
+            f"a site, PERF.md) {EARLIER_MS['sv_mpo_matvec'][model]:.4f} ms")
+        # the same passes without the one-site terms: what the terms cost
+        bare_plan = pass_plan(length, dw, False)
+        bare_ms, _, _ = device_ms(lambda: sv_mpo_matvec(tab.mpo, psi), names=("sv_mpo_pass_kernel",),
+                                  per_call=len(bare_plan))
+        log(f"[phase 3] sv_mpo_matvec (B={b}, L={length}, Dw={dw}) without the one-site terms: device {bare_ms:.4f} ms "
+            f"in {len(bare_plan)} passes")
         rows["sv_mpo_matvec"][model] = dict(shape=[b, length, dw], library_call="torch.einsum per site (L calls)",
-                                            ms_without_local_terms=bare_ms, **t)
+                                            ms_without_local_terms=bare_ms, passes=len(plan), plan=plan,
+                                            bound_ms_dense=dense_ms, design_vectors=vectors,
+                                            earlier_ms=EARLIER_MS["sv_mpo_matvec"][model], **t)
 
-    def step_state(bs, kk, nn, j):
+    # held, not timed: the shapes where the pass plan changes (one pass up to
+    # L = 11 at Dw = 3, two from 12, three at 22; Dw = 8 three at L = 20 and
+    # four, the most the wrapper's range needs, at L = 27), a
+    # random MPO with zeros and off-diagonal one-site terms, strided batches
+    for bs, ls, dws in SV_BOUNDARY_SHAPES:
+        ws = randc(ls, 2, 2, dws, dws) / dws
+        if dws > 1:
+            ws[:, :, :, 1, 0] = 0
+        loc = randc(ls, 2, 2)
+        loc[::2, 0, 1], loc[::2, 1, 0] = 0, 0
+        psi = randc(bs, 2 * 2**ls)[:, : 2**ls]
+        for with_loc in (None, loc):
+            got = sv_mpo_matvec(ws, psi, with_loc)
+            ref = sv_mpo_matvec_plain(ws, psi, with_loc)
+            torch.cuda.synchronize()
+            err = rel_err(got, ref)
+            plan = pass_plan(ls, dws, with_loc is not None)
+            log(f"[phase 3] sv_mpo_matvec held at (B={bs}, L={ls}, Dw={dws}), one-site terms {with_loc is not None}: "
+                f"rel err {err:.3e}, {len(plan)} passes {plan}")
+            check(err <= KERNEL_TOL, f"sv_mpo_matvec at ({bs}, {ls}, {dws}) disagrees with its plain version: {err}")
+            rows["sv_mpo_matvec"]["max_abs_err"] = max(rows["sv_mpo_matvec"]["max_abs_err"],
+                                                       (got - ref).abs().max().item())
+        del psi, got, ref
+        torch.cuda.empty_cache()
+
+    def step_state(bs, kk, nn, j, breakdowns=True):
+        """Step j's input: rows 0..j-1 orthonormal, row j a residual after one
+        pass (random), w random, H's columns left of j Hessenberg (column j - 1
+        pending).  With ``breakdowns``, trajectory 1 broke down before (its
+        row j and w zero) and trajectory 2's row j is rounding noise in the
+        span of rows 0..j-1 (at j = 0 rounding noise): it breaks down now;
+        else every trajectory is alive, as on the MCWF path."""
         basis = torch.zeros((bs, kk, nn), dtype=torch.complex64, device=dev)
-        basis[:, : j + 1] = torch.linalg.qr(randc(bs, nn, j + 1))[0].mT
-        hess = torch.zeros((bs, kk, kk), dtype=torch.complex64, device=dev)
+        if j > 0:
+            basis[:, :j] = torch.linalg.qr(randc(bs, nn, j))[0].mT
+        basis[:, j] = randc(bs, nn) / np.sqrt(2 * nn)
+        hess = torch.triu(randc(bs, kk, kk), diagonal=-1)
+        hess[:, :, j:] = 0
         w_vec = randc(bs, nn)
-        w_vec[2] = basis[2, : j + 1].sum(dim=0)  # inside the span: breaks down now
         alive = torch.ones(bs, dtype=torch.bool, device=dev)
-        alive[1] = False  # broken down before: its row j and w are zero
-        basis[1, j] = 0
-        w_vec[1] = 0
+        if breakdowns:
+            basis[2, j] = 1e-9 * (basis[2, :j].sum(dim=0) if j > 0 else basis[2, j])
+            alive[1] = False
+            basis[1, j] = 0
+            w_vec[1] = 0
         return [w_vec, basis, hess, alive]
 
-    # at n = 16 the residual after j + 1 rows spans 15 - j directions: at j = 15
-    # it is rounding noise, and near it some of 4096 random vectors keep so
-    # little that dividing by beta lifts float32 rounding toward 1e-5 (j = 14
-    # read 9.2e-6), so the guard's shape is compared up to j = 12
+    # at n = 16 the next residual lies in the 15 - j directions the rows leave;
+    # the guard's shape is compared at j = 0, 9 and 12 as before the redesign
     for bs, kk, nn, js in ((b, k, n, range(0, k, 4)), (4096, 16, 16, (0, 9, 12))):
         for j in js:
             state = step_state(bs, kk, nn, j)
@@ -871,26 +958,58 @@ def mcwf_kernel_rows(dev, randc, gen):
             arnoldi_step_plain(*ref_state, j, BREAKDOWN_TOL)
             torch.cuda.synchronize()
             same_mask = torch.equal(mine[-1], ref_state[-1])
-            err = max(rel_err(mine[i], ref_state[i]) for i in range(3))
+            err = max(rel_err(mine[i], ref_state[i]) for i in (1, 2))
             log(f"[phase 3] arnoldi_step (B={bs}, k={kk}, n={nn}, j={j}): rel err {err:.3e}, identical alive masks "
                 f"{same_mask} ({int(mine[-1].sum())} of {bs} alive)")
             check(err <= KERNEL_TOL and same_mask, f"arnoldi_step (j={j}) disagrees with its plain version")
             check(not bool(mine[-1][1]) and not bool(mine[-1][2]), "a breakdown of arnoldi_step was not detected")
             rows["arnoldi_step"]["max_abs_err"] = max(rows["arnoldi_step"]["max_abs_err"],
-                                                      max((a - r).abs().max().item() for a, r in zip(mine[:3], ref_state[:3])))
+                                                      max((mine[i] - ref_state[i]).abs().max().item() for i in (1, 2)))
             if bs == b and j in (0, 12, 24):
-                timed = [x.clone() for x in state]
+                del state, mine, ref_state
+                timed = step_state(bs, kk, nn, j, breakdowns=False)
 
                 def run(fn=arnoldi_step, timed=timed, j=j):  # repeated calls repeat the same passes
                     fn(timed[0], timed[1], timed[2], timed[3], j, BREAKDOWN_TOL)
 
-                # w and rows 0..j in, row j + 1 out (none at the last j), and H's column
-                vectors = j + 2 + (j + 1 < kk)
+                # the function's own bytes (the CGS2 body it replaces): w and
+                # rows 0..j in, row j + 1 out (none at the last j), and H's
+                # column; the design reads the basis twice and writes row j
+                # again: 2j + 6 vectors (2j + 4 at the last j)
+                last = j + 1 == kk
+                vectors = j + 3 - last
+                design = 2 * j + 6 - 2 * last
                 t = timings(f"arnoldi_step (B={bs}, k={kk}, n={nn}, j={j}, {step_blocks(nn)} blocks a trajectory)",
-                            run, lambda run=run: run(arnoldi_step_plain), None,
-                            ("project_kernel", "subtract_project_kernel", "subtract_norm_kernel", "finish_kernel"),
-                            vectors * bs * nn * C64 + bs * (kk + 2) * C64, bs * nn * (4 * (j + 1) + 1) * CMAC_FLOPS)
-                rows["arnoldi_step"][f"j{j}"] = dict(shape=[bs, kk, nn, j], library_call="none", **t)
+                            run, lambda run=run: run(arnoldi_step_plain), None, ("project_kernel", "update_kernel"),
+                            vectors * bs * nn * C64 + bs * (kk + 1) * C64, bs * nn * (4 * j + 4) * CMAC_FLOPS)
+                check(bool(timed[3].all()), f"a trajectory of the timed arnoldi_step (j={j}) broke down")
+                log(f"[phase 3] arnoldi_step j={j}, every trajectory alive: the design moves {design} vectors of n a "
+                    f"trajectory (the basis "
+                    f"read twice; {design * bs * nn * C64 / 1e9:.2f} GB, "
+                    f"{1e3 * design * bs * nn * C64 / HBM_BYTES_PER_S:.4f} ms at the memory rate), the bound "
+                    f"{vectors}; earlier design (CGS2, four launches, PERF.md) {EARLIER_MS['arnoldi_step'][j]:.4f} ms")
+                rows["arnoldi_step"][f"j{j}"] = dict(shape=[bs, kk, nn, j], library_call="none", design_vectors=design,
+                                                     earlier_ms=EARLIER_MS["arnoldi_step"][j], **t)
+
+    # the whole exponential, kernel steps against plain steps (the same
+    # kernel matvec): the step's rows differ from CGS2's, the result must not
+    w, _, noise, _ = mcwf_inputs(length, MCWF["gamma"])
+    tab = make_mcwf_local_context(w, local_jump_channels(noise), [], MCWF["dt"]).tables(dev, torch.complex64)
+    v = randc(b, n) / np.sqrt(2 * n)
+    v[1] = 0  # a zero start vector comes back unchanged
+    got = krylov.arnoldi_expm_apply(lambda q: sv_mpo_matvec(tab.mpo, q, tab.local), v, -1j * MCWF["dt"], k=k)
+    step, krylov.arnoldi_step = krylov.arnoldi_step, arnoldi_step_plain
+    try:
+        ref = krylov.arnoldi_expm_apply(lambda q: sv_mpo_matvec(tab.mpo, q, tab.local), v, -1j * MCWF["dt"], k=k)
+    finally:
+        krylov.arnoldi_step = step
+    torch.cuda.synchronize()
+    err = rel_err(got, ref)
+    log(f"[phase 3] arnoldi_expm_apply (B={b}, k={k}, n={n}, the MCWF H_eff), kernel steps vs plain steps: rel err "
+        f"{err:.3e}; zero start vector unchanged {torch.equal(got[1], v[1])}")
+    check(err <= KERNEL_TOL and torch.equal(got[1], v[1]), f"arnoldi_expm_apply kernel vs plain steps: {err}")
+    del v, got, ref
+    torch.cuda.empty_cache()
 
     for bs, kk, nn in ((b, k, n), (4096, 16, 16)):
         diag = 3 * torch.randn((bs, kk), generator=gen, device=dev)

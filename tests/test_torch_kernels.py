@@ -107,14 +107,17 @@ def _randc(gen, shape, device):
 
 
 def _arnoldi_inputs(seed, batch, k, n, j, device="cpu"):
-    """Arnoldi state at iteration ``j``: orthonormal basis rows 0..j (zero
-    beyond), a Hessenberg ``H`` filled left of column j, trajectory 1
-    already broken down (its row j and ``w`` zero), trajectory 2's ``w`` in
-    the span of its rows (breaks down now)."""
+    """Arnoldi state at iteration ``j`` of the DCGS2 step: orthonormal basis
+    rows 0..j-1, row j a residual after one pass (random), zero beyond, a
+    Hessenberg ``H`` filled left of column j, ``w`` random; trajectory 1
+    already broken down (its row j and ``w`` zero), trajectory 2's row j
+    rounding noise in the span of its earlier rows (breaks down now)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     basis = torch.zeros((batch, k, n), dtype=torch.complex64, device=device)
-    q, _ = torch.linalg.qr(_randc(gen, (batch, n, j + 1), device))
-    basis[:, : j + 1] = q.mT
+    if j > 0:
+        q, _ = torch.linalg.qr(_randc(gen, (batch, n, j), device))
+        basis[:, :j] = q.mT
+    basis[:, j] = _randc(gen, (batch, n), device) / np.sqrt(2 * n)
     hess = torch.triu(_randc(gen, (batch, k, k), device), diagonal=-1)
     hess[:, :, j:] = 0
     w = _randc(gen, (batch, n), device)
@@ -122,16 +125,17 @@ def _arnoldi_inputs(seed, batch, k, n, j, device="cpu"):
     alive[1] = False
     basis[1, j] = 0
     w[1] = 0
-    w[2] = basis[2, : j + 1].sum(dim=0) * (1 + 0.5j)
+    basis[2, j] = 1e-9 * (basis[2, :j].sum(dim=0) if j > 0 else basis[2, j]) * (1 + 0.5j)
     return [w, basis, hess, alive]
 
 
 def _sv_inputs(seed, batch, length, dw, device="cpu", off_diagonal=True):
-    """A random MPO ``(L, 2, 2, Dw, Dw)``, state vectors as basis-row views
-    (a stride between trajectories) and per-site one-site terms (zero at
-    every third site)."""
+    """A random MPO ``(L, 2, 2, Dw, Dw)`` (one bond entry zero), state
+    vectors as basis-row views (a stride between trajectories) and per-site
+    one-site terms (zero at every third site)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     w = _randc(gen, (length, 2, 2, dw, dw), device) / dw
+    w[:, :, :, dw - 1, 0] = 0  # exact zeros, which the kernel skips
     rows = _randc(gen, (batch, 2, 2**length), device)
     local = _randc(gen, (length, 2, 2), device) * 0.3
     local[::3] = 0
@@ -283,7 +287,7 @@ def test_build_digest_covers_the_shared_headers(tmp_path):
     assert includers == ["moment_scan.cu", "ns_canon.cu", "ns_polar.cu", "subspace_split.cu"]
     assert '#include "launch.cuh"' in (build.CSRC / "ns_polar.cuh").read_text()
     includers = [p.name for p in build._sources() if '#include "launch.cuh"' in p.read_text()]
-    assert includers == ["householder_qr.cu", "lanczos_solve.cu", "pair_weights.cu", "svd_jacobi.cu"]
+    assert includers == ["householder_qr.cu", "lanczos_solve.cu", "pair_weights.cu", "sv_mpo.cu", "svd_jacobi.cu"]
     includers = [p.name for p in build._sources() if '#include "heff.cuh"' in p.read_text()]
     assert includers == ["heff.cu", "lanczos_solve.cu"]
 
@@ -772,9 +776,14 @@ def test_default_tdvp_config_runs_on_card(cuda):
     assert (card.double() - cpu).abs().max().item() <= 1e-3
 
 
-# K12 at the MCWF shapes: the full-width TFIM (B=16, L=20, Dw=3) and XXZ
-# (Dw=5), a vector smaller than a block (L=4), L=1, and Dw=8
-SV_SHAPES = [(16, 20, 3), (16, 20, 5), (4096, 4, 3), (3, 1, 2), (5, 9, 8)]
+# K12 at the MCWF shapes: the full-width TFIM (B=16, L=20) and XXZ (Dw=5),
+# a vector smaller than a block (L=4), L=1, and Dw=8; and where the pass plan
+# changes: one pass at L=11, one without and two with one-site terms at
+# L=12, two at L=13 (the smallest chain on the local route), three at L=22
+# and at Dw=8, L=20, four (two middle passes, the most the range needs) at
+# Dw=8, L=27
+SV_SHAPES = [(16, 20, 3), (16, 20, 5), (4096, 4, 3), (3, 1, 2), (5, 9, 8), (8, 11, 3), (8, 12, 3), (16, 13, 3),
+             (4, 22, 3), (4, 20, 8), (1, 27, 8)]
 
 
 @pytest.mark.cuda
@@ -793,6 +802,8 @@ def test_sv_mpo_kernel_matches_plain(cuda, batch, length, dw):
         sv_mpo_matvec(w.to(torch.complex128), psi.to(torch.complex128), None)
 
 
+# K13's step at j = 0, 12 and 24 of the MCWF shape, the noisy guard's shape
+# and k = 32 (its last step)
 ARNOLDI_SHAPES = [(16, 25, 2**20, 0), (16, 25, 2**20, 12), (16, 25, 2**20, 24), (4096, 16, 16, 9), (3, 32, 1000, 31)]
 
 
@@ -810,8 +821,43 @@ def test_arnoldi_step_kernel_matches_plain(cuda, batch, k, n, j):
     rw, rbasis, rhess, ralive = copy
     assert torch.equal(alive, ralive)  # identical breakdown masks
     assert not alive[1] and not alive[2] and bool(alive[0])
-    for got, ref in ((w, rw), (basis, rbasis), (hess, rhess)):
+    assert torch.equal(w, rw)  # w is read only
+    for got, ref in ((basis, rbasis), (hess, rhess)):
         assert _rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("batch", "length", "k"), [(16, 20, 25), (64, 10, 25), (4096, 4, 16)])
+def test_arnoldi_expm_apply_kernel_matches_plain(cuda, batch, length, k):
+    """The whole exponential with K13's steps against the plain steps (K12
+    the matvec of both): the MCWF H_eff of TFIM with z + lowering one-site
+    terms, a zero start vector passed through."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch.analog.mcwf import local_jump_channels, make_mcwf_local_context
+    from yaqs_tpu_torch.ops import krylov
+
+    noise = yt.NoiseModel([{"name": name, "sites": [i], "strength": 0.05} for i in range(length)
+                           for name in ("z", "lowering")])
+    tab = make_mcwf_local_context(yt.ising_mpo(length, 1.0, 0.5), local_jump_channels(noise), [], 0.1).tables(
+        cuda, torch.complex64)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    v = _randc(gen, (batch, 2**length), cuda)
+    v[1] = 0
+
+    def matvec(q):
+        return sv_mpo_matvec(tab.mpo, q, tab.local)
+
+    kernels.reset_launch_counts()
+    got = krylov.arnoldi_expm_apply(matvec, v, -0.1j, k=k)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["arnoldi_step"] == min(k, 2**length)
+    step, krylov.arnoldi_step = krylov.arnoldi_step, arnoldi_step_plain
+    try:
+        ref = krylov.arnoldi_expm_apply(matvec, v, -0.1j, k=k)
+    finally:
+        krylov.arnoldi_step = step
+    assert _rel_err(got, ref) <= 1e-5
+    assert torch.equal(got[1], v[1])
 
 
 @pytest.mark.cuda

@@ -3,13 +3,25 @@
 Replace the ``fori_loop`` body (the matvec aside) and the epilogue of
 ``yaqs_tpu.ops.krylov.arnoldi_expm_apply``, per trajectory of a batch:
 
-- ``arnoldi_step``: iteration ``j`` for ``w = A q_j``: two classical
-  Gram–Schmidt passes against basis rows ``0..j``, ``beta = ||w||``, the
-  breakdown mask ``alive & (beta > tol)``, column ``j`` of the complex
-  Hessenberg matrix ``H`` with ``H[j + 1, j] = beta``, and basis row
-  ``j + 1``, all updated in place, so no value travels to the host;
+- ``arnoldi_step``: iteration ``j`` after the matvec ``w = A y_j``, as
+  delayed classical Gram–Schmidt with reorthogonalization (DCGS2), which
+  reads the basis twice a step where the JAX package's two classical passes
+  (CGS2) read it three times.  Basis row ``j`` comes in as ``y_j``, the
+  residual of step ``j - 1`` after one pass (at ``j = 0`` the normalized
+  start vector); the step reorthogonalizes and normalizes it into ``q_j``,
+  completes column ``j - 1`` of the complex Hessenberg matrix ``H`` with
+  that second pass, forms column ``j`` from the projections of ``A q_j``
+  (the Arnoldi relation corrects ``w``'s, no extra pass), and writes the next
+  residual after one pass into row ``j + 1``.  The breakdown mask is the
+  JAX rule, ``alive & (r > tol)`` on the reorthogonalized residual norm
+  ``r``, decided one step later than CGS2 decides it (when that residual
+  becomes row ``j``); all updated in place, so no value travels to the host;
 - ``arnoldi_epilogue``: ``nrm * sum_r exp(coeff H)[r, 0] V[r]``, or the
   start vector ``x`` itself where its norm is zero.
+
+After ``k`` steps the rows and the columns ``0 .. k - 2`` of ``H`` are those
+of CGS2 up to rounding; the last column keeps its first pass (a second pass
+would change ``exp(coeff H)[:, 0]`` only at order ``k`` of its series).
 """
 
 from __future__ import annotations
@@ -31,7 +43,9 @@ __all__ = [
 MAX_K = 32  # the k x k exponential and a thread's row values fit on chip
 MAX_BATCH = 65535  # grid.y
 MAX_BLOCKS = 64  # streaming blocks per trajectory
-SCRATCH_FLOATS = 4 * MAX_K + 1  # per (trajectory, block): two projections and a norm
+PART = 2 * MAX_K + 2  # complex partial sums per (trajectory, block): V^H w, V^H y, y^H w, |y|^2
+COEF = 2 * MAX_K + 2  # complex coefficients of the update pass per trajectory
+_COUNTERS: dict = {}  # per device: the projection pass's per-trajectory block counters, left at zero
 
 
 def step_blocks(n: int) -> int:
@@ -43,24 +57,36 @@ def step_blocks(n: int) -> int:
 def arnoldi_step_plain(
     w: torch.Tensor, basis: torch.Tensor, hess: torch.Tensor, alive: torch.Tensor, j: int, tol: float
 ) -> None:
-    """Plain PyTorch version, in the JAX order, on rows ``0..j`` (the rows
-    above ``j`` are zero, so skipping them changes no number).  Updates
-    ``w`` (to the orthogonalized vector), basis row ``j + 1``, column ``j``
-    of ``hess`` and ``alive`` in place."""
-    rows = basis[:, : j + 1]
-    h = torch.zeros_like(w[:, : j + 1])
-    for _ in range(2):
-        proj = torch.einsum("zkn,zn->zk", rows.conj(), w)
-        w -= torch.einsum("zk,zkn->zn", proj, rows)
-        h = h + proj
-    beta = torch.linalg.vector_norm(w, dim=-1)
-    alive_next = alive & (beta > tol)
-    hess[:, : j + 1, j] = torch.where(alive[:, None], h, torch.zeros_like(h))
+    """Plain PyTorch version of the DCGS2 step, on rows ``0..j`` (the rows
+    above ``j`` are zero).  Reads ``w = A y_j``; updates basis rows ``j``
+    and ``j + 1``, columns ``j - 1`` and ``j`` of ``hess`` and ``alive`` in
+    place."""
     k = basis.shape[1]
+    prev, y = basis[:, :j], basis[:, j]
+    a = torch.einsum("zmn,zn->zm", prev.conj(), y)
+    c = torch.einsum("zmn,zn->zm", prev.conj(), w)
+    d = (y.conj() * w).sum(dim=-1)
+    s = (y.real**2 + y.imag**2).sum(dim=-1) - (a.real**2 + a.imag**2).sum(dim=-1)
+    r = torch.sqrt(torch.clamp(s, min=0.0))
+    alive_next = alive & (r > tol)
+    rs = torch.where(alive_next, r, torch.ones_like(r)).to(w.dtype)
+    if j > 0:  # column j - 1 gets its second pass and its subdiagonal
+        hess[:, :j, j - 1] += torch.where(alive[:, None], a, torch.zeros_like(a))
+        hess[:, j, j - 1] = torch.where(alive_next, r, torch.zeros_like(r)).to(hess.dtype)
+    b = torch.einsum("zim,zm->zi", hess[:, : j + 1, :j], a)  # A V a = [V q_j] b
+    qw = (d - (a.conj() * c).sum(dim=-1)) / rs  # q_j^H w
+    h = torch.cat([(c - b[:, :j]) / rs[:, None], ((qw - b[:, j]) / rs)[:, None]], dim=1)
+    e = b / rs[:, None] + h
+    hess[:, : j + 1, j] = torch.where(alive_next[:, None], h, torch.zeros_like(h))
+    keep = alive_next[:, None]
+    ar = a / rs[:, None]
+    q = y / rs[:, None] - torch.einsum("zm,zmn->zn", ar, prev)
     if j + 1 < k:
-        safe = torch.where(alive_next, beta, torch.ones_like(beta))
-        basis[:, j + 1] = torch.where(alive_next[:, None], w / safe.to(w.dtype)[:, None], torch.zeros_like(w))
-        hess[:, j + 1, j] = torch.where(alive_next, beta, torch.zeros_like(beta)).to(hess.dtype)
+        f = e[:, :j] - ar * e[:, j : j + 1]
+        g = e[:, j] / rs
+        y_next = w / rs[:, None] - torch.einsum("zm,zmn->zn", f, prev) - g[:, None] * y
+        basis[:, j + 1] = torch.where(keep, y_next, torch.zeros_like(y_next))
+    basis[:, j] = torch.where(keep, q, torch.zeros_like(q))
     alive.copy_(alive_next)
 
 
@@ -77,14 +103,14 @@ def _check(name: str, tensors: dict, device) -> None:
 def arnoldi_step(
     w: torch.Tensor, basis: torch.Tensor, hess: torch.Tensor, alive: torch.Tensor, j: int, tol: float
 ) -> None:
-    """Iteration ``j`` for ``w = A q_j`` (``(B, n)``, overwritten), with
-    ``basis (B, k, n)``, ``hess (B, k, k)`` complex and ``alive (B,)``
-    bool, all updated in place.
+    """Iteration ``j`` for ``w = A y_j`` (``(B, n)``, read only, ``y_j``
+    basis row ``j`` as it came in), with ``basis (B, k, n)``, ``hess (B, k,
+    k)`` complex and ``alive (B,)`` bool, all updated in place.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches
     ``arnoldi_step`` (complex64, contiguous, ``k <= 32``), or raises
-    ``ValueError``.  One launch of the wrapper runs four passes on the
-    current stream.
+    ``ValueError``.  One launch of the wrapper runs two passes on the
+    current stream, each reading the basis once.
     """
     if not on_card("arnoldi_step", w):
         arnoldi_step_plain(w, basis, hess, alive, j, tol)
@@ -106,12 +132,15 @@ def arnoldi_step(
     if b == 0 or n == 0:
         return
     nblk = step_blocks(n)
-    scratch = torch.empty(b * nblk * SCRATCH_FLOATS, dtype=torch.float32, device=w.device)
+    scratch = torch.empty(b * (nblk * PART + COEF), dtype=torch.complex64, device=w.device)
+    counters = _COUNTERS.get(w.device)
+    if counters is None:
+        counters = _COUNTERS[w.device] = torch.zeros(MAX_BATCH, dtype=torch.int32, device=w.device)
     lib = load_library()
     stream = torch.cuda.current_stream(w.device).cuda_stream
     err = lib.arnoldi_step_launch(
-        w.data_ptr(), basis.data_ptr(), hess.data_ptr(), alive.data_ptr(), scratch.data_ptr(), b, k, n, j, nblk,
-        tol, stream,
+        w.data_ptr(), basis.data_ptr(), hess.data_ptr(), alive.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
+        b, k, n, j, nblk, tol, stream,
     )
     check(err, "arnoldi_step")
     LAUNCHES["arnoldi_step"] += 1

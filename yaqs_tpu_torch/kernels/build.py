@@ -73,10 +73,10 @@ _SIGNATURES = {
                              _I, _I, _F, _P],
     # (chi, dw, p) -> clusters the card holds at once
     "lanczos_solve_max_clusters": [_I, _I, _I],
-    # (w, psi, stride_psi, local, out, scratch, batch, L, dw, stream)
-    "sv_mpo_matvec_launch": [_P, _P, _LL, _P, _P, _P, _I, _I, _I, _P],
-    # (w, basis, hess, alive, scratch, batch, k, n, j, blocks, tol, stream)
-    "arnoldi_step_launch": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _F, _P],
+    # (w, psi, stride_psi, local, out, scratch, batch, L, dw, passes, plan (host ints), stream)
+    "sv_mpo_matvec_launch": [_P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # (w, basis, hess, alive, scratch, counters, batch, k, n, j, blocks, tol, stream)
+    "arnoldi_step_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _F, _P],
     # (hess, coeff_re, coeff_im, basis, nrm, x, out, small, batch, k, n, stream)
     "arnoldi_epilogue_launch": [_P, _F, _F, _P, _P, _P, _P, _P, _I, _I, _LL, _P],
     # (in, stride_in, noise, q or null for R alone, r, batch, n, k, adjoint, stream)

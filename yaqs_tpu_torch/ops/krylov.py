@@ -12,8 +12,8 @@ and K2, ``kernels/lanczos_solve.py``).  :func:`lanczos_expm_apply` takes
 any matvec and runs the plain loop (CPU tensors only).  Both end in the
 epilogue — the small exponential ``exp(coeff T) e0`` and the basis
 combination — kernel K3 (``kernels/lanczos_epilogue.py``).  Each Arnoldi
-iteration is the matvec, then kernel K13's step, and its epilogue is K13's
-(``kernels/arnoldi.py``).
+iteration is the matvec, then kernel K13's step (DCGS2: the basis read twice
+a step), and its epilogue is K13's (``kernels/arnoldi.py``).
 """
 
 from __future__ import annotations
@@ -111,15 +111,19 @@ def arnoldi_expm_apply(
     k: int = DEFAULT_KRYLOV_DIM,
 ) -> torch.Tensor:
     """``exp(coeff * A) @ v`` for a general (non-Hermitian) ``A``, per
-    trajectory: Arnoldi with two classical Gram–Schmidt passes and a fixed
-    ``min(k, n)`` iterations (the MCWF effective Hamiltonian).
+    trajectory: Arnoldi with a fixed ``min(k, n)`` iterations (the MCWF
+    effective Hamiltonian).  Each iteration is delayed classical Gram–Schmidt
+    with reorthogonalization (K13's step): the JAX package's two classical
+    passes, the second applied one step later, so the matvec sees basis row
+    ``j`` before its second pass and the step corrects through the Arnoldi
+    relation.
 
     ``v (B, ...)`` is flattened per trajectory; ``matvec`` maps ``(B, ...)``
-    to a new ``(B, ...)`` tensor (the step overwrites it) and is handed each
-    basis row in place, a view with a stride between trajectories.  Returns a
-    tensor of ``v``'s shape; a zero start vector comes back unchanged.  A
-    trajectory whose ``beta`` falls to ``100 eps`` has closed its Krylov
-    space (breakdown).
+    to a new ``(B, ...)`` tensor (the step reads it) and is handed each basis
+    row in place, a view with a stride between trajectories; it must be
+    linear.  Returns a tensor of ``v``'s shape; a zero start vector comes back
+    unchanged.  A trajectory whose reorthogonalized residual norm falls to
+    ``100 eps`` has closed its Krylov space (breakdown).
     """
     shape = v.shape
     b = shape[0]
