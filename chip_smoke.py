@@ -14,8 +14,10 @@ Phases (any failure raises and exits non-zero):
    of the nearest PyTorch library call, and the bound (bytes over 3.35 TB/s
    or FP32 operations over 67 TFLOP/s, the larger); the TDVP kernels at the
    analog shape (B=32, chi=64, Dw=3), the XXZ shape (B=16, Dw=5) and the
-   gate-window shape (B=512, chi=32, Dw=1), the Lanczos step in both variants with identical breakdown
-   masks, the epilogue also at k=25; K9 ``svd_jacobi`` at (32, 128, 128),
+   gate-window shape (B=512, chi=32, Dw=1), K8 with its plan of column slices and beside its earlier
+   design's time, ``right_environments`` at the analog shape (host-paced against its 100 K8 launches'
+   device time), the Lanczos step in both variants with identical breakdown
+   masks, the epilogue also at k=25 (n=4096 and 2048), each K3 row beside its earlier design's time; K9 ``svd_jacobi`` at (32, 128, 128),
    (512, 64, 64), the zip-up split's adjoint (32, 256, 128), the two shapes
    whose W is kept in device scratch ((80, 256, 128) and (2, 4096, 128))
    and values only at (32, 64, 64), each on random, padded rank-1,
@@ -215,14 +217,19 @@ BREAKDOWN_TOL = 100 * float(np.finfo(np.float32).eps)
 # device ms of the earlier designs of K5 (one block a matrix) and K14
 # (unblocked, always forming Q), from PERF.md's kernel table, of K7's two
 # launches and K6 (one block a chain), from a probe of the parent tree in
-# PERF.md's call 13, and of K12 (a pass a site) and K13's step (CGS2, four
-# launches), from PERF.md's kernel table (all NVIDIA H100 80GB HBM3, 700.00
-# W), printed beside this run's rows
+# PERF.md's call 13, of K12 (a pass a site) and K13's step (CGS2, four
+# launches), from PERF.md's kernel table, and of K8 (8 columns a block, a
+# thread a row) and K3 (every block its exponential on 256 threads), from
+# PERF.md's kernel table and, at the shapes it lacked, scripts/ab_kernels.py's
+# runs of the earlier design (PERF.md, section 6; all NVIDIA H100 80GB HBM3,
+# 700.00 W), printed beside this run's rows
 EARLIER_MS = dict(subspace_split=dict(analog_right=1.6681, analog_left=1.7038, digital=1.0635),
               householder_qr=dict(analog=0.3903, window=0.1212, bond_spectra=0.3903),
               moment_scan=dict(digital=dict(scan=1.3982, moments=0.7636), analog=dict(scan=15.5103, moments=2.7182)),
               ns_canon=dict(analog=33.6467, digital=6.0492),
-              sv_mpo_matvec=dict(ising=5.3555, heisenberg=9.7478), arnoldi_step={0: 0.8930, 12: 2.2651, 24: 4.1999})
+              sv_mpo_matvec=dict(ising=5.3555, heisenberg=9.7478), arnoldi_step={0: 0.8930, 12: 2.2651, 24: 4.1999},
+              env_update=dict(analog=0.0564, xxz=0.0789, window=0.0760),
+              lanczos_epilogue=dict(k4_two_site=0.0114, k4_one_site=0.0106, k25=0.4173, k25_n2048=0.2342))
 # K12's shapes held (not timed) in phase 3 where its pass plan changes: (B, L, Dw)
 SV_BOUNDARY_SHAPES = ((64, 11, 3), (64, 12, 3), (16, 13, 3), (4, 22, 3), (4, 20, 8), (1, 27, 8), (3, 1, 2),
                       (8, 9, 8))
@@ -292,12 +299,14 @@ def device_ms(fn, calls: int = 20, names: tuple[str, ...] = (), per_call: int = 
     ``per_call`` times a call: once, or once a site for ``sv_mpo_matvec``):
     every device row must be one of them, and the time per call is the sum
     over them of each kernel's own time over its launch count, times
-    ``per_call``.  Each kernel's row must hold all ``calls * per_call`` of
-    its launches: the profiler has been seen to keep as few as 1 of 20 late
-    in a run, once with a duration half the host-paced time.  Where a row
-    holds fewer, or the profiler records no device row at all, the figure
-    is one call at a time between CUDA events (source ``"events"``), and a
-    line says so."""
+    ``per_call``.  Each kernel's row must hold at least half of its
+    ``calls * per_call`` launches (a line names a row that holds fewer than
+    all, and the source says how many the shortest kept): the profiler has been seen to keep as few as 1 of 20 late in a
+    run, once with a duration half the host-paced time.  Where a row holds
+    fewer, or the profiler records no device row at all, the figure is one
+    call at a time between CUDA events (source ``"events"``), and a line
+    says so; for a kernel shorter than its wrapper's host time (about 50 us
+    a call) that figure is the host's pace, not the kernel's."""
     rows = device_rows(fn, calls)
     events = sum(r.count for r in rows)
     if not rows:
@@ -308,11 +317,16 @@ def device_ms(fn, calls: int = 20, names: tuple[str, ...] = (), per_call: int = 
     strangers = [r.key for r in rows if not any(n in r.key for n in names)]
     check(not strangers, f"device rows other than {names}: {strangers}")
     short = {r.key[:60]: r.count for r in rows if r.count < calls * per_call}
-    if short:
-        log(f"[timing] torch.profiler kept fewer than the {calls * per_call} launches of {short}; one call at a "
-            f"time between CUDA events instead")
+    if any(2 * count < calls * per_call for count in short.values()):
+        log(f"[timing] torch.profiler kept fewer than half the {calls * per_call} launches of {short}; one call at "
+            f"a time between CUDA events instead")
         return single_call_ms(fn, calls), events / calls, "events"
-    return per_call * sum(r.self_device_time_total / r.count for r in rows) / 1e3, events / calls, "profiler"
+    source = "profiler"
+    if short:
+        log(f"[timing] torch.profiler kept fewer than the {calls * per_call} launches of {short}; the figure rests "
+            f"on those it kept")
+        source = f"profiler, {min(short.values())} of {calls * per_call} launches kept"
+    return per_call * sum(r.self_device_time_total / r.count for r in rows) / 1e3, events / calls, source
 
 
 def device_rows(fn, calls: int):
@@ -356,6 +370,14 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     operations over the FP32 rate, the larger, in ms."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def epilogue_bytes(b: int, k: int, n: int, nrm: torch.Tensor) -> int:
+    """The bytes K3 must move: V read and out written whole, x read only for
+    the trajectories whose start norm is zero (``nrm <= 0``), and the two
+    diagonals and the norm."""
+    dead = int((nrm <= 0).sum().item())
+    return (b * k * n + b * n + dead * n) * C64 + 3 * b * k * 4
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -414,10 +436,88 @@ def random_mps(gen, dev, batch, length, chi, d=2):
     return t
 
 
+def epilogue_rows(dev, randc, gen):
+    """``lanczos_epilogue`` (K3) against its plain version and timed at the
+    analog two-site and one-site solves' shapes (k = 4) and the gate
+    windows' (k = 25, n = 4096 and 2048), each beside its earlier design's
+    time; a zero start vector passes ``x`` through."""
+    from yaqs_tpu_torch.kernels.lanczos_epilogue import lanczos_epilogue, lanczos_epilogue_plain, tridiag
+
+    b, d, chi, k = BENCH["batch"], 2, BENCH["chi"], BENCH["krylov_dim"]
+    nd, cd = DIGITAL["num_traj"], DIGITAL["chi"]
+    rows = {}
+    # lanczos_epilogue at the two-site (n = d^2 chi^2) and one-site (n = d chi^2) solves
+    ep_err, ep_extra = 0.0, {}
+    for n in (d * d * chi * chi, d * chi * chi):
+        alphas = torch.randn((b, k), generator=gen, device=dev)
+        betas = torch.randn((b, k), generator=gen, device=dev).abs()
+        betas[:, -1] = 0.0
+        v = randc(b, k, n)
+        nrm = torch.rand((b,), generator=gen, device=dev) + 0.1
+        nrm[3] = 0.0  # a zero start vector passes x through
+        x = randc(b, n)
+        for coeff in (-0.05j, -0.1j):
+            got = lanczos_epilogue(alphas, betas, coeff, v, nrm, x)
+            ref = lanczos_epilogue_plain(alphas, betas, coeff, v, nrm, x)
+            torch.cuda.synchronize()
+            err = rel_err(got, ref)
+            log(f"[phase 3] lanczos_epilogue (B={b}, k={k}, n={n}, coeff={coeff}): rel err {err:.3e}")
+            check(err <= KERNEL_TOL, f"lanczos_epilogue disagrees with its plain version: {err} > {KERNEL_TOL}")
+            check(torch.equal(got[3], x[3]), "lanczos_epilogue did not pass x through where nrm == 0")
+            ep_err = max(ep_err, (got - ref).abs().max().item())
+        ct = (-0.05j * tridiag(alphas, betas)).to(torch.complex64)
+        ep_extra[n] = timings(
+            f"lanczos_epilogue (B={b}, k={k}, n={n})",
+            lambda a=alphas, bt=betas, v=v, nrm=nrm, x=x: lanczos_epilogue(a, bt, -0.05j, v, nrm, x),
+            lambda a=alphas, bt=betas, v=v, nrm=nrm, x=x: lanczos_epilogue_plain(a, bt, -0.05j, v, nrm, x),
+            lambda ct=ct, v=v: torch.bmm(torch.linalg.matrix_exp(ct)[:, :, :1].mT, v),
+            ("lanczos_epilogue",), epilogue_bytes(b, k, n, nrm), b * k * n * CMAC_FLOPS,
+        )
+    n_two = d * d * chi * chi
+    rows["lanczos_epilogue"] = dict(
+        source="yaqs_tpu_torch/kernels/csrc/lanczos_epilogue.cu", replaces="yaqs_tpu/ops/krylov.py:108",
+        max_abs_err=ep_err, shape=[b, k, n_two], **ep_extra[n_two],
+        library_call="torch.linalg.matrix_exp then torch.bmm (two calls)",
+        one_site=dict(shape=[b, k, d * chi * chi], **ep_extra[d * chi * chi]),
+    )
+    # lanczos_epilogue at k = 25, the gate window's solves (B=512, n = d^2 chi^2 = 4096; and n = 2048)
+    bw, kw = nd, 25
+    for nw in (4 * cd * cd, 2 * cd * cd):
+        alphas = torch.randn((bw, kw), generator=gen, device=dev)
+        betas = torch.randn((bw, kw), generator=gen, device=dev).abs()
+        betas[:, -1] = 0.0
+        v, x = randc(bw, kw, nw), randc(bw, nw)
+        nrm = torch.rand((bw,), generator=gen, device=dev) + 0.1
+        nrm[5] = 0.0
+        got = lanczos_epilogue(alphas, betas, -1.0j, v, nrm, x)
+        ref = lanczos_epilogue_plain(alphas, betas, -1.0j, v, nrm, x)
+        torch.cuda.synchronize()
+        err = rel_err(got, ref)
+        log(f"[phase 3] lanczos_epilogue (B={bw}, k={kw}, n={nw}, coeff=-1j): rel err {err:.3e}")
+        check(err <= KERNEL_TOL, f"lanczos_epilogue at k={kw} disagrees with its plain version: {err} > {KERNEL_TOL}")
+        check(torch.equal(got[5], x[5]), "lanczos_epilogue did not pass x through where nrm == 0")
+        ct = (-1.0j * tridiag(alphas, betas)).to(torch.complex64)
+        key = "k25" if nw == 4 * cd * cd else f"k25_n{nw}"
+        rows["lanczos_epilogue"][key] = dict(
+            shape=[bw, kw, nw], max_abs_err=(got - ref).abs().max().item(),
+            earlier_ms=EARLIER_MS["lanczos_epilogue"][key], **timings(
+                f"lanczos_epilogue (B={bw}, k={kw}, n={nw})",
+                lambda a=alphas, bt=betas, v=v, nrm=nrm, x=x: lanczos_epilogue(a, bt, -1.0j, v, nrm, x),
+                lambda a=alphas, bt=betas, v=v, nrm=nrm, x=x: lanczos_epilogue_plain(a, bt, -1.0j, v, nrm, x),
+                lambda ct=ct, v=v: torch.bmm(torch.linalg.matrix_exp(ct)[:, :, :1].mT, v), ("lanczos_epilogue",),
+                epilogue_bytes(bw, kw, nw, nrm), bw * kw * nw * CMAC_FLOPS,
+            ))
+    for key, row in (("k4_two_site", rows["lanczos_epilogue"]), ("k4_one_site", rows["lanczos_epilogue"]["one_site"]),
+                     ("k25", rows["lanczos_epilogue"]["k25"]), ("k25_n2048", rows["lanczos_epilogue"]["k25_n2048"])):
+        row.setdefault("earlier_ms", EARLIER_MS["lanczos_epilogue"][key])
+        log(f"[phase 3] lanczos_epilogue {key}: {row['ms']:.4f} ms, earlier design (every block its own exponential "
+            f"on 256 threads, 1024 columns a block) {row['earlier_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
+    return rows
+
+
 def phase_kernels(dev):
     from yaqs_tpu_torch.core.mps_ops import normalize_canonical
     from yaqs_tpu_torch.kernels.bond_gate import bond_gate, bond_gate_plain
-    from yaqs_tpu_torch.kernels.lanczos_epilogue import lanczos_epilogue, lanczos_epilogue_plain, tridiag
     from yaqs_tpu_torch.kernels.moment_scan import (
         _moments_plain, scan_cluster, site_moment_matrices, site_moment_matrices_plain, site_moments_and_environments)
     from yaqs_tpu_torch.kernels.ns_polar import newton_schulz_orthogonalize, newton_schulz_orthogonalize_plain
@@ -466,61 +566,7 @@ def phase_kernels(dev):
         digital_shape=dict(shape=[nd, d * cd, cd], **ns_extra[(nd, d * cd, cd)]),
     )
 
-    # lanczos_epilogue at the two-site (n = d^2 chi^2) and one-site (n = d chi^2) solves
-    ep_err, ep_extra = 0.0, {}
-    for n in (d * d * chi * chi, d * chi * chi):
-        alphas = torch.randn((b, k), generator=gen, device=dev)
-        betas = torch.randn((b, k), generator=gen, device=dev).abs()
-        betas[:, -1] = 0.0
-        v = randc(b, k, n)
-        nrm = torch.rand((b,), generator=gen, device=dev) + 0.1
-        nrm[3] = 0.0  # a zero start vector passes x through
-        x = randc(b, n)
-        for coeff in (-0.05j, -0.1j):
-            got = lanczos_epilogue(alphas, betas, coeff, v, nrm, x)
-            ref = lanczos_epilogue_plain(alphas, betas, coeff, v, nrm, x)
-            torch.cuda.synchronize()
-            err = rel_err(got, ref)
-            log(f"[phase 3] lanczos_epilogue (B={b}, k={k}, n={n}, coeff={coeff}): rel err {err:.3e}")
-            check(err <= KERNEL_TOL, f"lanczos_epilogue disagrees with its plain version: {err} > {KERNEL_TOL}")
-            check(torch.equal(got[3], x[3]), "lanczos_epilogue did not pass x through where nrm == 0")
-            ep_err = max(ep_err, (got - ref).abs().max().item())
-        ct = (-0.05j * tridiag(alphas, betas)).to(torch.complex64)
-        ep_extra[n] = timings(
-            f"lanczos_epilogue (B={b}, k={k}, n={n})",
-            lambda a=alphas, bt=betas, v=v, nrm=nrm, x=x: lanczos_epilogue(a, bt, -0.05j, v, nrm, x),
-            lambda a=alphas, bt=betas, v=v, nrm=nrm, x=x: lanczos_epilogue_plain(a, bt, -0.05j, v, nrm, x),
-            lambda ct=ct, v=v: torch.bmm(torch.linalg.matrix_exp(ct)[:, :, :1].mT, v),
-            ("lanczos_epilogue",), (b * k * n + 2 * b * n) * C64 + 3 * b * k * 4, b * k * n * CMAC_FLOPS,
-        )
-    n_two = d * d * chi * chi
-    rows["lanczos_epilogue"] = dict(
-        source="yaqs_tpu_torch/kernels/csrc/lanczos_epilogue.cu", replaces="yaqs_tpu/ops/krylov.py:108",
-        max_abs_err=ep_err, shape=[b, k, n_two], **ep_extra[n_two],
-        library_call="torch.linalg.matrix_exp then torch.bmm (two calls)",
-        one_site=dict(shape=[b, k, d * chi * chi], **ep_extra[d * chi * chi]),
-    )
-
-    # lanczos_epilogue at k = 25, the gate window's solves (B=512, n = d^2 chi^2 = 4096)
-    bw, kw, nw = nd, 25, 4 * cd * cd
-    alphas = torch.randn((bw, kw), generator=gen, device=dev)
-    betas = torch.randn((bw, kw), generator=gen, device=dev).abs()
-    betas[:, -1] = 0.0
-    v, x = randc(bw, kw, nw), randc(bw, nw)
-    nrm = torch.rand((bw,), generator=gen, device=dev) + 0.1
-    got = lanczos_epilogue(alphas, betas, -1.0j, v, nrm, x)
-    ref = lanczos_epilogue_plain(alphas, betas, -1.0j, v, nrm, x)
-    torch.cuda.synchronize()
-    err = rel_err(got, ref)
-    log(f"[phase 3] lanczos_epilogue (B={bw}, k={kw}, n={nw}, coeff=-1j): rel err {err:.3e}")
-    check(err <= KERNEL_TOL, f"lanczos_epilogue at k={kw} disagrees with its plain version: {err} > {KERNEL_TOL}")
-    ct = (-1.0j * tridiag(alphas, betas)).to(torch.complex64)
-    rows["lanczos_epilogue"]["k25"] = dict(shape=[bw, kw, nw], max_abs_err=(got - ref).abs().max().item(), **timings(
-        f"lanczos_epilogue (B={bw}, k={kw}, n={nw})", lambda: lanczos_epilogue(alphas, betas, -1.0j, v, nrm, x),
-        lambda: lanczos_epilogue_plain(alphas, betas, -1.0j, v, nrm, x),
-        lambda: torch.bmm(torch.linalg.matrix_exp(ct)[:, :, :1].mT, v), ("lanczos_epilogue",),
-        (bw * kw * nw + 2 * bw * nw) * C64 + 3 * bw * kw * 4, bw * kw * nw * CMAC_FLOPS,
-    ))
+    rows.update(epilogue_rows(dev, randc, gen))
 
     # bond_gate on strided site views of a digital-shape state, as the sweep passes them
     state = random_mps(gen, dev, nd, ld, cd)
@@ -1294,6 +1340,24 @@ def hermitian_heff(f, g, w, v, p):
     return hf, hg, hw, hv.reshape(v.shape)
 
 
+def right_environments_row(randc, b, chi, dw, length=BENCH["length"]):
+    """``right_environments`` over a random chain at the analog shape: its
+    host-paced time a call against ``length`` times the mean device time of
+    its K8 launches (profiler), the gap a one-launch chain scan could close."""
+    from yaqs_tpu_torch.methods.tdvp import right_environments
+
+    t = randc(b, length, 2, chi, chi) / np.sqrt(2 * chi)
+    mpo = randc(length, 2, 2, dw, dw)
+    rows = [r for r in device_rows(lambda: right_environments(t, mpo), 5) if "env_update" in r.key]
+    check(bool(rows), "no device row of env_update in the profile of right_environments")
+    kept = sum(r.count for r in rows)
+    kernel_ms = length * sum(r.self_device_time_total for r in rows) / kept / 1e3
+    host_ms = host_paced_ms(lambda: right_environments(t, mpo), windows=3, calls=5)
+    log(f"[phase 3] right_environments (B={b}, L={length}, chi={chi}, Dw={dw}): host-paced {host_ms:.4f} ms a call; "
+        f"its {length} K8 launches {kernel_ms:.4f} ms of device time (profiler, {kept} of {5 * length} launches kept)")
+    return dict(shape=[b, length, chi, dw], host_ms=host_ms, kernel_ms=kernel_ms, kept=kept)
+
+
 def tdvp_kernel_rows(dev, randc, gen):
     """``heff2``, ``heff1`` (the single matvec), ``env_update`` and the
     one-launch solves ``lanczos_solve2``, ``lanczos_solve1`` against their
@@ -1304,6 +1368,7 @@ def tdvp_kernel_rows(dev, randc, gen):
     from yaqs_tpu_torch.kernels.env_update import (
         env_update_left, env_update_left_plain, env_update_right, env_update_right_plain,
     )
+    from yaqs_tpu_torch.kernels.env_update import plan as env_plan
     from yaqs_tpu_torch.kernels.heff import heff1, heff1_plain, heff2, heff2_plain
     from yaqs_tpu_torch.kernels.lanczos_solve import (
         cluster_blocks, lanczos_solve, lanczos_solve_plain, solve_clusters_held,
@@ -1350,6 +1415,16 @@ def tdvp_kernel_rows(dev, randc, gen):
                 nbytes, flops = env_bytes, env_flops
             t = timings(f"{name} (B={b}, chi={chi}, Dw={dw})", kernel_fn, plain_fn, library_fn, (name,), nbytes, flops)
             rows[name][path] = dict(shape=[b, chi, dw], library_call=library_call, **t)
+            if name == "env_update":
+                cols, chunk, tm3 = env_plan(b, chi, dw, torch.cuda.get_device_properties(dev).multi_processor_count)
+                rows[name][path].update(plan=dict(cols=cols, chunk=chunk, tm3=tm3),
+                                        earlier_ms=EARLIER_MS["env_update"][path])
+                log(f"[phase 3] env_update (B={b}, chi={chi}, Dw={dw}): {cols} output columns a block "
+                    f"({b * -(-chi // cols)} blocks), chunks of {chunk}, tiles of {2 * tm3} and {tm3} rows; "
+                    f"{t['ms']:.4f} ms, earlier design (8 columns a block, a thread a row) "
+                    f"{EARLIER_MS['env_update'][path]:.4f} ms, bound {t['bound_ms']:.4f} ms")
+        if path == "analog":
+            rows["env_update"]["right_environments"] = right_environments_row(randc, b, chi, dw)
 
         # the one-launch solves at the paths' Krylov dimensions and variants:
         # analog k = 4 three-term (fast knobs) and reorthogonalizing (GPU
@@ -2458,7 +2533,9 @@ def main() -> None:
                            **{k: v for k, v in phases.items() if k != "kernels"}), f, indent=1)
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    table = [{"name": name, **{k: ("cuda" if k == "route" else row[k]) for k in keys}} for name, row in rows.items()]
+    # ms_source: how "ms" was timed, with the launches the profiler kept where it kept fewer than all
+    table = [{"name": name, **{k: ("cuda" if k == "route" else row[k]) for k in keys},
+              "ms_source": row.get("ms_source")} for name, row in rows.items()]
     log(card)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,93 @@
+"""Time K8 (``env_update``) and K3 (``lanczos_epilogue``) of several checkouts in turn, on one card.
+
+    python3 scripts/ab_kernels.py --trees PARENT . . PARENT [--out ab.json]
+
+Each entry of ``--trees`` is a checkout of the repository (a directory that
+holds ``chip_smoke.py`` and ``yaqs_tpu_torch/``).  The trees run one after
+another, each in a process of its own that builds and loads that tree's
+kernels, so an earlier design and a change compare on the same card within
+one call (order them parent, change, change, parent).  In each tree, on the
+same seeded inputs: the device time per call (``chip_smoke.device_ms``:
+``torch.profiler``'s kernel rows, or CUDA events where the profiler kept
+fewer than half the launches) of
+
+- K8, the left update at the analog TFIM shape (B=32, chi=64, Dw=3), the
+  right one into a strided slot there, and the left one at the XXZ shape
+  (B=16, Dw=5) and the gate-window shape (B=512, chi=32, Dw=1);
+- ``right_environments`` at the analog shape (L=100: 100 right updates
+  and the boundary's fill), all its device time and its host-paced time a
+  call;
+- K3 at the analog two-site and one-site shapes (B=32, k=4, n=16384 and
+  8192) and the gate windows' k=25 (B=512, n=4096 and 2048).
+
+Prints the card, then one line a tree and row, and writes every figure to
+``--out``.  Needs a CUDA device; imports nothing of JAX.  Shares its runner with
+``scripts/ab_phases.py``.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from ab_phases import compare
+
+# run inside each tree's process: build, time every row, one JSON line at the end
+_CHILD = """
+import json, torch
+import chip_smoke as c
+from yaqs_tpu_torch.analog.run import full_precision_matmuls
+from yaqs_tpu_torch.kernels import build
+from yaqs_tpu_torch.kernels.env_update import env_update_left, env_update_right
+from yaqs_tpu_torch.kernels.lanczos_epilogue import lanczos_epilogue
+from yaqs_tpu_torch.methods.tdvp import right_environments
+full_precision_matmuls()
+_, seconds, _ = build.build_library()
+build.load_library()
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(1234)
+def randc(*shape):
+    return torch.complex(torch.randn(shape, generator=gen, device=dev), torch.randn(shape, generator=gen, device=dev))
+rows = {}
+def row(key, fn, name):
+    ms, launches, source = c.device_ms(fn, names=(name,) if name else ())
+    rows[key] = dict(ms=ms, launches_per_call=launches, source=source, host_ms=c.host_paced_ms(fn))
+for key, (b, chi, dw) in dict(analog=(32, 64, 3), xxz=(16, 64, 5), window=(512, 32, 1)).items():
+    envs = randc(b, 3, chi, dw, chi)
+    a = randc(b, 2, 2, chi, chi)[:, 1] / chi ** 0.5
+    w = randc(2, 2, dw, dw)
+    row(f"env_update_{key}", lambda f=envs[:, 0], a=a, w=w: env_update_left(f, a, a, w), "env_update")
+    if key == "analog":
+        row("env_update_analog_right", lambda g=envs[:, 2], a=a, w=w, o=envs[:, 1]: env_update_right(g, a, a, w, out=o),
+            "env_update")
+        t = randc(b, 100, 2, chi, chi) / (2 * chi) ** 0.5
+        mpo = randc(100, 2, 2, dw, dw)
+        row("right_environments_analog", lambda t=t, mpo=mpo: right_environments(t, mpo), None)
+for key, (b, k, n, coeff) in dict(k4_two_site=(32, 4, 16384, -0.05j), k4_one_site=(32, 4, 8192, -0.05j),
+                                  k25_4096=(512, 25, 4096, -1.0j), k25_2048=(512, 25, 2048, -1.0j)).items():
+    alphas = torch.randn((b, k), generator=gen, device=dev)
+    betas = torch.randn((b, k), generator=gen, device=dev).abs()
+    betas[:, -1] = 0.0
+    v, x = randc(b, k, n), randc(b, n)
+    nrm = torch.rand((b,), generator=gen, device=dev) + 0.1
+    row(f"lanczos_epilogue_{key}", lambda a=alphas, bt=betas, v=v, nrm=nrm, x=x, cf=coeff: lanczos_epilogue(
+        a, bt, cf, v, nrm, x), "lanczos_epilogue")
+print("AB_RESULT " + json.dumps(dict(build_seconds=seconds, rows=rows)))
+"""
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--trees", nargs="+", required=True, help="checkouts, in the order to run them")
+    parser.add_argument("--out", help="write every result to this JSON file")
+    args = parser.parse_args()
+
+    def lines(tree, res):
+        for key, r in res["rows"].items():
+            yield (f"{tree} {key}: device {r['ms']:.4f} ms ({r['source']}, {r['launches_per_call']:g} launches), "
+                   f"host-paced {r['host_ms']:.4f} ms (build {res['build_seconds']:.1f} s)")
+
+    compare(args.trees, [], _CHILD, lines, args.out)
+
+
+if __name__ == "__main__":
+    main()

@@ -46,9 +46,11 @@ def card() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def run_tree(tree: Path, phases: list[str]) -> dict:
+def run_tree(tree: Path, argv: list[str], child: str = _CHILD) -> dict:
+    """Run the program ``child`` with ``argv`` in ``tree`` and return what its
+    last ``AB_RESULT`` line holds."""
     env = dict(os.environ, PYTHONPATH=str(tree))
-    res = subprocess.run([sys.executable, "-c", _CHILD, *phases], cwd=tree, env=env, capture_output=True, text=True,
+    res = subprocess.run([sys.executable, "-c", child, *argv], cwd=tree, env=env, capture_output=True, text=True,
                          check=False)
     lines = [line for line in res.stdout.splitlines() if line.startswith("AB_RESULT ")]
     if res.returncode != 0 or not lines:
@@ -57,30 +59,41 @@ def run_tree(tree: Path, phases: list[str]) -> dict:
     return json.loads(lines[-1][len("AB_RESULT "):])
 
 
+def compare(trees: list[str], argv: list[str], child: str, lines, out: str | None) -> None:
+    """Print the card, run ``child`` in each tree in turn and print
+    ``lines(tree, result)``; write every result to ``out``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit(f"{Path(sys.argv[0]).name}: no CUDA device (torch.cuda.is_available() is False)")
+    name = card()
+    print(name, flush=True)
+    results = []
+    for tree in trees:
+        res = run_tree(Path(tree).resolve(), argv, child)
+        results.append(dict(tree=tree, **res))
+        for line in lines(tree, res):
+            print(line, flush=True)
+    if out:
+        with open(out, "w") as f:
+            json.dump(dict(card=name, runs=results), f, indent=1)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trees", nargs="+", required=True, help="checkouts, in the order to run them")
     parser.add_argument("--phases", nargs="+", required=True, help="chip_smoke phase names, e.g. mcwf mcwf_two_site")
     parser.add_argument("--out", help="write every result to this JSON file")
     args = parser.parse_args()
-    import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("ab_phases: no CUDA device (torch.cuda.is_available() is False)")
-    name = card()
-    print(name, flush=True)
-    results = []
-    for tree in args.trees:
-        res = run_tree(Path(tree).resolve(), args.phases)
-        results.append(dict(tree=tree, **res))
+    def lines(tree, res):
         for phase in args.phases:
             r = res[phase]
-            print(f"{tree} {phase}: {r['traj_per_s']:.4f} traj/s, {r['ms_per_step']:.1f} ms/step, peak "
-                  f"{r['peak_bytes'] / 2**20:.1f} MiB (build {res['build_seconds']:.1f} s, phase "
-                  f"{r['phase_seconds']:.1f} s)", flush=True)
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(dict(card=name, runs=results), f, indent=1)
+            step = f", {r['ms_per_step']:.1f} ms/step" if "ms_per_step" in r else ""
+            yield (f"{tree} {phase}: {r['traj_per_s']:.4f} traj/s{step}, peak {r['peak_bytes'] / 2**20:.1f} MiB "
+                   f"(build {res['build_seconds']:.1f} s, phase {r['phase_seconds']:.1f} s)")
+
+    compare(args.trees, args.phases, _CHILD, lines, args.out)
 
 
 if __name__ == "__main__":

@@ -287,7 +287,8 @@ def test_build_digest_covers_the_shared_headers(tmp_path):
     assert includers == ["moment_scan.cu", "ns_canon.cu", "ns_polar.cu", "subspace_split.cu"]
     assert '#include "launch.cuh"' in (build.CSRC / "ns_polar.cuh").read_text()
     includers = [p.name for p in build._sources() if '#include "launch.cuh"' in p.read_text()]
-    assert includers == ["householder_qr.cu", "lanczos_solve.cu", "pair_weights.cu", "sv_mpo.cu", "svd_jacobi.cu"]
+    assert includers == ["env_update.cu", "householder_qr.cu", "lanczos_epilogue.cu", "lanczos_solve.cu", "pair_weights.cu",
+                         "sv_mpo.cu", "svd_jacobi.cu"]
     includers = [p.name for p in build._sources() if '#include "heff.cuh"' in p.read_text()]
     assert includers == ["heff.cu", "lanczos_solve.cu"]
 
@@ -369,11 +370,15 @@ def test_ns_polar_kernel_matches_plain(cuda, shape):
         newton_schulz_orthogonalize(y, passes=2)
 
 
+# the paths' shapes (analog two-site and one-site k = 4; the gate windows'
+# k = 25 at n = 4096 and 2048, one block a trajectory), k = 64 and others at
+# an n that is no multiple of a block's stage, and an odd n (8-byte copies)
+EPILOGUE_SHAPES = [(32, 4, 16384), (32, 4, 8192), (3, 7, 1000), (512, 25, 4096), (512, 25, 2048), (32, 25, 16384),
+                   (3, 37, 1000), (4, 64, 1000), (2, 5, 7)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    ("batch", "k", "n"),
-    [(32, 4, 16384), (32, 4, 8192), (3, 7, 1000), (512, 25, 4096), (32, 25, 16384), (3, 37, 1000)],
-)
+@pytest.mark.parametrize(("batch", "k", "n"), EPILOGUE_SHAPES)
 def test_lanczos_epilogue_kernel_matches_plain(cuda, batch, k, n):
     a, b, v, nrm, x = _epilogue_inputs(np.random.default_rng(2), batch, k, n, cuda)
     for coeff in (-0.05j, -0.1j, 0.2 - 3.0j):
@@ -383,7 +388,13 @@ def test_lanczos_epilogue_kernel_matches_plain(cuda, batch, k, n):
         assert kernels.launch_counts()["lanczos_epilogue"] == 1
         ref = lanczos_epilogue_plain(a, b, coeff, v, nrm, x)
         assert _rel_err(got, ref) <= 1e-5
-        assert torch.equal(got[1], x[1])
+        assert torch.equal(got[1], x[1])  # nrm == 0: x passes through
+    # x with rows n + 3 apart, handed over in place
+    wide = torch.zeros((batch, n + 3), dtype=torch.complex64, device=cuda)
+    wide[:, 1 : n + 1] = x
+    got = lanczos_epilogue(a, b, -0.1j, v, nrm, wide[:, 1 : n + 1])
+    assert _rel_err(got, lanczos_epilogue_plain(a, b, -0.1j, v, nrm, x)) <= 1e-5
+    assert torch.equal(got[1], x[1])
     if k > 16:  # the k limit is 64
         a2, b2, v2, nrm2, x2 = _epilogue_inputs(np.random.default_rng(2), 2, 65, 8, cuda)
         with pytest.raises(ValueError, match="k <= 64"):
@@ -611,8 +622,11 @@ def test_sample_shots_kernel_matches_plain(cuda, batch, shots, length, chi):
 
 
 # the path's shapes: analog TFIM (B=32, chi=64, Dw=3), XXZ (B=16, Dw=5), the
-# gate window (B=512, chi=32, Dw=1), and an odd small one
-TDVP_SHAPES = [(32, 64, 3), (16, 64, 5), (512, 32, 1), (3, 5, 2)]
+# gate window (B=512, chi=32, Dw=1), an odd small one, and chi = 17 (no
+# multiple of K8's column slices or chunks)
+TDVP_SHAPES = [(32, 64, 3), (16, 64, 5), (512, 32, 1), (3, 5, 2), (5, 17, 6)]
+# K8 also takes Dw = 8 (the matvecs stop at 6)
+ENV_UPDATE_SHAPES = [*TDVP_SHAPES, (4, 17, 8), (2, 64, 8)]
 
 
 @pytest.mark.cuda
@@ -633,7 +647,7 @@ def test_heff_kernels_match_plain(cuda, batch, chi, dw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize(("batch", "chi", "dw"), TDVP_SHAPES)
+@pytest.mark.parametrize(("batch", "chi", "dw"), ENV_UPDATE_SHAPES)
 def test_env_update_kernel_matches_plain(cuda, batch, chi, dw):
     f, g, sites, w, *_ = _tdvp_inputs(np.random.default_rng(7), batch, chi, dw, cuda)
     out = torch.zeros((batch, 3, chi, dw, chi), dtype=torch.complex64, device=cuda)
@@ -645,6 +659,11 @@ def test_env_update_kernel_matches_plain(cuda, batch, chi, dw):
     assert _rel_err(left, env_update_left_plain(f, sites[:, 0], sites[:, 2], w)) <= 1e-5
     assert _rel_err(out[:, 1], env_update_right_plain(g, sites[:, 0], sites[:, 2], w)) <= 1e-5
     assert right.data_ptr() == out[:, 1].data_ptr() and not out[:, 0].any() and not out[:, 2].any()
+    # the last trajectory alone (another plan of column slices) gets the same bits
+    z = batch - 1
+    alone = env_update_left(f[z:], sites[z:, 0], sites[z:, 2], w)
+    alone_right = env_update_right(g[z:], sites[z:, 0], sites[z:, 2], w)
+    assert torch.equal(alone[0], left[z]) and torch.equal(alone_right[0], out[z, 1])
     with pytest.raises(ValueError):
         env_update_left(f, sites[:, 0].conj(), sites[:, 2], w)  # a conjugated view
 

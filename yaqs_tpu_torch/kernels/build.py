@@ -41,8 +41,8 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     # (in, out, batch, m, n, stream)
     "ns_polar_launch": [_P, _P, _I, _I, _I, _P],
-    # (alphas, betas, coeff_re, coeff_im, V, nrm, x, stride_x, out, batch, k, n, stream)
-    "lanczos_epilogue_launch": [_P, _P, _F, _F, _P, _P, _P, _LL, _P, _I, _I, _I, _P],
+    # (alphas, betas, coeff_re, coeff_im, V, nrm, x, stride_x, out, batch, k, n, cw, stages, slots, stream)
+    "lanczos_epilogue_launch": [_P, _P, _F, _F, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _P],
     # (a, stride_a, b, stride_b, gate, stride_gate, out, batch, l, m, r, stream)
     "bond_gate_launch": [_P, _LL, _P, _LL, _P, _LL, _P, _I, _I, _I, _I, _P],
     # (m, omega, left, right, s, batch, rows, cols, chi, iters, left_isometric, cluster, stream)
@@ -65,8 +65,9 @@ _SIGNATURES = {
     "sample_shots_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (f, stride_f, v, stride_v, W, g, stride_g, out, batch, chi, dw, p, stream)
     "heff_launch": [_P, _LL, _P, _LL, _P, _P, _LL, _P, _I, _I, _I, _I, _P],
-    # (f, stride_f, a_bra, stride_bra, a_ket, stride_ket, W, out, stride_out, batch, chi, dw, right, stream)
-    "env_update_launch": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _LL, _I, _I, _I, _I, _P],
+    # (f, stride_f, a_bra, stride_bra, a_ket, stride_ket, W, out, stride_out, batch, chi, dw, cols, chunk, tm3,
+    #  right, stream)
+    "env_update_launch": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _P],
     # (f, stride_f, v, stride_v, stride_c0, stride_c1, stride_p, stride_q, W, g, stride_g, basis, alphas,
     #  betas, nrm, scratch, batch, chi, dw, p, k, reorth, tol, stream)
     "lanczos_solve_launch": [_P, _LL, _P, _LL, _LL, _LL, _LL, _LL, _P, _P, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I,

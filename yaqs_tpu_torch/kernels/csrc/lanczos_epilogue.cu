@@ -1,4 +1,4 @@
-// Kernel B: the Lanczos epilogue, per trajectory
+// Kernel K3: the Lanczos epilogue, per trajectory
 //   out = nrm > 0 ? nrm * sum_i exp(coeff T)[i, 0] V[i, :] : x
 // for the k x k real symmetric tridiagonal T of the Lanczos recurrence.
 //
@@ -13,183 +13,266 @@
 // exp(A / 2^s); s squarings; column 0.
 //
 // What bounds it on the card: device memory.  The small exponential is a few
-// hundred flops; streaming V (k n complex64) and x and writing out is
-// (k + 2) n * 8 bytes per trajectory, 25 MB at B = 32, k = 4, n = 16384, i.e.
-// about 7.5 us at 3.35 TB/s.  Eager PyTorch needs either a host sync to read
-// the data-dependent squaring count s or 12 masked k x k squarings (dozens of
-// tiny launches) before the combination.
+// thousand flops; streaming V (k n complex64) and x and writing out is
+// (k + 2) n * 8 bytes per trajectory: 453 MB at B = 512, k = 25, n = 4096
+// (0.135 ms at 3.35 TB/s), 25 MB at B = 32, k = 4, n = 16384.
 //
-// Design: grid (chunks of n, B).  Every block first recomputes its
-// trajectory's small exponential in dynamic shared memory (3 k^2 complex
-// values, 96 KB at k = 64): each thread owns the entries tid, tid + 256, ...
-// of every k x k product and keeps them in registers until the block has
-// read both factors, so the squaring count s is a per-block loop bound and
-// never leaves the chip.  The entries per thread are a template parameter
-// (1 for k <= 16, 4 for k <= 32, 16 for k <= 64), so the analog path's
-// k = 4 holds one register pair, not sixteen.  Then the block streams its
-// chunk of V with coalesced loads, kColsPerThread columns per thread.  k runs
-// from 1 to 64 (the window route of the digital path runs k = 25).
+// Design: grid (column blocks, B); a block streams `stages` stages of `cw`
+// (up to 1024) columns of its trajectory's V, all k rows of a stage, by
+// cp.async (16-byte copies where n is even, else 8-byte), through a ring of
+// `slots` (1 to 4) stages in shared memory.  The wrapper sizes the stage so
+// that four blocks share an SM, and gives a trajectory one block where the
+// batch fills the card (B = 512 at k = 25: the exponential once a
+// trajectory, every block resident at once) and more where it does not
+// (B = 32 at k = 4: 16, each one stage of 1024 columns).  Before anything
+// else every thread issues its copies of the first `slots` stages; then
+// warp 0 alone forms the exponential in warp-private shared memory while
+// they are in flight, with __syncwarp between products and no block
+// barrier:
+//  - the column sums of |A| (three entries a column), lane j owning column j;
+//  - the 10 Taylor terms m <- m (A / 2^s), acc += m / n!: a^n has bandwidth
+//    n and a row of m times the tridiagonal A is the same row's three
+//    neighbours, so the band's entries are dealt to the lanes, each from
+//    the last term's buffer into the other;
+//  - s - 1 squarings acc <- acc acc, lane j owning column j, four rows at a
+//    time; then column 0 of the last square alone, lane i owning row i.
+// Every product entry is summed in ascending order of its inner index, the
+// zeros of the tridiagonal and of the band skipped (adding an exact zero
+// changes no bit), and the Taylor sum takes its terms in the reference's
+// order.  The one block barrier publishes column 0.  Each thread copies and
+// combines its own columns of every stage (two with 16-byte copies, the k
+// rows in order), waiting for its own copies only, and refills its own
+// slots with the next stage, so the stream needs no further barrier.  Where
+// nrm <= 0 the block copies x's row instead and touches neither V nor the
+// exponential.  k runs from 1 to 64.
 
-#include <cuda_runtime.h>
+#include "launch.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxK = 64;
-constexpr int kColsPerThread = 4;
 constexpr int kTaylorTerms = 10;
 constexpr int kMaxSquarings = 12;
+constexpr int kMaxCols = 4 * kThreads;  // columns of a stage
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+__device__ __forceinline__ void cfma(float2& acc, float2 a, float2 b) {
+  acc.x = fmaf(a.x, b.x, acc.x);
+  acc.x = fmaf(-a.y, b.y, acc.x);
+  acc.y = fmaf(a.x, b.y, acc.y);
+  acc.y = fmaf(a.y, b.x, acc.y);
 }
 
-// Entry e = (i, j) of lhs @ rhs for k x k complex matrices in shared memory.
-__device__ __forceinline__ float2 small_matmul_entry(const float2* lhs, const float2* rhs, int k, int e) {
-  const int i = e / k, j = e % k;
-  float2 acc = make_float2(0.f, 0.f);
-  for (int l = 0; l < k; ++l) {
-    const float2 p = cmul(lhs[i * k + l], rhs[l * k + j]);
-    acc.x += p.x;
-    acc.y += p.y;
-  }
-  return acc;
-}
-
-// Every entry of lhs @ rhs, held by its owning thread (entries tid + r * kThreads).
-template <int kEntries>
-__device__ __forceinline__ void small_matmul(const float2* lhs, const float2* rhs, int k, int tid,
-                                             float2 (&e)[kEntries]) {
+__device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int r = 0; r < kEntries; ++r) {
-    const int idx = tid + r * kThreads;
-    e[r] = idx < k * k ? small_matmul_entry(lhs, rhs, k, idx) : make_float2(0.f, 0.f);
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// Row pitch of the k x k matrices: odd, so a warp's accesses down a column
+// fall in distinct banks.
+__host__ __device__ constexpr int pitch(int k) { return k | 1; }
+
+// Shared memory of a block, in float2: `slots` ring stages of k x cw; the
+// diagonal and off-diagonal of A / 2^s and column 0; three k x k matrices.
+__host__ __device__ inline size_t smem_bytes(int k, int cw, int slots) {
+  return sizeof(float2) * (static_cast<size_t>(slots) * k * cw + 3 * k + 3 * static_cast<size_t>(k) * pitch(k));
+}
+
+// Wait until at most n (0 .. 3) committed copy groups are still in flight.
+__device__ __forceinline__ void cp_async_wait_at_most(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
   }
 }
 
-// kEntries: entries of each k x k product per thread, k * k <= kEntries * kThreads.
-template <int kEntries>
-__global__ void __launch_bounds__(kThreads)
-lanczos_epilogue_kernel(const float* __restrict__ alphas, const float* __restrict__ betas, float cre,
-                        float cim, const float2* __restrict__ v, const float* __restrict__ nrm,
-                        const float2* __restrict__ x, long long sx, float2* __restrict__ out, int k, int n) {
-  extern __shared__ float2 smem[];
-  __shared__ float2 small[kMaxK];  // column 0
-  __shared__ float colsum[kMaxK];  // column sums of |A|
-  __shared__ int ssq;              // squaring count s
-  __shared__ float sscale;         // 2^s
-  const int kk = k * k;
-  float2* sa = smem;               // A / 2^s
-  float2* sm = sa + kk;            // A^p / 2^(s p)
-  float2* sacc = sm + kk;          // Taylor sum, then its squarings
+// Column 0 of exp(A), A = coeff T, into small[0, k), computed by one warp.
+// da, od: the diagonal and off-diagonal of A / 2^s; m0, m1, acc: k x k
+// matrices of row pitch pitch(k).
+__device__ void expm_col_warp(const float* __restrict__ alphas, const float* __restrict__ betas, float cre,
+                              float cim, int k, float2* da, float2* od, float2* m0, float2* m1, float2* acc,
+                              float2* small) {
+  const int lane = threadIdx.x & 31;
+  const int p = pitch(k);
+  // ||A||_1: column j holds A[j-1, j] = c beta_{j-1}, A[j, j] = c alpha_j, A[j+1, j] = c beta_j
+  float norm1 = 0.f;
+  for (int j = lane; j < k; j += 32) {
+    float col = 0.f;
+    if (j > 0) col += hypotf(cre * betas[j - 1], cim * betas[j - 1]);
+    col += hypotf(cre * alphas[j], cim * alphas[j]);
+    if (j + 1 < k) col += hypotf(cre * betas[j], cim * betas[j]);
+    norm1 = fmaxf(norm1, col);
+  }
+  norm1 = warp_max(norm1);
+  const float sf = fminf(fmaxf(ceilf(log2f(fmaxf(norm1, 1e-30f) / 0.5f)), 0.f), float(kMaxSquarings));
+  const int nsq = static_cast<int>(sf);
+  const float scale = exp2f(sf);
+  for (int j = lane; j < k; j += 32) {
+    da[j] = make_float2(cre * alphas[j] / scale, cim * alphas[j] / scale);
+    od[j] = j + 1 < k ? make_float2(cre * betas[j] / scale, cim * betas[j] / scale) : make_float2(0.f, 0.f);
+    for (int i = 0; i < k; ++i) {
+      const float2 one = make_float2(i == j ? 1.f : 0.f, 0.f);
+      m0[i * p + j] = one;
+      m1[i * p + j] = make_float2(0.f, 0.f);
+      acc[i * p + j] = one;
+    }
+  }
+  __syncwarp();
+  // Taylor: m <- m a, acc += m / n!.  m = a^n has bandwidth n, and
+  // (m a)[i, j] = m[i, j-1] a[j-1, j] + m[i, j] a[j, j] + m[i, j+1] a[j+1, j];
+  // the buffer written held a^(n-2), whose band lies inside a^n's.  The
+  // entries (i, j) of the band are dealt to the lanes in turn.
+  float fact = 1.f;
+  float2* cur = m0;
+  float2* nxt = m1;
+  for (int term = 1; term <= kTaylorTerms; ++term) {
+    fact *= static_cast<float>(term);
+    const float2* __restrict__ src = cur;
+    float2* __restrict__ dst = nxt;
+    float2* __restrict__ sum = acc;
+    const int width = min(k, 2 * term + 1);  // entries of a band row
+    for (int e = lane; e < k * width; e += 32) {
+      const int i = e / width;
+      const int j = max(0, min(i - term, k - width)) + (e - i * width);
+      if (j < i - term || j > i + term) continue;
+      const float2* row = src + i * p + j;
+      float2 v = make_float2(0.f, 0.f);
+      if (j > 0) cfma(v, row[-1], od[j - 1]);
+      cfma(v, row[0], da[j]);
+      if (j + 1 < k) cfma(v, row[1], od[j]);
+      dst[i * p + j] = v;
+      const float2 a = sum[i * p + j];
+      sum[i * p + j] = make_float2(a.x + v.x / fact, a.y + v.y / fact);
+    }
+    __syncwarp();
+    float2* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  // s squarings of acc; the last one needs only column 0: (acc acc)[i, 0]
+  float2* src = acc;
+  float2* dst = cur;
+  for (int q = 0; q + 1 < nsq; ++q) {
+    for (int j = lane; j < k; j += 32) {
+      for (int i0 = 0; i0 < k; i0 += 4) {
+        const float2* rows[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) rows[r] = src + min(i0 + r, k - 1) * p;
+        float2 v[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) v[r] = make_float2(0.f, 0.f);
+#pragma unroll 2
+        for (int l = 0; l < k; ++l) {
+          const float2 bl = src[l * p + j];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) cfma(v[r], rows[r][l], bl);
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          if (i0 + r < k) dst[(i0 + r) * p + j] = v[r];
+      }
+    }
+    __syncwarp();
+    float2* t = src;
+    src = dst;
+    dst = t;
+  }
+  for (int i = lane; i < k; i += 32) {
+    if (nsq == 0) {
+      small[i] = src[i * p];
+    } else {
+      float2 v = make_float2(0.f, 0.f);
+      for (int l = 0; l < k; ++l) cfma(v, src[i * p + l], src[l * p]);
+      small[i] = v;
+    }
+  }
+}
+
+// alphas, betas: (batch, k); v: (batch, k, n); nrm: (batch,); x rows sx
+// apart; out: (batch, n).  Block (bx, b) streams columns [bx stages cw,
+// ...) of trajectory b, `stages` stages of cw columns, through `slots`
+// stages of shared memory.
+__global__ void __launch_bounds__(kThreads, 4)
+lanczos_epilogue_kernel(const float* __restrict__ alphas, const float* __restrict__ betas, float cre, float cim,
+                        const float2* __restrict__ v, const float* __restrict__ nrm, const float2* __restrict__ x,
+                        long long sx, float2* __restrict__ out, int k, int n, int cw, int stages, int slots,
+                        int vec16) {
+  extern __shared__ float4 smem4[];
+  float2* ring = reinterpret_cast<float2*>(smem4);
+  float2* da = ring + slots * k * cw;
+  float2* od = da + k;
+  float2* small = od + k;
+  float2* m0 = small + k;
+  float2* m1 = m0 + k * pitch(k);
+  float2* macc = m1 + k * pitch(k);
 
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
-
-  for (int e = tid; e < kk; e += kThreads) {
-    const int i = e / k, j = e % k;
-    float t = 0.f;
-    if (i == j) {
-      t = alphas[b * k + i];
-    } else if (j == i + 1) {
-      t = betas[b * k + i];
-    } else if (i == j + 1) {
-      t = betas[b * k + j];
-    }
-    sa[e] = make_float2(cre * t, cim * t);  // complex coeff times real T
-  }
-  __syncthreads();
-  if (tid < k) {
-    float col = 0.f;
-    for (int i = 0; i < k; ++i) col += hypotf(sa[i * k + tid].x, sa[i * k + tid].y);
-    colsum[tid] = col;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float norm1 = 0.f;
-    for (int j = 0; j < k; ++j) norm1 = fmaxf(norm1, colsum[j]);
-    const float s = fminf(fmaxf(ceilf(log2f(fmaxf(norm1, 1e-30f) / 0.5f)), 0.f), float(kMaxSquarings));
-    ssq = static_cast<int>(s);
-    sscale = exp2f(s);
-  }
-  __syncthreads();
-  for (int e = tid; e < kk; e += kThreads) {
-    const float p = sscale;
-    sa[e] = make_float2(sa[e].x / p, sa[e].y / p);
-    const float one = (e / k == e % k) ? 1.f : 0.f;
-    sm[e] = make_float2(one, 0.f);
-    sacc[e] = make_float2(one, 0.f);
-  }
-  __syncthreads();
-  float2 ent[kEntries];
-  float fact = 1.f;
-  for (int term = 1; term <= kTaylorTerms; ++term) {
-    small_matmul<kEntries>(sm, sa, k, tid, ent);
-    __syncthreads();
-    fact *= static_cast<float>(term);
-#pragma unroll
-    for (int r = 0; r < kEntries; ++r) {
-      const int idx = tid + r * kThreads;
-      if (idx < kk) {
-        sm[idx] = ent[r];
-        sacc[idx] = make_float2(sacc[idx].x + ent[r].x / fact, sacc[idx].y + ent[r].y / fact);
-      }
-    }
-    __syncthreads();
-  }
-  const int nsq = ssq;
-  for (int q = 0; q < nsq; ++q) {
-    small_matmul<kEntries>(sacc, sacc, k, tid, ent);
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kEntries; ++r) {
-      const int idx = tid + r * kThreads;
-      if (idx < kk) sacc[idx] = ent[r];
-    }
-    __syncthreads();
-  }
-  if (tid < k) small[tid] = sacc[tid * k];
-  __syncthreads();
-
+  const long long col0 = static_cast<long long>(blockIdx.x) * stages * cw;
+  const long long col_end = min(static_cast<long long>(n), col0 + static_cast<long long>(stages) * cw);
+  const int nst = static_cast<int>((col_end - col0 + cw - 1) / cw);
   const float nb = nrm[b];
-  const size_t vb = static_cast<size_t>(b) * k * n;
-  const size_t xb = static_cast<size_t>(b) * sx;
-  const size_t ob = static_cast<size_t>(b) * n;
-  const int col0 = blockIdx.x * kThreads * kColsPerThread + tid;
-#pragma unroll
-  for (int p = 0; p < kColsPerThread; ++p) {
-    const int j = col0 + p * kThreads;
-    if (j >= n) break;
-    float2 res;
-    if (nb > 0.f) {
-      float2 acc = make_float2(0.f, 0.f);
-      for (int i = 0; i < k; ++i) {
-        const float2 t = cmul(small[i], v[vb + static_cast<size_t>(i) * n + j]);
-        acc.x += t.x;
-        acc.y += t.y;
-      }
-      res = make_float2(acc.x * nb, acc.y * nb);
-    } else {
-      res = x[xb + j];
-    }
-    out[ob + j] = res;
+  float2* ob = out + static_cast<size_t>(b) * n;
+  if (!(nb > 0.f)) {  // x passes through
+    const float2* xb = x + static_cast<size_t>(b) * sx;
+    for (long long j = col0 + tid; j < col_end; j += kThreads) ob[j] = xb[j];
+    return;
   }
-}
+  const float2* vb = v + static_cast<size_t>(b) * k * n;
 
-template <int kEntries>
-int launch(const float* alphas, const float* betas, float cre, float cim, const float2* v, const float* nrm,
-           const float2* x, long long sx, float2* out, int batch, int k, int n, cudaStream_t stream) {
-  constexpr size_t kMaxSmem = sizeof(float2) * 3 * kEntries * kThreads;
-  if constexpr (kMaxSmem > 48 * 1024) {  // above the default limit: raise it once per process
-    static const cudaError_t configured = cudaFuncSetAttribute(
-        lanczos_epilogue_kernel<kEntries>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kMaxSmem));
-    if (configured != cudaSuccess) return static_cast<int>(configured);
+  // A thread copies, and alone reads, its own units of each stage (two
+  // columns with 16-byte copies, else one): units tid, tid + kThreads, ...
+  // of the stage's cw columns, all k rows.  So it waits for its own copies
+  // only, and refills its own slots without a block barrier.
+  const int unit = vec16 ? 2 : 1;
+  const int units = cw / unit;
+  auto load_stage = [&](int q) {
+    float2* dst = ring + (q % slots) * k * cw;
+    const long long c0 = col0 + static_cast<long long>(q) * cw;
+    for (int u = tid; u < units; u += kThreads) {
+      const int c = u * unit;
+      const bool valid = c0 + c < col_end;
+      for (int i = 0; i < k; ++i) {
+        const long long off = static_cast<long long>(i) * n + c0 + c;
+        if (vec16) {
+          cp_async16(reinterpret_cast<float4*>(dst + i * cw + c), reinterpret_cast<const float4*>(vb), off / 2, valid);
+        } else {
+          cp_async8(dst + i * cw + c, vb, off, valid);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int q = 0; q < min(slots, nst); ++q) load_stage(q);
+  if (tid < 32) expm_col_warp(alphas + b * k, betas + b * k, cre, cim, k, da, od, m0, m1, macc, small);
+  __syncthreads();  // column 0 of the exponential
+
+  for (int q = 0; q < nst; ++q) {
+    cp_async_wait_at_most(min(nst - 1 - q, slots - 1));  // this thread's copies of stage q have landed
+    const long long c0 = col0 + static_cast<long long>(q) * cw;
+    const float2* stage = ring + (q % slots) * k * cw;
+    for (int u = tid; u < units; u += kThreads) {
+      const int c = u * unit;
+      if (c0 + c >= col_end) break;
+      if (vec16) {
+        float2 a0 = make_float2(0.f, 0.f), a1 = make_float2(0.f, 0.f);
+        for (int i = 0; i < k; ++i) {
+          const float4 pair = *reinterpret_cast<const float4*>(stage + i * cw + c);
+          cfma(a0, small[i], make_float2(pair.x, pair.y));
+          cfma(a1, small[i], make_float2(pair.z, pair.w));
+        }
+        *reinterpret_cast<float4*>(ob + c0 + c) = make_float4(a0.x * nb, a0.y * nb, a1.x * nb, a1.y * nb);
+      } else {
+        float2 acc = make_float2(0.f, 0.f);
+        for (int i = 0; i < k; ++i) cfma(acc, small[i], stage[i * cw + c]);
+        ob[c0 + c] = make_float2(acc.x * nb, acc.y * nb);
+      }
+    }
+    if (q + slots < nst) load_stage(q + slots);  // into this thread's own slots of stage q
   }
-  const int per_block = kThreads * kColsPerThread;
-  const dim3 grid((n + per_block - 1) / per_block, batch);
-  const size_t smem = sizeof(float2) * 3 * static_cast<size_t>(k) * k;
-  lanczos_epilogue_kernel<kEntries><<<grid, kThreads, smem, stream>>>(alphas, betas, cre, cim, v, nrm, x, sx, out, k, n);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -197,20 +280,24 @@ int launch(const float* alphas, const float* betas, float cre, float cim, const 
 // alphas, betas (batch, k) float; v (batch, k, n); nrm (batch,) float; out
 // (batch, n), all contiguous; x (batch, n) with contiguous rows, sx elements
 // apart (a start vector handed over in place, such as a site of the MPS).
+// The plan (lanczos_epilogue.plan): cw, the columns of a stage (an even
+// number up to 1024); stages, the stages of a block (grid.x = ceil(n /
+// (stages cw))); slots, the stages in shared memory (1 .. 4).
 extern "C" int lanczos_epilogue_launch(const void* alphas, const void* betas, float coeff_re, float coeff_im,
                                        const void* v, const void* nrm, const void* x, long long sx, void* out, int batch,
-                                       int k, int n, void* stream) {
-  if (batch <= 0 || batch > 65535 || k <= 0 || k > kMaxK || n <= 0) {
+                                       int k, int n, int cw, int stages, int slots, void* stream) {
+  if (batch <= 0 || batch > 65535 || k <= 0 || k > kMaxK || n <= 0 || cw <= 0 || cw > kMaxCols || cw % 2 != 0 ||
+      stages <= 0 || slots <= 0 || slots > 4 || smem_bytes(k, cw, slots) > kSmemLimit) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto a = static_cast<const float*>(alphas);
-  const auto bt = static_cast<const float*>(betas);
-  const auto vv = static_cast<const float2*>(v);
-  const auto nr = static_cast<const float*>(nrm);
-  const auto xx = static_cast<const float2*>(x);
-  const auto o = static_cast<float2*>(out);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (k * k <= kThreads) return launch<1>(a, bt, coeff_re, coeff_im, vv, nr, xx, sx, o, batch, k, n, s);
-  if (k * k <= 4 * kThreads) return launch<4>(a, bt, coeff_re, coeff_im, vv, nr, xx, sx, o, batch, k, n, s);
-  return launch<16>(a, bt, coeff_re, coeff_im, vv, nr, xx, sx, o, batch, k, n, s);
+  static const cudaError_t configured = prepare(lanczos_epilogue_kernel, kSmemLimit);
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  const long long span = static_cast<long long>(stages) * cw;
+  const dim3 grid(static_cast<unsigned>((n + span - 1) / span), batch);
+  const int vec16 = n % 2 == 0 && reinterpret_cast<size_t>(v) % 16 == 0;
+  lanczos_epilogue_kernel<<<grid, kThreads, smem_bytes(k, cw, slots), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(alphas), static_cast<const float*>(betas), coeff_re, coeff_im,
+      static_cast<const float2*>(v), static_cast<const float*>(nrm), static_cast<const float2*>(x), sx,
+      static_cast<float2*>(out), k, n, cw, stages, slots, vec16);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -60,6 +60,15 @@ __device__ __forceinline__ void cp_async8(float2* dst, const float2* base, long 
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
 }
 
+// 16 bytes (both addresses 16-byte aligned), or zeros when !valid; cached
+// in L2 only.
+__device__ __forceinline__ void cp_async16(float4* dst, const float4* base, long long offset, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const float4* src = valid ? base + offset : base;
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 // Wait until at most kPending committed groups are still in flight.

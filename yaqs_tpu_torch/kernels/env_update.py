@@ -9,20 +9,86 @@ Replaces ``yaqs_tpu.methods.tdvp.update_left_env`` and ``update_right_env``
     right: ``G'[a, w, b] = sum conj(Ab[t,a,m]) W[t,s,w,v] Ak[s,b,k] G[m,v,k]``.
 
 The bra goes in unconjugated; the kernel conjugates it.
+
+A launch splits each trajectory's output columns over blocks (:func:`plan`):
+``cols`` columns a block, the widest of 32, 16, 8 and 4 whose blocks still
+keep the card's SMs busy, F and the bra streamed through shared memory in
+chunks, and register tiles of ``2 tm3`` x 4 (T1) and ``tm3`` x 4 (the
+output) outputs a thread.  No sum crosses blocks and each output is summed
+in one fixed order, so the plan changes no bit of the result.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
 from . import LAUNCHES, inner_contiguous, on_card
 from .build import check, load_library
 
-__all__ = ["env_update_left", "env_update_right", "env_update_left_plain", "env_update_right_plain"]
+__all__ = ["env_update_left", "env_update_right", "env_update_left_plain", "env_update_right_plain", "plan"]
 
 MAX_CHI = 64
 MAX_DW = 8
 MAX_BATCH = 65535  # grid.y
+D = 2
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory of one block on sm_90
+COLS = (32, 16, 8, 4)  # the output columns a block may own
+
+
+def layout_bytes(chi: int, dw: int, cols: int, chunk: int) -> int:
+    """Shared memory of one block (``EnvLayout`` in ``csrc/env_update.cu``):
+    W', the ket's slice, T1 / T2 and two ring stages."""
+    stage = max(chi * dw * (chunk + 1), chunk * (chi + 1))
+    return 8 * (D * D * dw * dw + D * chi * (cols + 1) + chi * dw * D * cols + 2 * stage)
+
+
+def block_threads(chi: int, dw: int, cols: int, tm3: int) -> int:
+    """Threads of one block: a register tile each in both products, in whole
+    warps (``env_threads`` in ``csrc/env_update.cu``)."""
+    tiles1 = math.ceil(chi * dw / (2 * tm3)) * (D * cols // 4)
+    tiles3 = math.ceil(chi / tm3) * (dw * cols // 4)
+    return math.ceil(max(tiles1, tiles3) / 32) * 32
+
+
+def max_threads(tm3: int) -> int:
+    """Threads a block may have (``max_threads`` in ``csrc/env_update.cu``)."""
+    return 384 if tm3 <= 2 else 256
+
+
+@functools.lru_cache(maxsize=256)
+def plan(batch: int, chi: int, dw: int, sms: int) -> tuple[int, int, int]:
+    """``(cols, chunk, tm3)`` of a launch on a card of ``sms`` SMs.
+
+    ``cols``: the widest slice (at most the next power of two of chi) whose
+    ``batch * ceil(chi / cols)`` blocks leave at most one SM in 16 idle,
+    else 4; ``tm3``: the smaller tile (2 or 4 rows of the output's, twice
+    that of T1's) whose block has at most ``max_threads(tm3)`` threads;
+    ``chunk``: 16 where the block fits one SM, else 8.  A slice that fits in
+    no way is halved; at 4 columns every shape of the range fits.  (At the
+    analog shape, 128 blocks of 16 columns on 4 x 4 and 2 x 4 tiles ran
+    faster than 256 blocks of 8 columns, two an SM, and tiles of 2 x 4 and
+    1 x 4 were never faster: PERF.md.)
+    """
+    widest = max(4, 1 << max(0, chi - 1).bit_length())
+    cands = [c for c in COLS if c <= widest]
+    first = next((i for i, c in enumerate(cands) if 16 * batch * math.ceil(chi / c) >= 15 * sms), len(cands) - 1)
+    for cols in cands[first:]:
+        tm3 = next((t for t in (2, 4) if block_threads(chi, dw, cols, t) <= max_threads(t)), None)
+        if tm3 is None:
+            continue
+        chunk = next((c for c in (16, 8) if layout_bytes(chi, dw, cols, c) <= SMEM_LIMIT), None)
+        if chunk is not None:
+            return cols, chunk, tm3
+    msg = f"env_update has no plan for chi={chi}, Dw={dw}"
+    raise ValueError(msg)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def env_update_left_plain(f, a_bra, a_ket, w):
@@ -76,11 +142,12 @@ def _env_update(env, a_bra, a_ket, w, out, right: bool):
         raise ValueError(msg)
     if b == 0:
         return out
+    cols, chunk, tm3 = plan(b, chi, dw, _sm_count(env.device.index or 0))
     lib = load_library()
     stream = torch.cuda.current_stream(env.device).cuda_stream
     err = lib.env_update_launch(
         env.data_ptr(), env.stride(0), a_bra.data_ptr(), a_bra.stride(0), a_ket.data_ptr(), a_ket.stride(0),
-        w.data_ptr(), out.data_ptr(), out.stride(0), b, chi, dw, int(right), stream,
+        w.data_ptr(), out.data_ptr(), out.stride(0), b, chi, dw, cols, chunk, tm3, int(right), stream,
     )
     check(err, name)
     LAUNCHES[name] += 1

@@ -6,21 +6,65 @@ each trajectory, the first column of ``exp(coeff * T)`` for the real
 symmetric tridiagonal ``T`` built from ``alphas`` and ``betas``, combined with
 the Krylov basis ``V`` and scaled by the start vector's norm; where that norm
 is zero the start vector ``x`` passes through.
+
+A launch (:func:`plan`) streams V in stages of ``cw`` columns (all k rows),
+``stages`` stages a block, up to four of them in flight: one block a
+trajectory where the batch alone fills the card (the gate windows' B =
+512), more where it does not (16 at the analog path's B = 32).  Warp 0 of
+each block forms the exponential while the first stages are copied in.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
 from . import LAUNCHES, inner_contiguous, on_card
 from .build import check, load_library
 
-__all__ = ["expm_col_tridiag", "lanczos_epilogue", "lanczos_epilogue_plain"]
+__all__ = ["expm_col_tridiag", "lanczos_epilogue", "lanczos_epilogue_plain", "plan"]
 
 MAX_K = 64  # the k x k exponential lives in one block's shared memory
 MAX_BATCH = 65535  # grid.y
 TAYLOR_TERMS = 10
 MAX_SQUARINGS = 12
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory of one block on sm_90
+BLOCK_SHARES = (57 * 1024, 113 * 1024, SMEM_LIMIT)  # what each of four, two or one blocks of an SM may hold
+BLOCKS_PER_SM = 4  # the blocks a launch aims at for each SM of the card
+MAX_COLS = 1024  # columns of a stage: four a thread
+
+
+def smem_bytes(k: int, cw: int, slots: int) -> int:
+    """Shared memory of one block (``smem_bytes`` in
+    ``csrc/lanczos_epilogue.cu``): ``slots`` stages of k x cw, A's two
+    diagonals and column 0, three k x k matrices of odd row pitch."""
+    return 8 * (slots * k * cw + 3 * k + 3 * k * (k | 1))
+
+
+@functools.lru_cache(maxsize=256)
+def plan(batch: int, k: int, n: int, sms: int) -> tuple[int, int, int]:
+    """``(cw, stages, slots)`` of a launch on a card of ``sms`` SMs:
+    ``BLOCKS_PER_SM * sms / batch`` blocks a trajectory (at least one, at most
+    one per 32 columns), each streaming its span of n in ``stages`` stages
+    of ``cw`` columns: the widest multiple of 32, at most 1024 and the span,
+    of which two (or the one) fit beside the exponential with four blocks on
+    one SM, else two, else one; up to four stages (``slots``) in flight at
+    once where they fit."""
+    blocks = max(1, min(math.ceil(n / 32), BLOCKS_PER_SM * sms // batch))
+    span = math.ceil(n / blocks)
+    widest = min(MAX_COLS, 32 * math.ceil(span / 32))
+    limit, cw = next((lim, c) for lim in BLOCK_SHARES for c in range(widest, 31, -32)
+                     if smem_bytes(k, c, min(2, math.ceil(span / c))) <= lim)
+    stages = math.ceil(span / cw)
+    slots = max(s for s in range(1, min(4, stages) + 1) if smem_bytes(k, cw, s) <= limit)
+    return cw, stages, slots
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def tridiag(alphas: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
@@ -129,11 +173,12 @@ def lanczos_epilogue(
     if b == 0 or n == 0:
         return out
     c = complex(coeff)
+    cw, stages, slots = plan(b, k, n, _sm_count(v.device.index or 0))
     lib = load_library()
     stream = torch.cuda.current_stream(v.device).cuda_stream
     err = lib.lanczos_epilogue_launch(
         alphas.data_ptr(), betas.data_ptr(), c.real, c.imag, v.data_ptr(),
-        nrm.data_ptr(), x.data_ptr(), x.stride(0), out.data_ptr(), b, k, n, stream,
+        nrm.data_ptr(), x.data_ptr(), x.stride(0), out.data_ptr(), b, k, n, cw, stages, slots, stream,
     )
     check(err, "lanczos_epilogue")
     LAUNCHES["lanczos_epilogue"] += 1
