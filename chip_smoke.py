@@ -36,8 +36,12 @@ Phases (any failure raises and exits non-zero):
    K6 ``ns_canon`` over a (32, 100, 2, 64, 64) and a (512, 20, 2, 32, 32) chain (the full-rank
    sites and the site moments within 1e-4), with the blocks a trajectory and the blocks an SM,
    beside the earlier design's time; K15
-   ``pair_weights`` at B=32, L=100, 99 channels, and K10 with a gate per
-   trajectory at (32, chi=64); K12 ``sv_mpo_matvec`` at (16, L=20), Dw 3
+   ``pair_weights`` at B=32, L=100, 99 channels; K10 ``bond_gate`` with a
+   shared gate at (512, chi=32) and (32, chi=64) and with a gate per
+   trajectory at (32, chi=64), with its blocks a trajectory and its library
+   call's device time beside the host-paced one; K11 ``sample_shots`` at
+   (512, S=1, L=20, chi=32) and (1, 4096, 4, 32), timed, and at d=4,
+   chi=64 (a site in two chunks) held, not timed; K12 ``sv_mpo_matvec`` at (16, L=20), Dw 3
    and 5, with its passes, the vectors they move, the bound on W's nonzero
    entries beside the dense one and each count of sites a round, and held
    at the shapes where its pass plan changes; K13's step at j = 0 .. 24
@@ -69,7 +73,8 @@ Phases (any failure raises and exits non-zero):
    correlated decay ``kron(lowering, lowering)`` 0.01 on every adjacent pair
    (99 merged-pair channels: the bond dissipators' sweep through K14, K10
    and K9, the weights through K15, the jumps through K10 and K9):
-   trajectories/s, ms per step, peak memory, the launches (K5, K14 by mode), K9's convergence
+   trajectories/s, ms per step, peak memory, the launches (K5, K14 by mode;
+   K10's with a gate per trajectory apart), K9's convergence
    and mean and largest min(r_eff, c_eff), a profiled step (K9's ms per
    launch in the path);
 5. the complex64 symmetric-Z guard: noiseless TFIM from x+ at L=48, chi=64
@@ -138,6 +143,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -384,7 +390,8 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return ((got - ref).abs().max() / ref.abs().max()).item()
 
 
-def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops, per_call=1, slow_plain=False):
+def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops, per_call=1, slow_plain=False,
+            library_device=False):
     """Every time of one kernel at one shape, printed on one line.  The
     kernel and its plain version: profiler device time and host-paced time.
     The library call, which may issue thousands of small launches and host
@@ -398,7 +405,10 @@ def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops,
     warm-up.  Where ``device_ms`` falls back to CUDA events, the kernel's
     time is the smaller of one call at a time (a launch and a synchronize
     more) and host-paced (the host's pace between launches): both bound
-    its device time from above."""
+    its device time from above.  ``library_device``: the library call's
+    device time too (``device_ms``, every device row it runs), beside its
+    host-paced time, so that a kernel and the library call compare on the
+    card."""
     ms, launches, source = device_ms(kernel_fn, names=kernel_names, per_call=per_call)
     host_ms = host_paced_ms(kernel_fn)
     if source == "events":
@@ -418,11 +428,29 @@ def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops,
         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
     )
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms (host-paced)"
+    if library_device:
+        out["library_device_ms"], lib_events, lib_source = device_ms(library_fn)
+        lib += f", device {out['library_device_ms']:.4f} ms ({lib_source}, {lib_events:g} device events)"
     log(f"[phase 3] {label}: device {ms:.4f} ms ({source}, {launches:g} launches), "
         f"host-paced {out['host_ms']:.4f} ms; plain device {plain_ms:.4f} ms ({plain_source}, "
         f"{plain_events:g} device events), host-paced {out['plain_host_ms']:.4f} ms; library {lib}; "
         f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
     return out
+
+
+def bond_gate_blocks(batch, l, r, dev):
+    """K10's plan: the blocks a trajectory and each block's (x, y) slice."""
+    from yaqs_tpu_torch.kernels import bond_gate as k10, sm_count
+
+    bx, by = k10.plan(batch, l, r, sm_count(dev))
+    return f"{math.ceil(l / bx) * math.ceil(r / by)} ({bx} x {by})"
+
+
+def shots_plan(batch, shots, d, chi, dev):
+    """K11's plan: (shots a block, shots a warp, rows of a site a stage)."""
+    from yaqs_tpu_torch.kernels import sample_shots as k11, sm_count
+
+    return k11.plan(batch, shots, d, chi, sm_count(dev))
 
 
 def random_mps(gen, dev, batch, length, chi, d=2):
@@ -515,14 +543,59 @@ def epilogue_rows(dev, randc, gen):
     return rows
 
 
+def bond_gate_row(dev, gen):
+    """K10 ``bond_gate`` on strided site views, as the sweeps pass them,
+    against its plain version (within ``KERNEL_TOL``) and timed, with its
+    library call's device time beside the host-paced one: a shared gate at
+    the digital shape (B=512, chi=32) and at the analog two-site cell's
+    bond-dissipation sweep (B=32, chi=64, 1,980 launches in phase 4d), and a
+    gate per trajectory there (the jumps, 20 launches).  Early in phase 3,
+    where the profiler still keeps the launches.  The analog rows draw from
+    a generator of their own, so the later rows' inputs do not move."""
+    from yaqs_tpu_torch.kernels.bond_gate import bond_gate, bond_gate_plain
+
+    d = 2
+    own = torch.Generator(device=dev).manual_seed(4321)
+    shapes = {"digital": (DIGITAL["num_traj"], DIGITAL["qubits"], DIGITAL["chi"], False, gen),
+              "shared_gate_analog": (BENCH["batch"], BENCH["length"], BENCH["chi"], False, own),
+              "per_trajectory_gate": (BENCH["batch"], BENCH["length"], BENCH["chi"], True, own)}
+    out = {}
+    for key, (b, length, chi, per_trajectory, g_in) in shapes.items():
+        state = random_mps(g_in, dev, b, length, chi)
+        x, y = state[:, 3], state[:, 4]
+        shape = (b, 4, 4) if per_trajectory else (4, 4)
+        gate = torch.complex(torch.randn(shape, generator=g_in, device=dev),
+                             torch.randn(shape, generator=g_in, device=dev))
+        got, ref = bond_gate(x, y, gate), bond_gate_plain(x, y, gate)
+        torch.cuda.synchronize()
+        err = rel_err(got, ref)
+        kind = "a gate per trajectory" if per_trajectory else "a shared gate"
+        label = f"bond_gate, {kind} (B={b}, chi={chi})"
+        log(f"[phase 3] {label}, {bond_gate_blocks(b, chi, chi, dev)} blocks a trajectory: rel err {err:.3e}")
+        check(err <= KERNEL_TOL, f"{label} disagrees with its plain version: {err} > {KERNEL_TOL}")
+        g = gate.reshape(*gate.shape[:-2], 2, 2, 2, 2)
+        spec = "zstuv,zulm,zvmr->zsltr" if per_trajectory else "stuv,zulm,zvmr->zsltr"
+        out[key] = dict(
+            shape=[b, d, chi, chi], max_abs_err=(got - ref).abs().max().item(),
+            library_call=f"torch.einsum('{spec}') (one call)",
+            **timings(label, lambda x=x, y=y, gate=gate: bond_gate(x, y, gate),
+                      lambda x=x, y=y, gate=gate: bond_gate_plain(x, y, gate),
+                      lambda x=x, y=y, g=g, spec=spec: torch.einsum(spec, g, x, y), ("bond_gate",),
+                      (2 * b * d * chi * chi + b * d * d * chi * chi + gate.numel()) * C64,
+                      b * (d * d * chi**3 + d**4 * chi * chi) * CMAC_FLOPS, library_device=True),
+        )
+    return dict(source="yaqs_tpu_torch/kernels/csrc/bond_gate.cu", replaces="yaqs_tpu/digital/engine.py:76",
+                **out.pop("digital"), **out)
+
+
 def phase_kernels(dev):
     from yaqs_tpu_torch.core.mps_ops import normalize_canonical
-    from yaqs_tpu_torch.kernels.bond_gate import bond_gate, bond_gate_plain
     from yaqs_tpu_torch.kernels.moment_scan import (
         _moments_plain, scan_cluster, site_moment_matrices, site_moment_matrices_plain, site_moments_and_environments)
     from yaqs_tpu_torch.kernels.ns_polar import newton_schulz_orthogonalize, newton_schulz_orthogonalize_plain
     from yaqs_tpu_torch.kernels.sample_shots import sample_shots, sample_shots_plain
 
+    t_start = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(1234)
 
     def randc(*shape):
@@ -568,28 +641,7 @@ def phase_kernels(dev):
 
     rows.update(epilogue_rows(dev, randc, gen))
 
-    # bond_gate on strided site views of a digital-shape state, as the sweep passes them
-    state = random_mps(gen, dev, nd, ld, cd)
-    gate = randc(4, 4)
-    a, bb = state[:, 3], state[:, 4]
-    got = bond_gate(a, bb, gate)
-    ref = bond_gate_plain(a, bb, gate)
-    torch.cuda.synchronize()
-    err = rel_err(got, ref)
-    log(f"[phase 3] bond_gate (B={nd}, chi={cd}): rel err {err:.3e}")
-    check(err <= KERNEL_TOL, f"bond_gate disagrees with its plain version: {err} > {KERNEL_TOL}")
-    g4 = gate.reshape(2, 2, 2, 2)
-    rows["bond_gate"] = dict(
-        source="yaqs_tpu_torch/kernels/csrc/bond_gate.cu", replaces="yaqs_tpu/digital/engine.py:76",
-        max_abs_err=(got - ref).abs().max().item(), shape=[nd, d, cd, cd],
-        library_call="torch.einsum('stuv,zulm,zvmr->zsltr') (one call)",
-        **timings(
-            f"bond_gate (B={nd}, chi={cd})", lambda: bond_gate(a, bb, gate), lambda: bond_gate_plain(a, bb, gate),
-            lambda: torch.einsum("stuv,zulm,zvmr->zsltr", g4, a, bb), ("bond_gate",),
-            (2 * nd * d * cd * cd + nd * d * d * cd * cd + 16) * C64,
-            nd * (d * d * cd**3 + d**4 * cd * cd) * CMAC_FLOPS,
-        ),
-    )
+    rows["bond_gate"] = bond_gate_row(dev, gen)
 
     # moment_scan at the digital, the analog and the XXZ path's shape (whose
     # batch takes another cluster size): the moments, the norm and both Gram
@@ -641,7 +693,8 @@ def phase_kernels(dev):
         g = -torch.log(-torch.log(u))
         got = sample_shots(canon, g)
         same = torch.equal(got, sample_shots_plain(canon, g))
-        log(f"[phase 3] sample_shots (B={bm}, S={sm}, L={lm}, chi={cm}): identical outcomes {same}")
+        log(f"[phase 3] sample_shots (B={bm}, S={sm}, L={lm}, chi={cm}; plan (group, shots a warp, rows) "
+            f"{shots_plan(bm, sm, d, cm, dev)}): identical outcomes {same}")
         check(same, "sample_shots picked other outcomes than its plain version")
         ss_extra[bm] = timings(
             f"sample_shots (B={bm}, S={sm}, L={lm}, chi={cm})", lambda c=canon, g=g: sample_shots(c, g),
@@ -649,16 +702,28 @@ def phase_kernels(dev):
             bm * lm * d * cm * cm * C64 + bm * sm * lm * (d + 1) * 4,
             bm * sm * lm * d * cm * cm * CMAC_FLOPS,
         )
+    # d = 4, chi = 64: a site in two chunks of rows; a shot a block, and groups of 32 shots (a generator
+    # of their own, so the later rows' inputs do not move)
+    own = torch.Generator(device=dev).manual_seed(4321)
+    for bm, sm, lm in ((3, 5, 6), (1, 4096, 5)):
+        canon = normalize_canonical(random_mps(own, dev, bm, lm, 64, d=4).cpu())[0].to(dev)  # the CPU's QR
+        u = torch.rand((bm, sm, lm, 4), generator=own, device=dev).clamp_(min=torch.finfo(torch.float32).tiny)
+        g = -torch.log(-torch.log(u))
+        same = torch.equal(sample_shots(canon, g), sample_shots_plain(canon, g))
+        log(f"[phase 3] sample_shots (B={bm}, S={sm}, L={lm}, d=4, chi=64; plan (group, shots a warp, rows) "
+            f"{shots_plan(bm, sm, 4, 64, dev)}): identical outcomes {same}")
+        check(same, "sample_shots at d=4, chi=64 picked other outcomes than its plain version")
     rows["sample_shots"] = dict(
         source="yaqs_tpu_torch/kernels/csrc/sample_shots.cu", replaces="yaqs_tpu/digital/engine.py:624",
         max_abs_err=0.0, shape=[nd, 1, ld, d], **ss_extra[nd], library_call="none",
         noiseless_shape=dict(shape=[1, 4096, 4, d], **ss_extra[1]),
     )
-    rows.update(tdvp_kernel_rows(dev, randc, gen))
-    rows.update(mcwf_kernel_rows(dev, randc, gen))
-    rows.update(decomp_kernel_rows(dev, randc, gen))
-    rows.update(newton_kernel_rows(dev, randc, gen))
-    rows.update(two_site_kernel_rows(dev, randc, gen, rows["bond_gate"]))
+    log(f"[time] phase 3, K4, K3, K10, K7, K11: {time.perf_counter() - t_start:.1f} s")
+    for name, fn in (("TDVP", tdvp_kernel_rows), ("MCWF", mcwf_kernel_rows), ("K9, K14", decomp_kernel_rows),
+                     ("K5, K6", newton_kernel_rows), ("K15", two_site_kernel_rows)):
+        t_start = time.perf_counter()
+        rows.update(fn(dev, randc, gen))
+        log(f"[time] phase 3, {name}: {time.perf_counter() - t_start:.1f} s")
     return rows
 
 
@@ -1240,15 +1305,13 @@ def newton_kernel_rows(dev, randc, gen):
     }
 
 
-def two_site_kernel_rows(dev, randc, gen, bond_gate_row):
+def two_site_kernel_rows(dev, randc, gen):
     """K15 ``pair_weights`` at the two-site cell's shape (B=32, L=100,
     chi=64, nc2=99 channels, one a bond, the correlated decay's weight
     operator) on a random chain, with the environments of one
     ``moment_scan`` launch: within 1e-4 of the plain version (relative); the
     library call is one ``torch.einsum`` over the gathered sites and
-    environments.  K10 ``bond_gate`` with a gate per trajectory at the
-    analog jump's shape (B=32, chi=64), into ``bond_gate_row``."""
-    from yaqs_tpu_torch.kernels.bond_gate import bond_gate, bond_gate_plain
+    environments."""
     from yaqs_tpu_torch.kernels.moment_scan import site_moments_and_environments
     from yaqs_tpu_torch.kernels.pair_weights import pair_weights, pair_weights_plain
 
@@ -1282,22 +1345,6 @@ def two_site_kernel_rows(dev, randc, gen, bond_gate_row):
                max_abs_err=(got - ref).abs().max().item(), shape=[b, length, chi, nc2],
                library_call="one torch.einsum over the gathered sites, environments and operators", **t)
 
-    gates = randc(b, 4, 4)
-    x, y = mps[:, 3], mps[:, 4]
-    got, ref = bond_gate(x, y, gates), bond_gate_plain(x, y, gates)
-    torch.cuda.synchronize()
-    err = rel_err(got, ref)
-    log(f"[phase 3] bond_gate with a gate per trajectory (B={b}, chi={chi}): rel err {err:.3e}")
-    check(err <= KERNEL_TOL, f"bond_gate (a gate per trajectory) disagrees with its plain version: {err}")
-    g5 = gates.reshape(b, 2, 2, 2, 2)
-    bond_gate_row["per_trajectory_gate"] = dict(
-        shape=[b, d, chi, chi], max_abs_err=(got - ref).abs().max().item(),
-        library_call="torch.einsum('zstuv,zulm,zvmr->zsltr') (one call)",
-        **timings(f"bond_gate, a gate per trajectory (B={b}, chi={chi})", lambda: bond_gate(x, y, gates),
-                  lambda: bond_gate_plain(x, y, gates), lambda: torch.einsum("zstuv,zulm,zvmr->zsltr", g5, x, y),
-                  ("bond_gate",), (2 * b * d * chi * chi + b * d * d * chi * chi + 16 * b) * C64,
-                  b * (d * d * chi**3 + d**4 * chi * chi) * CMAC_FLOPS),
-    )
     return {"pair_weights": k15}
 
 
@@ -1610,16 +1657,23 @@ def phase_two_site(dev):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     k9.reset_convergence()
+    per_trajectory = count_per_trajectory_gates()
     t_start = time.perf_counter()
-    res = run_tjm_batch(t0, w, noise, obs, plan_for(steps, chi), device=dev, dtype=torch.complex64, batch=b)
-    torch.cuda.synchronize()
+    try:
+        res = run_tjm_batch(t0, w, noise, obs, plan_for(steps, chi), device=dev, dtype=torch.complex64, batch=b)
+        torch.cuda.synchronize()
+    finally:
+        per_trajectory = per_trajectory()
     seconds = time.perf_counter() - t_start
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     record = k9.convergence()
     out = dict(seconds=seconds, traj_per_s=b / seconds, ms_per_step=1e3 * seconds / steps, peak_bytes=peak,
                launches=launches, channels=dict(one_site=noise.num_channels1, merged_pair=noise.num_channels2),
-               svd_convergence=record)
+               svd_convergence=record, bond_gate_per_trajectory=per_trajectory)
+    log(f"[phase 4d] bond_gate launches: {launches['bond_gate']}, of which {per_trajectory} with a gate per "
+        f"trajectory (the jumps) and {launches['bond_gate'] - per_trajectory} with a shared gate (the bond "
+        f"dissipators' sweeps)")
     log(f"[phase 4d] TJM with two-site noise L={length} chi={chi} B={b} {steps} steps ({noise.num_channels1} factored "
         f"and {noise.num_channels2} merged-pair channels): {seconds:.3f} s, {out['traj_per_s']:.4f} traj/s, "
         f"{out['ms_per_step']:.1f} ms/step, peak {peak / 2**20:.1f} MiB, launches {launches}")
@@ -1638,6 +1692,27 @@ def phase_two_site(dev):
     events_before_after("phase 4d", "analog_two_site", out["profile"])
     k9_in_path("phase 4d", out, record)
     return out
+
+
+def count_per_trajectory_gates():
+    """Count the K10 calls of the jump step (``methods/stochastic.py``, a
+    gate per trajectory) until the returned function is called, which
+    restores the module and returns the count."""
+    from yaqs_tpu_torch.methods import stochastic
+
+    wrapped, calls = stochastic.bond_gate, [0]
+
+    def counted(a, b, gate):
+        calls[0] += gate.dim() == 3
+        return wrapped(a, b, gate)
+
+    stochastic.bond_gate = counted
+
+    def stop():
+        stochastic.bond_gate = wrapped
+        return calls[0]
+
+    return stop
 
 
 def phase_xxz(dev):
@@ -2533,9 +2608,11 @@ def main() -> None:
                            **{k: v for k, v in phases.items() if k != "kernels"}), f, indent=1)
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    # ms_source: how "ms" was timed, with the launches the profiler kept where it kept fewer than all
+    # ms_source: how "ms" was timed, with the launches the profiler kept where it kept fewer than all;
+    # library_device_ms: the library call's device time, where the row took it (K10)
     table = [{"name": name, **{k: ("cuda" if k == "route" else row[k]) for k in keys},
-              "ms_source": row.get("ms_source")} for name, row in rows.items()]
+              "ms_source": row.get("ms_source"), "library_device_ms": row.get("library_device_ms")}
+             for name, row in rows.items()]
     log(card)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

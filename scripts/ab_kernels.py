@@ -1,4 +1,4 @@
-"""Time K8 (``env_update``) and K3 (``lanczos_epilogue``) of several checkouts in turn, on one card.
+"""Time K8, K3, K10 and K11 of several checkouts in turn, on one card.
 
     python3 scripts/ab_kernels.py --trees PARENT . . PARENT [--out ab.json]
 
@@ -18,7 +18,12 @@ fewer than half the launches) of
   and the boundary's fill), all its device time and its host-paced time a
   call;
 - K3 at the analog two-site and one-site shapes (B=32, k=4, n=16384 and
-  8192) and the gate windows' k=25 (B=512, n=4096 and 2048).
+  8192) and the gate windows' k=25 (B=512, n=4096 and 2048);
+- K10 (``bond_gate``) on strided site views: a shared gate at the digital
+  shape (B=512, chi=32) and at the analog two-site bond dissipators' (B=32,
+  chi=64), and a gate per trajectory there (the jumps);
+- K11 (``sample_shots``) at the digital run's shape (B=512, one shot each,
+  L=20, chi=32) and the noiseless one (one trajectory, 4096 shots, L=4).
 
 Prints the card, then one line a tree and row, and writes every figure to
 ``--out``.  Needs a CUDA device; imports nothing of JAX.  Shares its runner with
@@ -36,9 +41,12 @@ _CHILD = """
 import json, torch
 import chip_smoke as c
 from yaqs_tpu_torch.analog.run import full_precision_matmuls
+from yaqs_tpu_torch.core.mps_ops import normalize_canonical
 from yaqs_tpu_torch.kernels import build
+from yaqs_tpu_torch.kernels.bond_gate import bond_gate
 from yaqs_tpu_torch.kernels.env_update import env_update_left, env_update_right
 from yaqs_tpu_torch.kernels.lanczos_epilogue import lanczos_epilogue
+from yaqs_tpu_torch.kernels.sample_shots import sample_shots
 from yaqs_tpu_torch.methods.tdvp import right_environments
 full_precision_matmuls()
 _, seconds, _ = build.build_library()
@@ -71,6 +79,16 @@ for key, (b, k, n, coeff) in dict(k4_two_site=(32, 4, 16384, -0.05j), k4_one_sit
     nrm = torch.rand((b,), generator=gen, device=dev) + 0.1
     row(f"lanczos_epilogue_{key}", lambda a=alphas, bt=betas, v=v, nrm=nrm, x=x, cf=coeff: lanczos_epilogue(
         a, bt, cf, v, nrm, x), "lanczos_epilogue")
+for key, (b, length, chi) in dict(digital=(512, 20, 32), analog=(32, 100, 64)).items():
+    t = c.random_mps(gen, dev, b, length, chi)
+    gate, gates = randc(4, 4), randc(b, 4, 4)
+    row(f"bond_gate_{key}_shared", lambda t=t, g=gate: bond_gate(t[:, 3], t[:, 4], g), "bond_gate")
+    if key == "analog":
+        row("bond_gate_analog_per_trajectory", lambda t=t, g=gates: bond_gate(t[:, 3], t[:, 4], g), "bond_gate")
+for key, (b, s, length) in dict(digital=(512, 1, 20), noiseless=(1, 4096, 4)).items():
+    canon, _ = normalize_canonical(c.random_mps(gen, dev, b, length, 32))
+    u = torch.rand((b, s, length, 2), generator=gen, device=dev).clamp_(min=torch.finfo(torch.float32).tiny)
+    row(f"sample_shots_{key}", lambda t=canon, g=-torch.log(-torch.log(u)): sample_shots(t, g), "sample_shots")
 print("AB_RESULT " + json.dumps(dict(build_seconds=seconds, rows=rows)))
 """
 

@@ -287,8 +287,8 @@ def test_build_digest_covers_the_shared_headers(tmp_path):
     assert includers == ["moment_scan.cu", "ns_canon.cu", "ns_polar.cu", "subspace_split.cu"]
     assert '#include "launch.cuh"' in (build.CSRC / "ns_polar.cuh").read_text()
     includers = [p.name for p in build._sources() if '#include "launch.cuh"' in p.read_text()]
-    assert includers == ["env_update.cu", "householder_qr.cu", "lanczos_epilogue.cu", "lanczos_solve.cu", "pair_weights.cu",
-                         "sv_mpo.cu", "svd_jacobi.cu"]
+    assert includers == ["bond_gate.cu", "env_update.cu", "householder_qr.cu", "lanczos_epilogue.cu", "lanczos_solve.cu",
+                         "pair_weights.cu", "sample_shots.cu", "sv_mpo.cu", "svd_jacobi.cu"]
     includers = [p.name for p in build._sources() if '#include "heff.cuh"' in p.read_text()]
     assert includers == ["heff.cu", "lanczos_solve.cu"]
 
@@ -402,7 +402,8 @@ def test_lanczos_epilogue_kernel_matches_plain(cuda, batch, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize(("batch", "length", "chi", "bond"), [(512, 20, 32, 3), (8, 4, 64, 1), (3, 3, 5, 0)])
+@pytest.mark.parametrize(("batch", "length", "chi", "bond"), [(512, 20, 32, 3), (8, 4, 64, 1), (3, 3, 5, 0),
+                                                           (32, 100, 64, 50)])
 def test_bond_gate_kernel_matches_plain(cuda, batch, length, chi, bond):
     rng = np.random.default_rng(3)
     t = _random_mps(rng, batch, length, chi, device=cuda)
@@ -437,6 +438,35 @@ def test_bond_gate_kernel_with_a_gate_per_trajectory(cuda, batch, length, chi, b
     assert _rel_err(got[z:], bond_gate(a[z:], b[z:], gates[z].contiguous())) <= 1e-6
     with pytest.raises(ValueError):
         bond_gate(a, b, gates[:1])
+
+
+def _plan_boundaries(l, r, sms):
+    """Batches on each side of every change of ``bond_gate.plan`` up to 4096."""
+    from yaqs_tpu_torch.kernels.bond_gate import plan
+
+    edges = [b for b in range(1, 4096) if plan(b, l, r, sms) != plan(b + 1, l, r, sms)]
+    return sorted({1, 4096, *edges, *(b + 1 for b in edges)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_trajectory", [False, True], ids=["shared", "per-trajectory"])
+@pytest.mark.parametrize(("l", "m", "r"), [(64, 64, 64), (32, 32, 32), (17, 17, 17), (5, 7, 9), (64, 16, 33)])
+def test_bond_gate_kernel_across_plan_boundaries(cuda, l, m, r, per_trajectory):
+    """B = 1, 32, 512 and each batch on either side of a boundary of the
+    plan match the plain version, and trajectory 0's block keeps its bits
+    in every batch."""
+    rng = np.random.default_rng(29)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    batches = sorted({1, 32, 512, *_plan_boundaries(l, r, sms)})
+    a, b = _complex(rng, (max(batches), 2, l, m)).to(cuda), _complex(rng, (max(batches), 2, m, r)).to(cuda)
+    gates = _complex(rng, (max(batches), 4, 4) if per_trajectory else (4, 4)).to(cuda)
+    first = None
+    for batch in batches:
+        gate = gates[:batch] if per_trajectory else gates
+        got = bond_gate(a[:batch], b[:batch], gate)
+        assert _rel_err(got, bond_gate_plain(a[:batch], b[:batch], gate)) <= 1e-5, batch
+        first = got[0] if first is None else first
+        assert torch.equal(got[0], first), batch
 
 
 def _subspace_input(kind, batch, rows, cols, chi, rng, device):
@@ -614,6 +644,26 @@ def test_sample_shots_kernel_matches_plain(cuda, batch, shots, length, chi):
     rng = np.random.default_rng(5)
     canon, _ = normalize_canonical(_random_mps(rng, batch, length, chi, device=cuda))
     g = _gumbel(rng, (batch, shots, length, 2), cuda)
+    kernels.reset_launch_counts()
+    got = sample_shots(canon, g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sample_shots"] == 1
+    assert torch.equal(got, sample_shots_plain(canon, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("batch", "shots", "length", "chi", "d"), [
+    (1, 4099, 6, 32, 2), (1, 1001, 5, 32, 2), (2, 37, 7, 32, 2), (3, 40, 5, 64, 4), (1, 4101, 3, 64, 4),
+    (1, 1, 6, 32, 2), (1, 1, 4, 64, 4), (2, 9, 3, 17, 3),
+])
+def test_sample_shots_kernel_groups_and_chunks(cuda, batch, shots, length, chi, d):
+    """Shot groups that do not fill a block's warps; d=4, chi=64, whose site
+    streams in chunks of rows; one shot of one trajectory; an odd chi (8-byte
+    copies): outcomes identical to the plain version's."""
+    rng = np.random.default_rng(37)
+    canon, _ = normalize_canonical(_random_mps(rng, batch, length, chi, d=d))  # the CPU's QR: d chi columns
+    canon = canon.to(cuda)
+    g = _gumbel(rng, (batch, shots, length, d), cuda)
     kernels.reset_launch_counts()
     got = sample_shots(canon, g)
     torch.cuda.synchronize()

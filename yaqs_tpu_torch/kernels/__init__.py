@@ -16,7 +16,9 @@ Importing this package needs neither ``nvcc`` nor a card.
 
 from __future__ import annotations
 
-__all__ = ["LAUNCHES", "inner_contiguous", "launch_counts", "on_card", "reset_launch_counts"]
+import functools
+
+__all__ = ["LAUNCHES", "inner_contiguous", "launch_counts", "on_card", "reset_launch_counts", "sm_count"]
 
 #: kernel launches since the last reset, by kernel name (only the wrappers'
 #: kernel branch increments these)
@@ -74,3 +76,12 @@ def on_card(name: str, t) -> bool:
         msg = f"{name}: unsupported device {t.device}"
         raise ValueError(msg)
     return True
+
+
+@functools.cache
+def sm_count(device) -> int:
+    """The SMs of CUDA ``device``, by which the wrappers' plans size their
+    launches."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count

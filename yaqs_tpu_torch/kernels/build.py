@@ -43,8 +43,8 @@ _SIGNATURES = {
     "ns_polar_launch": [_P, _P, _I, _I, _I, _P],
     # (alphas, betas, coeff_re, coeff_im, V, nrm, x, stride_x, out, batch, k, n, cw, stages, slots, stream)
     "lanczos_epilogue_launch": [_P, _P, _F, _F, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (a, stride_a, b, stride_b, gate, stride_gate, out, batch, l, m, r, stream)
-    "bond_gate_launch": [_P, _LL, _P, _LL, _P, _LL, _P, _I, _I, _I, _I, _P],
+    # (a, stride_a, b, stride_b, gate, stride_gate, out, batch, l, m, r, bx, by, stream)
+    "bond_gate_launch": [_P, _LL, _P, _LL, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _P],
     # (m, omega, left, right, s, batch, rows, cols, chi, iters, left_isometric, cluster, stream)
     "subspace_split_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # (rows, cols, chi, cluster) -> clusters the card holds at once
@@ -61,8 +61,8 @@ _SIGNATURES = {
     "moment_scan_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (d, chi, cluster) -> clusters of the Gram scan the card holds at once
     "moment_scan_max_clusters": [_I, _I, _I],
-    # (tensors, gumbel, out, batch, shots, L, d, chi, stream)
-    "sample_shots_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (tensors, gumbel, out, batch, shots, L, d, chi, group, per_warp, rows, stream)
+    "sample_shots_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # (f, stride_f, v, stride_v, W, g, stride_g, out, batch, chi, dw, p, stream)
     "heff_launch": [_P, _LL, _P, _LL, _P, _P, _LL, _P, _I, _I, _I, _I, _P],
     # (f, stride_f, a_bra, stride_bra, a_ket, stride_ket, W, out, stride_out, batch, chi, dw, cols, chunk, tm3,

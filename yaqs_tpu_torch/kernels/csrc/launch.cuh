@@ -60,6 +60,12 @@ __device__ __forceinline__ void cp_async8(float2* dst, const float2* base, long 
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
 }
 
+// 4 bytes from device memory into shared memory, asynchronously.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
 // 16 bytes (both addresses 16-byte aligned), or zeros when !valid; cached
 // in L2 only.
 __device__ __forceinline__ void cp_async16(float4* dst, const float4* base, long long offset, bool valid) {

@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from . import LAUNCHES, inner_contiguous, on_card
+from . import LAUNCHES, inner_contiguous, on_card, sm_count
 from .build import check, load_library
 
 __all__ = ["env_update_left", "env_update_right", "env_update_left_plain", "env_update_right_plain", "plan"]
@@ -86,11 +86,6 @@ def plan(batch: int, chi: int, dw: int, sms: int) -> tuple[int, int, int]:
     raise ValueError(msg)
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def env_update_left_plain(f, a_bra, a_ket, w):
     """Plain PyTorch version of the left update (three products)."""
     tmp = torch.einsum("zawb,zsbk->zawsk", f, a_ket)
@@ -142,7 +137,7 @@ def _env_update(env, a_bra, a_ket, w, out, right: bool):
         raise ValueError(msg)
     if b == 0:
         return out
-    cols, chunk, tm3 = plan(b, chi, dw, _sm_count(env.device.index or 0))
+    cols, chunk, tm3 = plan(b, chi, dw, sm_count(env.device))
     lib = load_library()
     stream = torch.cuda.current_stream(env.device).cuda_stream
     err = lib.env_update_launch(

@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from . import LAUNCHES, inner_contiguous, on_card
+from . import LAUNCHES, inner_contiguous, on_card, sm_count
 from .build import check, load_library
 
 __all__ = ["expm_col_tridiag", "lanczos_epilogue", "lanczos_epilogue_plain", "plan"]
@@ -60,11 +60,6 @@ def plan(batch: int, k: int, n: int, sms: int) -> tuple[int, int, int]:
     stages = math.ceil(span / cw)
     slots = max(s for s in range(1, min(4, stages) + 1) if smem_bytes(k, cw, s) <= limit)
     return cw, stages, slots
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def tridiag(alphas: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
@@ -173,7 +168,7 @@ def lanczos_epilogue(
     if b == 0 or n == 0:
         return out
     c = complex(coeff)
-    cw, stages, slots = plan(b, k, n, _sm_count(v.device.index or 0))
+    cw, stages, slots = plan(b, k, n, sm_count(v.device))
     lib = load_library()
     stream = torch.cuda.current_stream(v.device).cuda_stream
     err = lib.lanczos_epilogue_launch(

@@ -8,20 +8,67 @@ of its shots, sequential per-site conditional sampling from ``v = e_0``:
 handed in (the sampler behind ``jax.random.categorical``), then
 ``v = w_s / |w_s|``.  In float32 the floor ``1e-300`` is 0, so a zero
 probability reads ``-inf`` and is never chosen over a positive one.
+
+A launch gives each trajectory one block, or one block a group of its shots
+(:func:`plan`), through which the trajectory's sites stream once for all of
+the block's shots.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
-from . import LAUNCHES, on_card
+from . import LAUNCHES, on_card, sm_count
 from .build import check, load_library
 
-__all__ = ["sample_shots", "sample_shots_plain"]
+__all__ = ["sample_shots", "sample_shots_plain", "plan"]
 
 MAX_CHI = 64
 MAX_D = 4
 PROB_FLOOR = 1e-300  # 0 once cast to float32
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory of one block on sm_90
+# kShots, kMaxWarps, kStages and kChunkBytes in csrc/sample_shots.cu
+SHOTS_PER_WARP, MAX_WARPS, STAGES, CHUNK_BYTES = 4, 8, 3, 64 * 1024
+
+
+def chunk_rows(d: int, chi: int) -> int:
+    """Rows ``l`` of a site one ring stage holds: the whole site up to
+    ``CHUNK_BYTES``, else equal chunks under it (32 rows at d = 4, chi = 64)."""
+    return math.ceil(chi / math.ceil(8 * d * chi * chi / CHUNK_BYTES))
+
+
+def layout_bytes(d: int, chi: int, group: int, rows: int) -> int:
+    """Shared memory of one block (``ShotLayout`` in ``csrc/sample_shots.cu``):
+    the ring's stages, each a chunk and a site's noise for ``group`` shots
+    (each rounded up to 16 bytes), and the shots' ``v``."""
+    stage = 2 * math.ceil(d * rows * chi / 2) + 2 * math.ceil(group * d / 4)
+    return 8 * (STAGES * stage + group * chi)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(batch: int, shots: int, d: int, chi: int, sms: int) -> tuple[int, int, int]:
+    """``(group, per_warp, rows)`` of a launch on a card of ``sms`` SMs.
+
+    A block serves ``group`` shots of one trajectory (``ceil(shots / group)``
+    blocks a trajectory) on ``group / per_warp`` warps, each carrying
+    ``per_warp`` shots at once (4 where the trajectory has at least 4, else
+    1); ``rows``: :func:`chunk_rows`.  The start is as many warps as the
+    shots fill, at most eight; the warps are then halved, then the shots a
+    warp cut to one, until the blocks leave at most one SM in 16 idle or a
+    block has one warp of one shot: groups of 32 at B = 1, S = 4096; a shot
+    a block at B = 512, S = 1.
+    """
+    per_warp = SHOTS_PER_WARP if shots >= SHOTS_PER_WARP else 1
+    warps = min(MAX_WARPS, math.ceil(shots / per_warp))
+    while 16 * batch * math.ceil(shots / (warps * per_warp)) < 15 * sms and warps * per_warp > 1:
+        if warps > 1:
+            warps //= 2
+        else:
+            per_warp = 1
+    return warps * per_warp, per_warp, chunk_rows(d, chi)
 
 
 def sample_shots_plain(tensors: torch.Tensor, gumbel: torch.Tensor) -> torch.Tensor:
@@ -71,9 +118,12 @@ def sample_shots(tensors: torch.Tensor, gumbel: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, shots, length), dtype=torch.int32, device=tensors.device)
     if out.numel() == 0:
         return out
+    group, per_warp, rows = plan(b, shots, d, chi, sm_count(tensors.device))
     lib = load_library()
     stream = torch.cuda.current_stream(tensors.device).cuda_stream
-    err = lib.sample_shots_launch(tensors.data_ptr(), gumbel.data_ptr(), out.data_ptr(), b, shots, length, d, chi, stream)
+    err = lib.sample_shots_launch(
+        tensors.data_ptr(), gumbel.data_ptr(), out.data_ptr(), b, shots, length, d, chi, group, per_warp, rows, stream,
+    )
     check(err, "sample_shots")
     LAUNCHES["sample_shots"] += 1
     return out
