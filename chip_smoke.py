@@ -12,7 +12,12 @@ Phases (any failure raises and exits non-zero):
    milliseconds, one call at a time between CUDA events), the host-paced time
    per call (CUDA events around 20 back-to-back calls), the host-paced time
    of the nearest PyTorch library call, and the bound (bytes over 3.35 TB/s
-   or FP32 operations over 67 TFLOP/s, the larger); the TDVP kernels at the
+   or FP32 operations over 67 TFLOP/s, the larger; for K4, K5 and K6 also
+   the bound with the polar factor's products on the tensor cores, three
+   TF32 products a real one at 495 TFLOP/s); K4 ``ns_polar`` at (32, 128,
+   64), (128, 128, 64) and (512, 64, 32) with the blocks a matrix its
+   cluster rule takes and its products' path, beside its earlier design's
+   time; the TDVP kernels at the
    analog shape (B=32, chi=64, Dw=3), the XXZ shape (B=16, Dw=5) and the
    gate-window shape (B=512, chi=32, Dw=1), K8 with its plan of column slices and beside its earlier
    design's time, ``right_environments`` at the analog shape (host-paced against its 100 K8 launches'
@@ -165,6 +170,8 @@ TV_TOL = 0.05
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # FP32 outside the tensor cores (TF32 stays off)
+TF32_FLOPS = 495e12  # dense TF32 on the tensor cores
+TF32_SPLIT_PRODUCTS = 3  # 3xTF32: three TF32 products make one float32-accurate real product
 CMAC_FLOPS = 8  # one complex multiply-add is four real FMAs
 C64 = 8  # bytes
 
@@ -207,6 +214,8 @@ TABLE_PATH = dict(ns_polar="analog", lanczos_epilogue="analog", bond_gate="digit
 # the phases whose main-path launch counts the JSON file keeps per kernel
 LAUNCH_PATHS = ("analog", "digital", "analog_xxz", "digital_window", "mcwf", "analog_exact", "analog_two_site",
                 "digital_two_site", "mcwf_two_site")
+# the products of the polar factor's schedule in K4, K5 and K6 (ns_polar.cuh), for every shape
+NS_PRODUCTS = "3xTF32 on the tensor cores (mma.sync m16n8k8, FP32 accumulators)"
 NEWTON_TOL = 1e-4  # K5 and K6 against their plain versions (relative; the Newton steps amplify the summation order)
 PAIR_GAMMA = 0.01  # crosstalk_zz and the correlated decay on every adjacent pair
 LOWERING = np.array([[0, 1], [0, 0]], dtype=np.complex128)
@@ -220,19 +229,22 @@ CUSOLVER_MARKS = ("gesvd", "geqrf", "larft", "orgqr", "ungqr")
 TDVP_SHAPES = {"analog": (BENCH["batch"], BENCH["chi"], 3), "xxz": (XXZ["batch"], BENCH["chi"], 5),
                "window": (DIGITAL["num_traj"], DIGITAL["chi"], 1)}
 BREAKDOWN_TOL = 100 * float(np.finfo(np.float32).eps)
-# device ms of the earlier designs of K5 (one block a matrix) and K14
-# (unblocked, always forming Q), from PERF.md's kernel table, of K7's two
-# launches and K6 (one block a chain), from a probe of the parent tree in
-# PERF.md's call 13, of K12 (a pass a site) and K13's step (CGS2, four
-# launches), from PERF.md's kernel table, and of K8 (8 columns a block, a
-# thread a row) and K3 (every block its exponential on 256 threads), from
-# PERF.md's kernel table and, at the shapes it lacked, scripts/ab_kernels.py's
-# runs of the earlier design (PERF.md, section 6; all NVIDIA H100 80GB HBM3,
-# 700.00 W), printed beside this run's rows
-EARLIER_MS = dict(subspace_split=dict(analog_right=1.6681, analog_left=1.7038, digital=1.0635),
+# device ms of the earlier designs of K4 (one block a matrix, FP32
+# products), K5 and K6 (FP32 products), from scripts/ab_kernels.py's runs of
+# the parent tree, of K14 (unblocked, always forming Q), from PERF.md's
+# kernel table, of K7's two launches (one block a chain), from a probe of
+# the parent tree in PERF.md's call 13, of K12 (a pass a site) and K13's
+# step (CGS2, four launches), from PERF.md's kernel table, and of K8 (8
+# columns a block, a thread a row) and K3 (every block its exponential on
+# 256 threads), from PERF.md's kernel table and, at the shapes it lacked,
+# scripts/ab_kernels.py's runs of the earlier design (PERF.md, section 6;
+# all NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's rows
+EARLIER_MS = dict(ns_polar=dict(analog=0.3422, b128=0.3421, digital=0.2780),
+              subspace_split=dict(analog_right=0.5358, analog_left=0.5285, xxz_right=0.4178, xxz_left=0.4231,
+                                  digital=0.8931),
               householder_qr=dict(analog=0.3903, window=0.1212, bond_spectra=0.3903),
               moment_scan=dict(digital=dict(scan=1.3982, moments=0.7636), analog=dict(scan=15.5103, moments=2.7182)),
-              ns_canon=dict(analog=33.6467, digital=6.0492),
+              ns_canon=dict(analog=18.0741, digital=4.3540),
               sv_mpo_matvec=dict(ising=5.3555, heisenberg=9.7478), arnoldi_step={0: 0.8930, 12: 2.2651, 24: 4.1999},
               env_update=dict(analog=0.0564, xxz=0.0789, window=0.0760),
               lanczos_epilogue=dict(k4_two_site=0.0114, k4_one_site=0.0106, k25=0.4173, k25_n2048=0.2342))
@@ -391,7 +403,7 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops, per_call=1, slow_plain=False,
-            library_device=False):
+            library_device=False, tc_flops=0):
     """Every time of one kernel at one shape, printed on one line.  The
     kernel and its plain version: profiler device time and host-paced time.
     The library call, which may issue thousands of small launches and host
@@ -408,7 +420,11 @@ def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops,
     its device time from above.  ``library_device``: the library call's
     device time too (``device_ms``, every device row it runs), beside its
     host-paced time, so that a kernel and the library call compare on the
-    card."""
+    card.  ``tc_flops``: the part of ``flops`` that the kernel runs on the
+    tensor cores in 3xTF32 (the polar factor's products of K4, K5 and
+    K6): beside the FP32 bound, ``tc_bound_ms`` is the least time of the
+    same work with that part at TF32_SPLIT_PRODUCTS TF32 products a real
+    one at TF32_FLOPS and the rest at FP32_FLOPS."""
     ms, launches, source = device_ms(kernel_fn, names=kernel_names, per_call=per_call)
     host_ms = host_paced_ms(kernel_fn)
     if source == "events":
@@ -427,6 +443,11 @@ def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops,
         plain_ms_source=plain_source, plain_events_per_call=plain_events, plain_host_ms=plain_host_ms,
         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
     )
+    tc = ""
+    if tc_flops:
+        ops_s = TF32_SPLIT_PRODUCTS * tc_flops / TF32_FLOPS + (flops - tc_flops) / FP32_FLOPS
+        out["tc_bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops_s)
+        tc = f", tensor-core bound {out['tc_bound_ms']:.4f} ms"
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms (host-paced)"
     if library_device:
         out["library_device_ms"], lib_events, lib_source = device_ms(library_fn)
@@ -434,7 +455,7 @@ def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops,
     log(f"[phase 3] {label}: device {ms:.4f} ms ({source}, {launches:g} launches), "
         f"host-paced {out['host_ms']:.4f} ms; plain device {plain_ms:.4f} ms ({plain_source}, "
         f"{plain_events:g} device events), host-paced {out['plain_host_ms']:.4f} ms; library {lib}; "
-        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP){tc}")
     return out
 
 
@@ -592,7 +613,8 @@ def phase_kernels(dev):
     from yaqs_tpu_torch.core.mps_ops import normalize_canonical
     from yaqs_tpu_torch.kernels.moment_scan import (
         _moments_plain, scan_cluster, site_moment_matrices, site_moment_matrices_plain, site_moments_and_environments)
-    from yaqs_tpu_torch.kernels.ns_polar import newton_schulz_orthogonalize, newton_schulz_orthogonalize_plain
+    from yaqs_tpu_torch.kernels.ns_polar import (
+        newton_schulz_orthogonalize, newton_schulz_orthogonalize_plain, polar_cluster, polar_clusters_held)
     from yaqs_tpu_torch.kernels.sample_shots import sample_shots, sample_shots_plain
 
     t_start = time.perf_counter()
@@ -612,31 +634,37 @@ def phase_kernels(dev):
         return u @ vh
 
     # ns_polar at the analog call shape (B, d chi, chi), at B k blocks, and at
-    # the digital one (512, 64, 32)
+    # the digital one (512, 64, 32): the blocks a matrix its cluster rule
+    # takes, and its products' path
     ns_err, ns_extra = 0.0, {}
-    for shape in ((b, d * chi, chi), (b * k, d * chi, chi), (nd, d * cd, cd)):
+    for key, shape in {"analog": (b, d * chi, chi), "b128": (b * k, d * chi, chi), "digital": (nd, d * cd, cd)}.items():
         y = randc(*shape)
         got = newton_schulz_orthogonalize(y)
         ref = newton_schulz_orthogonalize_plain(y)
         torch.cuda.synchronize()
         err = rel_err(got, ref)
         iso = (got.mH @ got - torch.eye(shape[-1], device=dev)).abs().max().item()
-        log(f"[phase 3] ns_polar {shape}: rel err {err:.3e}, isometry defect {iso:.3e}")
+        cluster = polar_cluster(shape[0], *shape[1:], dev.index or 0)
+        log(f"[phase 3] ns_polar {shape}: {cluster} blocks a matrix (clusters of 4, 3 and 2 held: "
+            f"{polar_clusters_held(*shape[1:], dev.index or 0)}), products {NS_PRODUCTS}; rel err {err:.3e}, "
+            f"isometry defect {iso:.3e}")
         check(err <= NS_TOL, f"ns_polar disagrees with its plain version: {err} > {NS_TOL}")
         check(iso <= NS_ISOMETRY_TOL, f"ns_polar isometry defect {iso} > {NS_ISOMETRY_TOL}")
         ns_err = max(ns_err, (got - ref).abs().max().item())
-        if shape[0] != b * k:
-            bm, m, n = shape
-            ns_extra[shape] = timings(
-                f"ns_polar {shape}", lambda y=y: newton_schulz_orthogonalize(y),
-                lambda y=y: newton_schulz_orthogonalize_plain(y), lambda y=y: polar_library(y), ("ns_polar",),
-                2 * bm * m * n * C64, 22 * bm * m * n * n * CMAC_FLOPS,
-            )
+        bm, m, n = shape
+        flops = ns_cmacs(bm, m, n) * CMAC_FLOPS
+        ns_extra[key] = dict(shape=list(shape), cluster=cluster, products=NS_PRODUCTS, rel_err=err, isometry=iso,
+                             earlier_ms=EARLIER_MS["ns_polar"][key], **timings(
+            f"ns_polar {shape}", lambda y=y: newton_schulz_orthogonalize(y),
+            lambda y=y: newton_schulz_orthogonalize_plain(y), lambda y=y: polar_library(y), ("ns_polar",),
+            2 * bm * m * n * C64, flops, tc_flops=flops,
+        ))
+        log(f"[phase 3] ns_polar {key}: device {ns_extra[key]['ms']:.4f} ms on {cluster} blocks a matrix; earlier "
+            f"design (one block a matrix, FP32 products) {EARLIER_MS['ns_polar'][key]:.4f} ms")
     rows["ns_polar"] = dict(
         source="yaqs_tpu_torch/kernels/csrc/ns_polar.cu", replaces="yaqs_tpu/ops/decomp.py:34",
-        max_abs_err=ns_err, shape=[b, d * chi, chi], **ns_extra[(b, d * chi, chi)],
-        library_call="torch.linalg.svd then U @ Vh (two calls)",
-        digital_shape=dict(shape=[nd, d * cd, cd], **ns_extra[(nd, d * cd, cd)]),
+        max_abs_err=ns_err, **ns_extra["analog"], library_call="torch.linalg.svd then U @ Vh (two calls)",
+        b128_shape=ns_extra["b128"], digital_shape=ns_extra["digital"],
     )
 
     rows.update(epilogue_rows(dev, randc, gen))
@@ -1258,10 +1286,11 @@ def newton_kernel_rows(dev, randc, gen):
                     lambda m=m, o=omega, k=k, li=left_iso: subspace_split(m, o, k, iters, li),
                     lambda m=m, o=omega, k=k, li=left_iso: subspace_split_plain(m, o, k, iters, li),
                     lambda m=m: torch.linalg.svd(m, full_matrices=False), ("subspace_split",),
-                    (bs * (r * c + r * k + k * c) + omega.numel()) * C64 + bs * k * 4, cmacs * CMAC_FLOPS)
-        earlier = EARLIER_MS["subspace_split"].get(key)
-        log(f"[phase 3] subspace_split {key}: device {t['ms']:.4f} ms on {blocks} blocks a matrix, earlier design "
-            f"(one block a matrix) " + (f"{earlier:.4f} ms" if earlier is not None else "not measured at this batch"))
+                    (bs * (r * c + r * k + k * c) + omega.numel()) * C64 + bs * k * 4, cmacs * CMAC_FLOPS,
+                    tc_flops=polar * CMAC_FLOPS)
+        earlier = EARLIER_MS["subspace_split"][key]
+        log(f"[phase 3] subspace_split {key}: device {t['ms']:.4f} ms on {blocks} blocks a matrix, products "
+            f"{NS_PRODUCTS}; earlier design (FP32 products) {earlier:.4f} ms")
         k5[key] = dict(shape=[bs, r, c, k], iters=iters, rel_errs=errs, cluster=blocks, held_clusters=held,
                        earlier_ms=earlier,
                        library_call="torch.linalg.svd of the block (one call)",
@@ -1291,10 +1320,11 @@ def newton_kernel_rows(dev, randc, gen):
         t = timings(f"ns_canon (B={bs}, L={ls}, chi={cs})", lambda m=mps: ns_canon_scan(m),
                     lambda m=mps: ns_canon_scan_plain(m), lambda m=mps: qr_chain_canonicalize(m), ("ns_canon",),
                     2 * bs * ls * d * cs * cs * C64,
-                    (ls - 1) * (ns_cmacs(bs, d * cs, cs) + 2 * bs * d * cs**3) * CMAC_FLOPS, slow_plain=True)
+                    (ls - 1) * (ns_cmacs(bs, d * cs, cs) + 2 * bs * d * cs**3) * CMAC_FLOPS, slow_plain=True,
+                    tc_flops=(ls - 1) * ns_cmacs(bs, d * cs, cs) * CMAC_FLOPS)
         earlier = EARLIER_MS["ns_canon"][key]
-        log(f"[phase 3] ns_canon {key}: device {t['ms']:.4f} ms on {cluster} blocks a trajectory, earlier design "
-            f"(one block a trajectory, one block an SM) {earlier:.4f} ms")
+        log(f"[phase 3] ns_canon {key}: device {t['ms']:.4f} ms on {cluster} blocks a trajectory, products "
+            f"{NS_PRODUCTS}; earlier design (FP32 products) {earlier:.4f} ms")
         k6[key] = dict(rel_errs=errs, shape=[bs, ls, d, cs, cs], cluster=cluster, blocks_per_sm=per_sm,
                        earlier_ms=earlier, library_call="one batched torch.linalg.qr a site (the chain)", **t)
     return {
@@ -2609,9 +2639,11 @@ def main() -> None:
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # ms_source: how "ms" was timed, with the launches the profiler kept where it kept fewer than all;
-    # library_device_ms: the library call's device time, where the row took it (K10)
+    # library_device_ms: the library call's device time, where the row took it (K10);
+    # tc_bound_ms: the bound with the polar factor's products on the tensor cores in 3xTF32 (K4, K5, K6)
     table = [{"name": name, **{k: ("cuda" if k == "route" else row[k]) for k in keys},
-              "ms_source": row.get("ms_source"), "library_device_ms": row.get("library_device_ms")}
+              "ms_source": row.get("ms_source"), "library_device_ms": row.get("library_device_ms"),
+              "tc_bound_ms": row.get("tc_bound_ms")}
              for name, row in rows.items()]
     log(card)
     print(json.dumps({"kernels": table}))

@@ -1,6 +1,6 @@
-"""Time K8, K3, K10 and K11 of several checkouts in turn, on one card.
+"""Time K4, K5, K6, K8, K3, K10 and K11 of several checkouts in turn, on one card.
 
-    python3 scripts/ab_kernels.py --trees PARENT . . PARENT [--out ab.json]
+    python3 scripts/ab_kernels.py --trees PARENT . . PARENT [--rows ns_polar ...] [--out ab.json]
 
 Each entry of ``--trees`` is a checkout of the repository (a directory that
 holds ``chip_smoke.py`` and ``yaqs_tpu_torch/``).  The trees run one after
@@ -11,6 +11,13 @@ same seeded inputs: the device time per call (``chip_smoke.device_ms``:
 ``torch.profiler``'s kernel rows, or CUDA events where the profiler kept
 fewer than half the launches) of
 
+- K4 (``newton_schulz_orthogonalize``) at the analog call shape (B=32, 128
+  x 64), at B=128 and at the digital one (B=512, 64 x 32);
+- K5 (``subspace_split``, one iteration) at the analog split (B=32, 128 x
+  128, chi=64) and at the XXZ batch (B=16), with the isometry on either
+  side, and at the digital one (B=512, 64 x 64, chi=32);
+- K6 (``ns_canon_scan``) over the analog chain (B=32, L=100, chi=64) and
+  the digital one (B=512, L=20, chi=32);
 - K8, the left update at the analog TFIM shape (B=32, chi=64, Dw=3), the
   right one into a strided slot there, and the left one at the XXZ shape
   (B=16, Dw=5) and the gate-window shape (B=512, chi=32, Dw=1);
@@ -25,8 +32,9 @@ fewer than half the launches) of
 - K11 (``sample_shots``) at the digital run's shape (B=512, one shot each,
   L=20, chi=32) and the noiseless one (one trajectory, 4096 shots, L=4).
 
-Prints the card, then one line a tree and row, and writes every figure to
-``--out``.  Needs a CUDA device; imports nothing of JAX.  Shares its runner with
+``--rows`` keeps the rows whose names start with one of its words (all rows
+without it).  Prints the card, then one line a tree and row, and writes
+every figure to ``--out``.  Needs a CUDA device; imports nothing of JAX.  Shares its runner with
 ``scripts/ab_phases.py``.
 """
 
@@ -38,7 +46,7 @@ from ab_phases import compare
 
 # run inside each tree's process: build, time every row, one JSON line at the end
 _CHILD = """
-import json, torch
+import json, sys, torch
 import chip_smoke as c
 from yaqs_tpu_torch.analog.run import full_precision_matmuls
 from yaqs_tpu_torch.core.mps_ops import normalize_canonical
@@ -46,8 +54,12 @@ from yaqs_tpu_torch.kernels import build
 from yaqs_tpu_torch.kernels.bond_gate import bond_gate
 from yaqs_tpu_torch.kernels.env_update import env_update_left, env_update_right
 from yaqs_tpu_torch.kernels.lanczos_epilogue import lanczos_epilogue
+from yaqs_tpu_torch.kernels.ns_canon import ns_canon_scan
+from yaqs_tpu_torch.kernels.ns_polar import newton_schulz_orthogonalize
 from yaqs_tpu_torch.kernels.sample_shots import sample_shots
+from yaqs_tpu_torch.kernels.subspace_split import subspace_split
 from yaqs_tpu_torch.methods.tdvp import right_environments
+from yaqs_tpu_torch.ops.decomp import _range_finder
 full_precision_matmuls()
 _, seconds, _ = build.build_library()
 build.load_library()
@@ -57,8 +69,20 @@ def randc(*shape):
     return torch.complex(torch.randn(shape, generator=gen, device=dev), torch.randn(shape, generator=gen, device=dev))
 rows = {}
 def row(key, fn, name):
+    if len(sys.argv) > 1 and not key.startswith(tuple(sys.argv[1:])):
+        return
     ms, launches, source = c.device_ms(fn, names=(name,) if name else ())
     rows[key] = dict(ms=ms, launches_per_call=launches, source=source, host_ms=c.host_paced_ms(fn))
+for key, shape in dict(analog=(32, 128, 64), b128=(128, 128, 64), digital=(512, 64, 32)).items():
+    row(f"ns_polar_{key}", lambda y=randc(*shape): newton_schulz_orthogonalize(y), "ns_polar")
+for key, (b, n, chi, left) in dict(analog_right=(32, 128, 64, True), analog_left=(32, 128, 64, False),
+                                   xxz_right=(16, 128, 64, True), xxz_left=(16, 128, 64, False),
+                                   digital=(512, 64, 32, True)).items():
+    omega = _range_finder(n, chi, 20260816 if left else 20260817, torch.complex64, dev)
+    row(f"subspace_split_{key}", lambda m=randc(b, n, n), o=omega, k=chi, li=left: subspace_split(m, o, k, 1, li),
+        "subspace_split")
+for key, (b, length, chi) in dict(analog=(32, 100, 64), digital=(512, 20, 32)).items():
+    row(f"ns_canon_{key}", lambda t=c.random_mps(gen, dev, b, length, chi): ns_canon_scan(t), "ns_canon")
 for key, (b, chi, dw) in dict(analog=(32, 64, 3), xxz=(16, 64, 5), window=(512, 32, 1)).items():
     envs = randc(b, 3, chi, dw, chi)
     a = randc(b, 2, 2, chi, chi)[:, 1] / chi ** 0.5
@@ -96,6 +120,7 @@ print("AB_RESULT " + json.dumps(dict(build_seconds=seconds, rows=rows)))
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trees", nargs="+", required=True, help="checkouts, in the order to run them")
+    parser.add_argument("--rows", nargs="+", default=[], help="keep only the rows whose names start so")
     parser.add_argument("--out", help="write every result to this JSON file")
     args = parser.parse_args()
 
@@ -104,7 +129,7 @@ def main() -> None:
             yield (f"{tree} {key}: device {r['ms']:.4f} ms ({r['source']}, {r['launches_per_call']:g} launches), "
                    f"host-paced {r['host_ms']:.4f} ms (build {res['build_seconds']:.1f} s)")
 
-    compare(args.trees, [], _CHILD, lines, args.out)
+    compare(args.trees, args.rows, _CHILD, lines, args.out)
 
 
 if __name__ == "__main__":

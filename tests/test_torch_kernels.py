@@ -54,7 +54,12 @@ from yaqs_tpu_torch.kernels.moment_scan import (
     site_moments_and_environments,
 )
 from yaqs_tpu_torch.kernels.ns_canon import canon_blocks_per_sm, canon_cluster, ns_canon_scan, ns_canon_scan_plain
-from yaqs_tpu_torch.kernels.ns_polar import newton_schulz_orthogonalize, newton_schulz_orthogonalize_plain
+from yaqs_tpu_torch.kernels.ns_polar import (
+    newton_schulz_orthogonalize,
+    newton_schulz_orthogonalize_plain,
+    polar_cluster,
+    polar_clusters_held,
+)
 from yaqs_tpu_torch.kernels.pair_weights import pair_weights, pair_weights_plain
 from yaqs_tpu_torch.kernels.qr import householder_qr, householder_qr_plain
 from yaqs_tpu_torch.kernels.sample_shots import sample_shots, sample_shots_plain
@@ -270,6 +275,17 @@ def test_ns_canon_cluster_rule(monkeypatch, batch, blocks):
     assert ns_canon.canon_cluster(batch, 2, 64, 0) == blocks
 
 
+@pytest.mark.parametrize(("batch", "blocks"), [(1, 4), (30, 4), (31, 3), (32, 3), (40, 3), (41, 2), (66, 2), (67, 1),
+                                               (512, 1)])
+def test_ns_polar_cluster_rule(monkeypatch, batch, blocks):
+    """K4 takes K5's rule over its own clusters: B = 32 takes three blocks a
+    matrix where the card holds 30, 40 and 66 clusters of 4, 3 and 2."""
+    from yaqs_tpu_torch.kernels import ns_polar
+
+    monkeypatch.setattr(ns_polar, "polar_clusters_held", lambda m, n, dev: {4: 30, 3: 40, 2: 66})
+    assert ns_polar.polar_cluster(batch, 128, 64, 0) == blocks
+
+
 def test_build_digest_covers_the_shared_headers(tmp_path):
     """An edited header changes the library's name, so the kernels that
     include it are rebuilt rather than loaded stale; the sources in the
@@ -368,6 +384,43 @@ def test_ns_polar_kernel_matches_plain(cuda, shape):
         newton_schulz_orthogonalize(y.to(torch.complex128))
     with pytest.raises(ValueError):
         newton_schulz_orthogonalize(y, passes=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("m", "n"), [(128, 64), (64, 32)])
+@pytest.mark.parametrize(("blocks", "delta"), [(4, 0), (4, 1), (3, 0), (3, 1), (2, 0), (2, 1)])
+def test_ns_polar_kernel_across_the_cluster_rule(cuda, m, n, blocks, delta):
+    """K4 at the batch of as many C-block clusters as the card holds at
+    once, and one more: either side of each step of its cluster rule.
+    Within 1e-5 of the plain version (relative), an isometry within 1e-4."""
+    held = polar_clusters_held(m, n, cuda.index or 0)
+    batch = held[blocks] + delta
+    assert polar_cluster(batch, m, n, cuda.index or 0) == (blocks if delta == 0 else {4: 3, 3: 2, 2: 1}[blocks])
+    y = _complex(np.random.default_rng(blocks + delta), (batch, m, n)).to(cuda)
+    kernels.reset_launch_counts()
+    got = newton_schulz_orthogonalize(y)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ns_polar"] == 1
+    assert _rel_err(got, newton_schulz_orthogonalize_plain(y)) <= 1e-5
+    assert (got.mH @ got - torch.eye(n, device=cuda)).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [4, 32, 512])
+def test_ns_polar_kernel_on_padded_rank_one_blocks(cuda, batch):
+    """A product state's padded two-site block (rank 1, four nonzero
+    entries).  The polar steps lift rounding in its empty directions (both
+    versions, differently), so the factor P is held through what does not
+    see them: P^H y within 1e-5 of the plain version's (relative), P P^H y
+    within 1e-5 of y, and exact zeros off y's rows and columns."""
+    m, n = (128, 64) if batch < 512 else (64, 32)
+    y = _subspace_input("rank1", batch, m, n, n, np.random.default_rng(batch), cuda)
+    got = newton_schulz_orthogonalize(y)
+    ref = newton_schulz_orthogonalize_plain(y)
+    assert _rel_err(got.mH @ y, ref.mH @ y) <= 1e-5
+    assert _rel_err(got @ (got.mH @ y), y) <= 1e-5
+    rows, cols = y.abs().sum(dim=(0, 2)) == 0, y.abs().sum(dim=(0, 1)) == 0
+    assert not got[:, rows].any() and not got[:, :, cols].any()
 
 
 # the paths' shapes (analog two-site and one-site k = 4; the gate windows'

@@ -39,8 +39,10 @@ _F = ctypes.c_float
 _LL = ctypes.c_longlong
 # C signatures: every launch function returns the cudaError_t of its launch
 _SIGNATURES = {
-    # (in, out, batch, m, n, stream)
-    "ns_polar_launch": [_P, _P, _I, _I, _I, _P],
+    # (in, out, batch, m, n, cluster, stream)
+    "ns_polar_launch": [_P, _P, _I, _I, _I, _I, _P],
+    # (m, n, cluster) -> clusters the card holds at once
+    "ns_polar_max_clusters": [_I, _I, _I],
     # (alphas, betas, coeff_re, coeff_im, V, nrm, x, stride_x, out, batch, k, n, cw, stages, slots, stream)
     "lanczos_epilogue_launch": [_P, _P, _F, _F, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _P],
     # (a, stride_a, b, stride_b, gate, stride_gate, out, batch, l, m, r, bx, by, stream)

@@ -41,9 +41,12 @@
 // cluster, the two Gram partials (chi x chi each): 160 KB at C = 3, chi = 64.
 // At C = 1 (the digital B = 512, which fills the card) a block needs 56 KB
 // at chi = 32, and the kernel is built with tiles of at most 2 rows where
-// the polar factor takes no taller ones (ns_fits_small_tiles): with the
-// taller tiles built in it holds 195 registers a thread, one block an SM,
-// while four blocks of 56 KB fit in shared memory.
+// its products take no taller ones (ns_fits_small_tiles), and with the
+// polar factor's smallest tensor-core tile: with the taller tiles built in
+// it holds 195 registers a thread, one block an SM, while four blocks of
+// 56 KB fit in shared memory.  The polar factor's products run on the
+// tensor cores in 3xTF32 (ns_polar.cuh); the absorb and the carry on its
+// FP32 product.
 
 #include "ns_polar.cuh"
 

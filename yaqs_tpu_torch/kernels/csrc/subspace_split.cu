@@ -33,7 +33,10 @@
 //  - C = 1 (subspace_split_kernel): the iterate, x g and g of the polar
 //    factor stay in shared memory (two max(rows, cols) x chi buffers and one
 //    chi x chi: 160 KB at (128, 128), chi = 64), and every product reads m
-//    from device memory (L2).
+//    from device memory (L2).  Where no product takes a tile of more than
+//    two rows (ns_fits_small_tiles: the digital (64, 64), chi = 32, 40 KB a
+//    block), the kernel is built with those tiles for four blocks an SM
+//    (64 registers a thread), as K6's one-block kernel is.
 //  - C > 1 (subspace_split_cluster_kernel): block r of a cluster holds a
 //    contiguous share of m's rows in its own shared memory (32 KB at C = 4),
 //    read from device memory once.  A (rows, chi) iterate is split by the
@@ -49,15 +52,17 @@
 //    more than the barriers; reading only g's upper triangle measured
 //    slower than this plain sum, and 16 bytes a load no faster.
 // Both kernels run the polar factor of ns_polar.cuh (ns_polar_rows, on one
-// block or over the cluster) and its product, a register tile of 8, 4 or 2
-// rows by 4 columns of complex outputs a thread, with the offsets computed
-// once and an unrolled k loop.  Plain FP32 FMAs (see ns_polar.cuh).
+// block or over the cluster), whose products run on the tensor cores in
+// 3xTF32 (see ns_polar.cuh).  The products with m run on ns_polar.cuh's
+// FP32 product, a register tile of 8, 4 or 2 rows by 4 columns of complex
+// outputs a thread, with the offsets computed once and an unrolled k loop.
 
 #include "ns_polar.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(kNsThreads)
+template <int kTM>
+__global__ void __launch_bounds__(kNsThreads, kTM == 2 ? 4 : 1)
 subspace_split_kernel(const float2* __restrict__ m, const float2* __restrict__ omega, float2* __restrict__ left,
                       float2* __restrict__ right, float* __restrict__ s, int rows, int cols, int chi, int iters,
                       int left_isometric) {
@@ -74,11 +79,11 @@ subspace_split_kernel(const float2* __restrict__ m, const float2* __restrict__ o
 
   // products with m read from device memory; X is a row-major buffer with chi columns
   auto m_times = [&](const float2* x, float2* out) {  // m X: (rows, chi)
-    product<false>(mz, cols, 1, x, chi, rows, chi, cols, [&](int i, int j, float2 v) { out[i * chi + j] = v; });
+    product<false, kTM>(mz, cols, 1, x, chi, rows, chi, cols, [&](int i, int j, float2 v) { out[i * chi + j] = v; });
     __syncthreads();
   };
   auto mh_times = [&](const float2* x, float2* out) {  // m^H X: (cols, chi)
-    product<true>(mz, 1, cols, x, chi, cols, chi, rows, [&](int i, int j, float2 v) { out[i * chi + j] = v; });
+    product<true, kTM>(mz, 1, cols, x, chi, cols, chi, rows, [&](int i, int j, float2 v) { out[i * chi + j] = v; });
     __syncthreads();
   };
 
@@ -86,15 +91,15 @@ subspace_split_kernel(const float2* __restrict__ m, const float2* __restrict__ o
     // left factor isometric: the dominant column subspace of m
     m_times(omega, buf_a);
     for (int it = 0; it < iters; ++it) {
-      ns_polar_block(buf_a, buf_b, sg, red, rows, chi);  // q
+      ns_polar_block<kTM>(buf_a, buf_b, sg, red, rows, chi);  // q
       mh_times(buf_a, buf_b);
-      ns_polar_block(buf_b, buf_a, sg, red, cols, chi);  // z
+      ns_polar_block<kTM>(buf_b, buf_a, sg, red, cols, chi);  // z
       m_times(buf_b, buf_a);
     }
-    ns_polar_block(buf_a, buf_b, sg, red, rows, chi);  // left
+    ns_polar_block<kTM>(buf_a, buf_b, sg, red, rows, chi);  // left
     for (int e = threadIdx.x; e < rows * chi; e += blockDim.x) lz[e] = buf_a[e];
     // right = left^H m: (chi, cols), into buf_b
-    product<true>(buf_a, 1, chi, mz, cols, chi, cols, rows, [&](int i, int j, float2 v) { buf_b[i * cols + j] = v; });
+    product<true, kTM>(buf_a, 1, chi, mz, cols, chi, cols, rows, [&](int i, int j, float2 v) { buf_b[i * cols + j] = v; });
     __syncthreads();
     for (int e = threadIdx.x; e < chi * cols; e += blockDim.x) rz[e] = buf_b[e];
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -112,12 +117,12 @@ subspace_split_kernel(const float2* __restrict__ m, const float2* __restrict__ o
     // right factor isometric: the dominant row subspace of m
     mh_times(omega, buf_a);
     for (int it = 0; it < iters; ++it) {
-      ns_polar_block(buf_a, buf_b, sg, red, cols, chi);  // v0
+      ns_polar_block<kTM>(buf_a, buf_b, sg, red, cols, chi);  // v0
       m_times(buf_a, buf_b);
-      ns_polar_block(buf_b, buf_a, sg, red, rows, chi);  // z
+      ns_polar_block<kTM>(buf_b, buf_a, sg, red, rows, chi);  // z
       mh_times(buf_b, buf_a);
     }
-    ns_polar_block(buf_a, buf_b, sg, red, cols, chi);  // v
+    ns_polar_block<kTM>(buf_a, buf_b, sg, red, cols, chi);  // v
     for (int e = threadIdx.x; e < chi * cols; e += blockDim.x) {
       const int i = e / cols, j = e % cols;
       rz[e] = conj2(buf_a[j * chi + i]);
@@ -358,13 +363,21 @@ extern "C" int subspace_split_launch(const void* m, const void* omega, void* lef
   } else if (cluster == 2) {
     err = launch_cluster<2>(st, mp, op, lp, rp, sp, batch, rows, cols, chi, iters, left_isometric);
   } else {
-    const int big = (rows > cols ? rows : cols) * chi;
-    const size_t smem = sizeof(float2) * (2 * static_cast<size_t>(big) + static_cast<size_t>(chi) * chi) +
+    const int big = (rows > cols ? rows : cols);
+    const size_t smem = sizeof(float2) * (2 * static_cast<size_t>(big) * chi + static_cast<size_t>(chi) * chi) +
                         sizeof(float) * ns_scratch_floats(chi);
-    err = allow_smem(subspace_split_kernel, smem);
-    if (err == cudaSuccess) {
-      subspace_split_kernel<<<batch, kNsThreads, smem, st>>>(mp, op, lp, rp, sp, rows, cols, chi, iters,
-                                                             left_isometric);
+    if (ns_fits_small_tiles(big, chi) && ns_fits_small_tiles(chi, cols)) {
+      err = prepare(subspace_split_kernel<2>, smem);
+      if (err == cudaSuccess) {
+        subspace_split_kernel<2><<<batch, kNsThreads, smem, st>>>(mp, op, lp, rp, sp, rows, cols, chi, iters,
+                                                                  left_isometric);
+      }
+    } else {
+      err = allow_smem(subspace_split_kernel<8>, smem);
+      if (err == cudaSuccess) {
+        subspace_split_kernel<8><<<batch, kNsThreads, smem, st>>>(mp, op, lp, rp, sp, rows, cols, chi, iters,
+                                                                  left_isometric);
+      }
     }
   }
   if (err != cudaSuccess) return static_cast<int>(err);

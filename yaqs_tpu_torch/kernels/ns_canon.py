@@ -25,8 +25,7 @@ import torch
 
 from . import LAUNCHES, on_card
 from .build import check, load_library
-from .ns_polar import MAX_COLS, MAX_ROWS, newton_schulz_orthogonalize_plain
-from .subspace_split import cluster_size, clusters_held
+from .ns_polar import MAX_COLS, MAX_ROWS, cluster_size, clusters_held, newton_schulz_orthogonalize_plain
 
 __all__ = ["canon_blocks_per_sm", "canon_cluster", "canon_clusters_held", "ns_canon_scan", "ns_canon_scan_plain"]
 
@@ -39,7 +38,7 @@ def canon_clusters_held(d: int, chi: int, device_index: int) -> dict[int, int]:
 
 
 def canon_cluster(batch: int, d: int, chi: int, device_index: int) -> int:
-    """Thread blocks a trajectory: :func:`~.subspace_split.cluster_size`."""
+    """Thread blocks a trajectory: :func:`~.ns_polar.cluster_size`."""
     return cluster_size(batch, canon_clusters_held(d, chi, device_index))
 
 

@@ -16,7 +16,10 @@ the largest of 4, 3 and 2 whose clusters the card holds all at once for the
 whole batch, else one block a matrix (:func:`cluster_size`, with the
 counts from :func:`held_clusters`).  An H100 holds 30 clusters of four at
 the analog shape, so the analog path's B = 32 takes clusters of three; the
-digital B = 512 takes one block a matrix.
+digital B = 512 takes one block a matrix, built for four blocks an SM
+(64 registers a thread) where no product takes a tile taller than two rows.
+The polar factors' products run on the tensor cores in 3xTF32
+(``csrc/ns_polar.cuh``); the products with ``m`` in FP32.
 
 The cluster's blocks add their partial Gram and ``m^H X`` sums in rank
 order, so a matrix's result is the same from run to run, but its rounding
@@ -33,31 +36,16 @@ import torch
 
 from . import LAUNCHES, on_card
 from .build import check, load_library
-from .ns_polar import MAX_COLS, MAX_ROWS, newton_schulz_orthogonalize_plain
+from .ns_polar import (
+    CLUSTER_SIZES,
+    MAX_COLS,
+    MAX_ROWS,
+    cluster_size,
+    clusters_held,
+    newton_schulz_orthogonalize_plain,
+)
 
-__all__ = ["cluster_size", "clusters_held", "held_clusters", "subspace_split", "subspace_split_plain"]
-
-CLUSTER_SIZES = (4, 3, 2)
-
-
-def cluster_size(batch: int, held: dict[int, int]) -> int:
-    """Thread blocks a matrix: the largest ``C`` of 4, 3 and 2 with ``batch
-    <= held[C]``, the clusters of ``C`` blocks the card holds at once, so
-    that the whole batch runs in one wave; else 1."""
-    return next((c for c in CLUSTER_SIZES if batch <= held.get(c, 0)), 1)
-
-
-def clusters_held(query: str, shape: tuple[int, ...], device_index: int) -> dict[int, int]:
-    """The clusters of 4, 3 and 2 blocks that the card holds at once, by
-    cluster size, from the library's ``query(*shape, C)`` (a kernel's
-    ``cudaOccupancyMaxActiveClusters``, or minus a CUDA error)."""
-    lib = load_library()
-    with torch.cuda.device(device_index):
-        held = {c: getattr(lib, query)(*shape, c) for c in CLUSTER_SIZES}
-    for c, n in held.items():
-        check(max(-n, 0), f"{query} ({c} blocks)")
-    return held
-
+__all__ = ["CLUSTER_SIZES", "cluster_size", "clusters_held", "held_clusters", "subspace_split", "subspace_split_plain"]
 
 @functools.cache
 def held_clusters(rows: int, cols: int, chi: int, device_index: int) -> dict[int, int]:
