@@ -14,7 +14,15 @@ Phases (any failure raises and exits non-zero):
    of the nearest PyTorch library call, and the bound (bytes over 3.35 TB/s
    or FP32 operations over 67 TFLOP/s, the larger; for K4, K5 and K6 also
    the bound with the polar factor's products on the tensor cores, three
-   TF32 products a real one at 495 TFLOP/s); K4 ``ns_polar`` at (32, 128,
+   TF32 products a real one at 495 TFLOP/s; a kernel of LONG_KERNEL_MS or
+   more host-paced over 3 windows of 3 calls); K16 ``lanczos_solve0`` (the
+   one-site sweeps' bond solves) at (32, 64, Dw=3), (16, 64, Dw=5) and the
+   ragged (5, 37, Dw=5), both variants held, the reorthogonalizing one
+   timed; K17 ``op_scan`` at phase 4c's zz row (32, 100, 64), the order-1
+   phase's PVM rows, the digital width (512, 20, 32) and a ragged (5, 9,
+   37) with three rows, each row within 1e-4 of its own value and beside
+   the plain version's distance from complex128;
+   K4 ``ns_polar`` at (32, 128,
    64), (128, 128, 64) and (512, 64, 32) with the blocks a matrix its
    cluster rule takes and its products' path, beside its earlier design's
    time; the TDVP kernels at the
@@ -136,7 +144,25 @@ Phases (any failure raises and exits non-zero):
    decay, all 0.1) with both knob sets against the exact Lindblad
    evolution; a 4-qubit brickwork (lowering 0.02, the pair processes 0.01)
    against a density-matrix run of the engine's scoped noise; the MCWF local
-   route with ``crosstalk_zz`` against the exact evolution.
+   route with ``crosstalk_zz`` against the exact evolution;
+13. "Analog TFIM, order 1": phase 4's inputs at order 1 (two-site TDVP), rows
+   Z everywhere and four PVM rows (K17 ``op_scan`` once a measurement): the
+   fast knob set, then the exact one with ``record_diagnostics``, each timed
+   with a profiled step; then the fast run with a scheduled ``x`` jump at
+   site 50 (t=0.5) and a non-factorizable two-site jump on (20, 21)
+   (t=0.3), whose slot launches K10 and K9 once each;
+13b. one-site TDVP from the haar-random preset (numpy seed 2026), fast
+   knobs: timed, the launches of K16 ``lanczos_solve0``, K4 (the polar
+   center shifts), K2 and K8 against the sweep's loop, a profiled step;
+13c. dynamic TDVP from the same start: timed, the launches of K1, K5 and
+   K16 against the branches the sweeps took;
+14. the order-1 guards: noiseless L=32, chi=32 with a scheduled one- and
+   two-site jump, the card's c64 against the CPU's c128 in each TDVP mode
+   (max|dZ| <= 1e-3); L=4, chi=4, B=4096 with z and lowering 0.1 against the
+   exact Lindblad evolution (two-site from x+, one-site from haar-random,
+   5 SE + 1e-3); PVM rows within 1e-4 on phase 8's brickwork (the state
+   vector), the order-1 TFIM at L=10 (the CPU's c128) and the MCWF local
+   route at L=10 (the CPU's dense route, a ``zz`` row beside them).
 
 The last two lines of standard output are the kernel table and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come on
@@ -147,6 +173,7 @@ printing any of them.  It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -158,6 +185,9 @@ import numpy as np
 import torch
 
 NS_TOL = 1e-5
+LONG_KERNEL_MS = 5.0  # `timings`: a kernel at least this long is host-paced over 3 windows of 3 calls
+LONG_PLAIN_S = 2.0  # `timings(slow_plain=True)`: a plain call at least this long is timed once
+PLAIN_PROFILED_CALLS = 5  # `timings`: profiled calls of a plain version (the kernel's: 20)
 NS_ISOMETRY_TOL = 1e-4
 KERNEL_TOL = 1e-5  # relative: complex64 with another summation order
 # K1 and K2 (the one-launch Lanczos solves) against the plain loop, relative:
@@ -204,23 +234,33 @@ ANALOG_SOLVE_LAUNCHES = dict(lanczos_solve2=1970, lanczos_solve1=1960, lanczos_e
 EVENTS_BEFORE = dict(analog=11209, analog_exact=21243, analog_two_site=17535)
 # the path whose run gives a kernel's launch count in the kernel table: the
 # slice that ported it, or the analog path for the TDVP kernels
-TABLE_PATH = dict(ns_polar="analog", lanczos_epilogue="analog", bond_gate="digital", moment_scan="digital",
+TABLE_PATH = dict(ns_polar="analog_1site", lanczos_epilogue="analog", bond_gate="digital", moment_scan="digital",
                   sample_shots="digital", heff2="analog", heff1="analog", lanczos_solve2="analog",
                   lanczos_solve1="analog", env_update="analog",
                   sv_mpo_matvec="mcwf", arnoldi_step="mcwf", arnoldi_epilogue="mcwf", svd_jacobi="analog_exact",
                   householder_qr="analog_exact", householder_qr_r="analog_exact", subspace_split="analog",
                   ns_canon="analog",
-                  pair_weights="analog_two_site")
+                  pair_weights="analog_two_site", lanczos_solve0="analog_1site", op_scan="analog_order1")
 # the phases whose main-path launch counts the JSON file keeps per kernel
 LAUNCH_PATHS = ("analog", "digital", "analog_xxz", "digital_window", "mcwf", "analog_exact", "analog_two_site",
-                "digital_two_site", "mcwf_two_site")
+                "digital_two_site", "mcwf_two_site", "analog_order1", "analog_1site", "analog_dynamic")
+# the order-1 phases (13, 13b, 13c): phase 4's cell at order 1 with four PVM rows beside Z, and its
+# one-site and dynamic TDVP from a haar-random start of this numpy seed
+ORDER1_PVM = ("0" * 100, "1" * 100, "01" * 50, "0" * 50 + "1" * 50)
+HAAR_SEED = 2026
+OP_SCAN_TOL = 1e-4  # K17 against its plain version, relative to each row's value
+PVM_TOL = 1e-4  # phase 14c: PVM rows, absolute
+# K17 in phase 3: (B, L, chi, rows) and the rows' kind: phase 4c's zz row, the
+# order-1 phase's PVM rows, the digital width's, and a ragged shape
+OP_SCAN_SHAPES = {"zz": (32, 100, 64, "zz"), "pvm": (32, 100, 64, "pvm"), "digital": (512, 20, 32, "pvm"),
+                  "ragged": (5, 9, 37, "mixed")}
 # the products of the polar factor's schedule in K4, K5 and K6 (ns_polar.cuh), for every shape
 NS_PRODUCTS = "3xTF32 on the tensor cores (mma.sync m16n8k8, FP32 accumulators)"
 NEWTON_TOL = 1e-4  # K5 and K6 against their plain versions (relative; the Newton steps amplify the summation order)
 PAIR_GAMMA = 0.01  # crosstalk_zz and the correlated decay on every adjacent pair
 LOWERING = np.array([[0, 1], [0, 0]], dtype=np.complex128)
 DECOMP_KERNELS = ("svd_jacobi", "householder_qr", "householder_qr_r")
-EXACT_KERNELS = (*DECOMP_KERNELS, "lanczos_epilogue", "moment_scan", *SWEEP_KERNELS)
+EXACT_KERNELS = (*DECOMP_KERNELS, "lanczos_epilogue", "moment_scan", *SWEEP_KERNELS, "op_scan")  # op_scan: the zz row
 DECOMP_TOL = 1e-4  # K9 and K14 against their plain versions (relative; complex64, another algorithm for K9)
 # cuSOLVER kernel names that must not appear in the GPU-defaults run's profile
 CUSOLVER_MARKS = ("gesvd", "geqrf", "larft", "orgqr", "ungqr")
@@ -405,15 +445,16 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
 def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops, per_call=1, slow_plain=False,
             library_device=False, tc_flops=0):
     """Every time of one kernel at one shape, printed on one line.  The
-    kernel and its plain version: profiler device time and host-paced time.
+    kernel and its plain version: profiler device time (20 calls of the
+    kernel, PLAIN_PROFILED_CALLS of the plain version) and host-paced time.
     The library call, which may issue thousands of small launches and host
     syncs (the batched SVD does): host-paced over 3 windows of 3 calls, kept
     out of the profiler.  ``slow_plain`` (a plain version and library call
     that call cuSOLVER's SVD, which lost the profiler's later device rows,
     and take up to seconds; or the gate window's plain Lanczos loop, 838
     launches a call): the plain version one call at a time between
-    CUDA events (1 warm-up, the median of 3 calls; host-paced is then the
-    same figure), the library call host-paced over 3 single calls after 1
+    CUDA events (1 warm-up, the median of 3 calls, or one call where the
+    warm-up took LONG_PLAIN_S or more; host-paced is then the same figure), the library call host-paced over 3 single calls after 1
     warm-up.  Where ``device_ms`` falls back to CUDA events, the kernel's
     time is the smaller of one call at a time (a launch and a synchronize
     more) and host-paced (the host's pace between launches): both bound
@@ -425,17 +466,26 @@ def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops,
     K6): beside the FP32 bound, ``tc_bound_ms`` is the least time of the
     same work with that part at TF32_SPLIT_PRODUCTS TF32 products a real
     one at TF32_FLOPS and the rest at FP32_FLOPS."""
+    t_row = time.perf_counter()
     ms, launches, source = device_ms(kernel_fn, names=kernel_names, per_call=per_call)
-    host_ms = host_paced_ms(kernel_fn)
+    # a kernel of milliseconds is its own host pace: 3 windows of 3 calls are enough
+    host_ms = host_paced_ms(kernel_fn) if ms < LONG_KERNEL_MS else host_paced_ms(kernel_fn, 3, 3, 1)
     if source == "events":
         ms = min(ms, host_ms)
     if slow_plain:
-        plain_ms, plain_events, plain_source = single_call_ms(plain_fn, calls=3, warmup=1), float("nan"), "events"
+        # a plain call of seconds (the batched SVD at (512, 64, 64)) once after its warm-up, else the median of 3
+        t_warm = time.perf_counter()
+        plain_fn()
+        torch.cuda.synchronize()
+        calls = 1 if time.perf_counter() - t_warm > LONG_PLAIN_S else 3
+        plain_ms, plain_events, plain_source = single_call_ms(plain_fn, calls=calls, warmup=0), float("nan"), "events"
         plain_host_ms = plain_ms
         library_ms = None if library_fn is None else host_paced_ms(library_fn, windows=3, calls=1, warmup=1)
     else:
-        plain_ms, plain_events, plain_source = device_ms(plain_fn)
-        plain_host_ms = host_paced_ms(plain_fn)
+        # the plain version is no yardstick of speed: 5 profiled calls, and a plain call of a millisecond
+        # or more host-paced over 3 windows of 5 calls
+        plain_ms, plain_events, plain_source = device_ms(plain_fn, calls=PLAIN_PROFILED_CALLS)
+        plain_host_ms = host_paced_ms(plain_fn) if plain_ms < 1.0 else host_paced_ms(plain_fn, 3, 5, 1)
         library_ms = None if library_fn is None else host_paced_ms(library_fn, windows=3, calls=3)
     bound_ms, bound_by = bound(nbytes, flops)
     out = dict(
@@ -455,7 +505,8 @@ def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops,
     log(f"[phase 3] {label}: device {ms:.4f} ms ({source}, {launches:g} launches), "
         f"host-paced {out['host_ms']:.4f} ms; plain device {plain_ms:.4f} ms ({plain_source}, "
         f"{plain_events:g} device events), host-paced {out['plain_host_ms']:.4f} ms; library {lib}; "
-        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP){tc}")
+        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP){tc}; "
+        f"{time.perf_counter() - t_row:.1f} s")
     return out
 
 
@@ -748,7 +799,7 @@ def phase_kernels(dev):
     )
     log(f"[time] phase 3, K4, K3, K10, K7, K11: {time.perf_counter() - t_start:.1f} s")
     for name, fn in (("TDVP", tdvp_kernel_rows), ("MCWF", mcwf_kernel_rows), ("K9, K14", decomp_kernel_rows),
-                     ("K5, K6", newton_kernel_rows), ("K15", two_site_kernel_rows)):
+                     ("K5, K6", newton_kernel_rows), ("K15", two_site_kernel_rows), ("K16, K17", order1_kernel_rows)):
         t_start = time.perf_counter()
         rows.update(fn(dev, randc, gen))
         log(f"[time] phase 3, {name}: {time.perf_counter() - t_start:.1f} s")
@@ -1392,6 +1443,128 @@ def solve_errors(got, ref, moved):
     errs = [rel_err(res[0], res[1])] + [rel_err(x, y) for x, y in zip(got, ref)]
     limits = [SOLVE_TOL] + [max(SOLVE_TOL, 4 * rel_err(x, y)) for x, y in zip(moved, ref)]
     return errs, limits
+
+
+def op_scan_inputs(gen, dev, batch, length, chi, kind):
+    """MPS canonical at 0 with unit norm (the CPU's complex128 QR, cast to
+    complex64) and K17's chains, whose values lie well inside float32's
+    range: ``zz``, one product term Z0 Z1 on a random state; ``pvm``, four
+    bitstrings (one, then one, two and three sites flipped) on a state near
+    the first (each site its bit's slice plus a random 0.05 of the others);
+    ``mixed``, a product term and two bitstrings.  Returns ``(tensors, sel,
+    ops)``."""
+    from yaqs_tpu_torch.core.mps_ops import normalize_canonical
+
+    t = random_mps(gen, dev, batch, length, chi).cpu().to(torch.complex128)
+    bits = np.random.default_rng(length + chi).integers(0, 2, length)
+    if kind == "pvm":
+        t *= 0.05
+        t[:, np.arange(length), bits, 0, 0] += 1.0
+    t = normalize_canonical(t)[0].to(torch.complex64).to(dev)
+    rows = []
+    if kind in ("zz", "mixed"):
+        row_ops = np.tile(np.eye(2, dtype=np.complex64), (length, 1, 1))
+        row_ops[: min(2, length)] = np.diag([1.0, -1.0])
+        rows.append((np.full(length, -1, dtype=np.int32), row_ops))
+    if kind in ("pvm", "mixed"):
+        for flips in (0, 1, 2, 3)[: 4 if kind == "pvm" else 2]:
+            b = bits.copy()
+            b[:flips] ^= 1
+            rows.append((b.astype(np.int32), np.zeros((length, 2, 2), dtype=np.complex64)))
+    sel = torch.as_tensor(np.stack([r[0] for r in rows])).to(dev)
+    ops = torch.as_tensor(np.stack([r[1] for r in rows])).to(dev)
+    return t, sel, ops
+
+
+def order1_kernel_rows(dev, randc, gen):
+    """K16 ``lanczos_solve0`` (the one-site sweep's bond solves) at the
+    analog shape (B=32, chi=64, Dw=3, k=4), the XXZ one (Dw=5) and a ragged
+    one (B=5, chi=37, Dw=5), both variants, against its plain loop; timed
+    reorthogonalizing, as the sweeps' bond solves run.  K17 ``op_scan`` at
+    phase 4c's zz row, the order-1 phase's PVM rows, the digital width and
+    a ragged shape, against its plain version, each row within 1e-4 of its
+    own value.  Timed: device, host-paced, plain and (K17) the plain loop's
+    einsums host-paced as the library figure, and the bound."""
+    from yaqs_tpu_torch.kernels.lanczos_solve import (
+        cluster_blocks, lanczos_solve, lanczos_solve_plain, solve_clusters_held,
+    )
+    from yaqs_tpu_torch.kernels.op_scan import op_scan, op_scan_plain
+
+    rows = {"lanczos_solve0": dict(max_abs_err=0.0), "op_scan": dict(max_abs_err=0.0)}
+    k = BENCH["krylov_dim"]
+    for key, (b, chi, dw) in {"analog": TDVP_SHAPES["analog"], "xxz": TDVP_SHAPES["xxz"],
+                              "ragged": (5, 37, 5)}.items():
+        envs = randc(b, 2, chi, dw, chi)
+        hf, hg, _, hv = hermitian_heff(envs[:, 0], envs[:, 1], randc(dw, dw), randc(b, chi, chi), 1)
+        hv = hv.mT.contiguous().mT  # as an LQ shift hands it over: read in place
+        n = chi * chi
+        for reorth in (True, False):  # the sweeps' bond solves reorthogonalize: that variant is timed
+            variant = "reorth" if reorth else "three-term"
+            got = lanczos_solve(hf, None, hg, hv, k, reorth, BREAKDOWN_TOL)
+            ref = lanczos_solve_plain(hf, None, hg, hv, k, reorth, BREAKDOWN_TOL)
+            moved = lanczos_solve_plain(hf, None, hg, hv * (1 + 1e-7 * torch.randn(hv.shape, generator=gen, device=dev)),
+                                        k, reorth, BREAKDOWN_TOL)
+            torch.cuda.synchronize()
+            errs, limits = solve_errors(got, ref, moved)
+            same = torch.equal(got[2] == 0, ref[2] == 0)
+            blocks, held = cluster_blocks(dw, chi), solve_clusters_held(chi, dw, 1, dev.index or 0)
+            log(f"[phase 3] lanczos_solve0 {variant} (B={b}, chi={chi}, Dw={dw}, k={k}): {blocks} blocks a cluster, "
+                f"{held} such clusters held; rel err of the result, basis, alphas, betas, nrm "
+                + ", ".join(f"{e:.3e}" for e in errs) + " (limits " + ", ".join(f"{x:.1e}" for x in limits)
+                + f"), identical breakdowns {same}")
+            check(all(e <= x for e, x in zip(errs, limits)) and same,
+                  f"lanczos_solve0 ({variant}) disagrees with its plain version: {errs} against {limits}")
+            rows["lanczos_solve0"]["max_abs_err"] = max(
+                rows["lanczos_solve0"]["max_abs_err"], max((x - y).abs().max().item() for x, y in zip(got, ref)))
+            if not reorth:
+                continue
+            # bound: c, f and g read once, the basis, alphas, betas and nrm written once;
+            # k matvecs of 2 Dw chi^3 complex MACs and the recurrence's dot products and updates
+            rec = sum(4 * (j + 1) + 2 for j in range(k)) if reorth else 4 * k
+            nbytes = (b * n * (k + 1) + 2 * b * chi * dw * chi) * C64 + b * (2 * k + 1) * 4
+            t = timings(f"lanczos_solve0 {variant} (B={b}, chi={chi}, Dw={dw}, k={k})",
+                        lambda hv=hv, hf=hf, hg=hg, r=reorth: lanczos_solve(hf, None, hg, hv, k, r, BREAKDOWN_TOL),
+                        lambda hv=hv, hf=hf, hg=hg, r=reorth: lanczos_solve_plain(hf, None, hg, hv, k, r,
+                                                                                  BREAKDOWN_TOL),
+                        None, ("lanczos_solve0",), nbytes, b * (k * 2 * dw * chi**3 + rec * n) * CMAC_FLOPS)
+            rows["lanczos_solve0"][f"{key}_{variant}"] = dict(shape=[b, chi, dw, k], cluster_blocks=blocks,
+                                                              held_clusters=held, library_call="none", **t)
+    for key, (b, length, chi, kind) in OP_SCAN_SHAPES.items():
+        t, sel, ops = op_scan_inputs(gen, dev, b, length, chi, kind)
+        got = op_scan(t, sel, ops)
+        ref = op_scan_plain(t, sel, ops)
+        exact = op_scan_plain(t.to(torch.complex128), sel, ops.to(torch.complex128))
+        torch.cuda.synchronize()
+        err = ((got - ref).abs() / ref.abs()).max().item()
+        err128 = ((got - exact).abs() / exact.abs()).max().item()
+        plain128 = ((ref - exact).abs() / exact.abs()).max().item()
+        smallest = ref.abs().min().item()
+        log(f"[phase 3] op_scan (B={b}, L={length}, chi={chi}, {sel.shape[0]} {kind} rows): largest error relative "
+            f"to its row's value {err:.3e} (limit {OP_SCAN_TOL}; against the plain version in complex128 {err128:.3e}, "
+            f"the plain version's own {plain128:.3e}; {int((got == ref).sum().item())} of {got.numel()} values "
+            f"identical); smallest |value| {smallest:.3e}")
+        check(bool(torch.isfinite(got).all()) and smallest > 1e-20 and err <= OP_SCAN_TOL,
+              f"op_scan disagrees with its plain version: {err} (smallest value {smallest})")
+        rows["op_scan"]["max_abs_err"] = max(rows["op_scan"]["max_abs_err"], (got - ref).abs().max().item())
+        # bound: the sites read once (a projector's chain reads one slice, but the
+        # tensors are the input, read once), sel and ops, the values written once;
+        # 2 d chi^3 + d^2 chi^2 complex MACs a site of a product chain, 2 chi^3 of a projector's
+        nproj = int((sel[:, 0] >= 0).sum().item())
+        nterm = sel.shape[0] - nproj
+        nbytes = b * length * 2 * chi * chi * C64 + sel.numel() * 4 + ops.numel() * C64 + b * sel.shape[0] * C64
+        cmacs = b * length * (nterm * (4 * chi**3 + 4 * chi * chi) + nproj * 2 * chi**3)
+        tm = timings(f"op_scan (B={b}, L={length}, chi={chi}, {sel.shape[0]} {kind} rows)",
+                     lambda t=t, s=sel, o=ops: op_scan(t, s, o), lambda t=t, s=sel, o=ops: op_scan_plain(t, s, o),
+                     lambda t=t, s=sel, o=ops: op_scan_plain(t, s, o), ("op_scan",), nbytes, cmacs * CMAC_FLOPS)
+        rows["op_scan"][key] = dict(shape=[b, length, chi, sel.shape[0]], kind=kind, rel_err=err,
+                                    library_call="the plain loop's einsums (3 a site), host-paced", **tm)
+    return {
+        "lanczos_solve0": dict(source="yaqs_tpu_torch/kernels/csrc/lanczos_solve.cu",
+                               replaces="yaqs_tpu/ops/krylov.py:31", **rows["lanczos_solve0"]["analog_reorth"],
+                               **rows["lanczos_solve0"]),
+        "op_scan": dict(source="yaqs_tpu_torch/kernels/csrc/op_scan.cu", replaces="yaqs_tpu/core/observables.py:229",
+                        **rows["op_scan"]["pvm"], **rows["op_scan"]),
+    }
 
 
 def hermitian_heff(f, g, w, v, p):
@@ -2340,7 +2513,7 @@ def phase_mcwf_two_site(dev):
     return out
 
 
-def statistical_guard(label, res, exact, out, key):
+def statistical_guard(label, res, exact, out, key, phase="phase 12"):
     """Every (site, time) mean of ``res (B, L, T)`` within 5 standard errors
     + 1e-3 of ``exact (L, T)``; records and prints the largest share of
     that limit."""
@@ -2349,7 +2522,7 @@ def statistical_guard(label, res, exact, out, key):
     mean = res.mean(axis=0)
     se = res.std(axis=0, ddof=1) / np.sqrt(b)
     worst = float(np.max(np.abs(mean - exact) / (STAT_SIGMAS * se + GUARD_TOL)))
-    log(f"[phase 12] {label}: max|mean - exact| = {np.abs(mean - exact).max():.3e}, largest share of the limit "
+    log(f"[{phase}] {label}: max|mean - exact| = {np.abs(mean - exact).max():.3e}, largest share of the limit "
         f"(5 SE + 1e-3) {worst:.3f}")
     check(np.isfinite(res).all() and worst <= 1.0, f"noisy guard ({label}) failed: {worst}")
     out[f"{key}_max_abs_d"] = float(np.abs(mean - exact).max())
@@ -2452,6 +2625,326 @@ def phase_noisy_guards(dev):
                          dtype=torch.complex64, route="local")
     statistical_guard(f"MCWF L={length} B={b} {steps} steps local route with crosstalk_zz vs exact Lindblad",
                       res, exact, out, "mcwf_local")
+    return out
+
+
+# a two-site scheduled jump of operator-Schmidt rank 2 (no product of
+# one-site factors): the slot tables' merge (K10) -> matrix -> split (K9)
+PAIR_JUMP = np.kron(LOWERING, np.eye(2)) + 0.5 * np.kron(np.diag([1.0, -1.0]), np.array([[0.0, 1.0], [1.0, 0.0]]))
+
+
+def haar_start(length, chi, seed=HAAR_SEED):
+    """The haar-random preset (numpy seed ``seed``) brought canonical at 0
+    with unit norm, the TJM's start."""
+    import yaqs_tpu_torch as yt
+
+    return yt.canonical_start(yt.haar_random_mps(length, chi, rng=np.random.default_rng(seed)))
+
+
+def order1_inputs(length, chi, start, gamma=None, bitstrings=None):
+    """Phase 4's TFIM inputs from ``start`` (a preset or ``"haar-random"``)
+    with Z everywhere and PVM rows of ``bitstrings`` (ORDER1_PVM's by
+    default)."""
+    import yaqs_tpu_torch as yt
+
+    bitstrings = ORDER1_PVM if bitstrings is None else bitstrings
+    w, t0, _, noise = tfim_inputs(length, chi, "x+" if start == "haar-random" else start, gamma)
+    if start == "haar-random":
+        t0 = haar_start(length, chi)
+    obs = yt.compile_observables([yt.Observable("z", i) for i in range(length)]
+                                 + [yt.Observable(b) for b in bitstrings], length, 2)
+    return w, t0, obs, noise
+
+
+def order1_plan(steps, chi, mode, knobs, record_diagnostics=False, scheduled=None):
+    import yaqs_tpu_torch as yt
+
+    cfg = yt.TDVPConfig(krylov_dim=BENCH["krylov_dim"], trunc_mode="discarded_weight", threshold=1e-6,
+                        max_bond_dim=chi, mode=mode, **knobs)
+    return yt.TrajectoryPlan(dt=BENCH["dt"], num_steps=steps, order=1, sample_timesteps=True, evolution=cfg,
+                             record_diagnostics=record_diagnostics, has_scheduled=scheduled is not None,
+                             has_scheduled2=scheduled is not None and scheduled[2] is not None)
+
+
+def timed_order1(label, dev, plan, inputs, b, scheduled=None):
+    """A warm-up step on other trajectories, then the timed run of ``plan``
+    at batch ``b``: the result, traj/s, ms a step, peak memory and the
+    kernels' launches."""
+    from yaqs_tpu_torch import kernels
+    from yaqs_tpu_torch.analog.run import run_tjm_batch
+
+    w, t0, obs, noise = inputs
+    kw = dict(device=dev, dtype=torch.complex64)
+    warm = dataclasses.replace(plan, num_steps=1, has_scheduled=False, has_scheduled2=False)
+    run_tjm_batch(t0, w, noise, obs, warm, traj_indices=range(b, 2 * b), **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    res = run_tjm_batch(t0, w, noise, obs, plan, batch=b, scheduled=scheduled, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+    steps = plan.num_steps
+    out = dict(seconds=seconds, traj_per_s=b / seconds, ms_per_step=1e3 * seconds / steps,
+               peak_bytes=torch.cuda.max_memory_allocated(), launches=launches)
+    log(f"[{label}] L={t0.shape[0]} chi={t0.shape[-1]} B={b} {steps} steps: {seconds:.3f} s, "
+        f"{out['traj_per_s']:.4f} traj/s, {out['ms_per_step']:.1f} ms/step, peak {out['peak_bytes'] / 2**20:.1f} MiB, "
+        f"launches {launches}")
+    return res, out
+
+
+def check_order1_rows(label, res, length, steps, npvm):
+    """Z rows within [-1, 1], PVM rows within [0, 1], every value finite."""
+    check(tuple(res.shape) == (res.shape[0], length + npvm, steps + 1), f"[{label}] result shape {tuple(res.shape)}")
+    check(bool(torch.isfinite(res).all()), f"[{label}] a non-finite row")
+    check(res[:, :length].abs().max().item() <= 1.0 + 1e-3, f"[{label}] a Z row left [-1, 1]")
+    pvm = res[:, length:]
+    check(pvm.min().item() >= -1e-6 and pvm.max().item() <= 1.0 + 1e-3, f"[{label}] a PVM row left [0, 1]")
+
+
+def phase_order1(dev):
+    """13. "Analog TFIM, order 1": phase 4's cell (TFIM L=100, chi=64, B=32,
+    z and lowering 0.05, 10 steps of dt=0.1, c64) at order 1, two-site
+    TDVP, rows Z everywhere and four PVM rows: the fast knob set, then the
+    exact one with ``record_diagnostics`` (the configuration ``Simulator.run``
+    takes off a TPU), each timed and one step profiled; then the fast run
+    with a scheduled ``x`` jump at site 50 (t=0.5) and a non-factorizable
+    two-site jump on (20, 21) (t=0.3), whose slot launches K10 and K9 once
+    each."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch.analog.run import run_tjm_batch, schedule_jumps
+
+    length, chi, b, steps = BENCH["length"], BENCH["chi"], BENCH["batch"], BENCH["steps"]
+    inputs = order1_inputs(length, chi, "x+", BENCH["gamma"])
+    w, t0, obs, noise = inputs
+    npvm = len(ORDER1_PVM)
+    out = {}
+    for name, knobs, diag in (("fast", FAST, False), ("exact", EXACT, True)):
+        plan = order1_plan(steps, chi, "2site", knobs, record_diagnostics=diag)
+        res, row = timed_order1(f"phase 13, {name}", dev, plan, inputs, b)
+        if diag:
+            res, diagnostics = res
+            check(tuple(diagnostics.shape) == (b, 3, steps + 1) and bool(torch.isfinite(diagnostics).all()),
+                  "order-1 diagnostics misshaped or non-finite")
+            check(diagnostics[:, 1].max().item() <= chi, "order-1 diagnostics: max bond above chi")
+            row["max_bond"] = diagnostics[:, 1].amax(dim=0).tolist()
+        check_order1_rows(f"phase 13, {name}", res, length, steps, npvm)
+        check(res[:, :length, 0].abs().max().item() < 1e-6, "t=0 column differs from <Z>=0 of the x+ state")
+        p0 = res[:, length:, 0].double()
+        check(((p0 - 2.0**-length).abs() <= 1e-3 * 2.0**-length).all().item(),
+              f"the x+ state's bitstring probabilities are not 2^-{length}: {p0[0].tolist()}")
+        launches = row["launches"]
+        check(launches["op_scan"] == steps + 1, f"op_scan launched {launches['op_scan']} times, one a measurement "
+              f"({steps + 1}) expected")
+        need = ANALOG_KERNELS if name == "fast" else EXACT_KERNELS
+        for kernel in need:
+            check(launches[kernel] > 0, f"kernel {kernel} was not launched by the order-1 {name} run")
+        row["mean_z_final"] = res[:, :length, -1].mean().item()
+        row["mean_pvm_final"] = res[:, length:, -1].mean(dim=0).tolist()
+        row["profile"] = profile_run(f"phase 13, {name}, one step", lambda plan=plan: run_tjm_batch(
+            t0, w, noise, obs, dataclasses.replace(plan, num_steps=1), batch=b, device=dev, dtype=torch.complex64),
+            steps=1)
+        row["profile"].pop("names")
+        out[name] = row
+        log(f"[phase 13] {name}: final mean <Z> {row['mean_z_final']:.6f}, PVM rows {row['mean_pvm_final']}")
+    dt = BENCH["dt"]  # x at site 50, t=0.5; the pair on (20, 21), t=0.3 (at the cell's L=100 and 10 steps)
+    jumps = [{"name": "x", "sites": [length // 2], "time": dt * (steps // 2)},
+             {"name": "pair", "sites": [length // 5, length // 5 + 1], "time": dt * (3 * steps // 10),
+              "matrix": PAIR_JUMP}]
+    times = np.arange(steps + 1) * dt
+    t0s, tables = schedule_jumps(t0, yt.NoiseModel(scheduled_jumps=jumps).scheduled_jumps, times, svd_threshold=1e-6)
+    plan = order1_plan(steps, chi, "2site", FAST, scheduled=tables)
+    res, row = timed_order1("phase 13, scheduled jumps", dev, plan, (w, t0s, obs, noise), b, scheduled=tables)
+    check_order1_rows("phase 13, scheduled jumps", res, length, steps, npvm)
+    slots = {k: row["launches"][k] for k in ("bond_gate", "svd_jacobi")}
+    log(f"[phase 13] scheduled jumps (x at site 50, t=0.5; a two-site matrix of operator-Schmidt rank 2 on (20, 21), "
+        f"t=0.3): the slot's launches {slots} (expected one K10 merge and one K9 split)")
+    check(slots == {"bond_gate": 1, "svd_jacobi": 1}, f"the scheduled two-site slot launched {slots}")
+    out["scheduled"] = row
+    out["launches"] = out["fast"]["launches"]  # the main path's, for the kernel table
+    return out
+
+
+def phase_order1_1site(dev):
+    """13b. "order 1, one-site TDVP": phase 13's cell from the haar-random
+    preset (L=100, chi=64, numpy seed HAAR_SEED) with ``tdvp_mode="1site"``
+    and the fast knob set (center shifts by K4's polar factor): timed, the
+    launches of K16, K4, K2 and K8 against the sweep's loop (2(L-1), 2(L-1),
+    2L-1 and 3L-2 a step; K17 one a measurement), one step profiled."""
+    from yaqs_tpu_torch.analog.run import run_tjm_batch
+
+    length, chi, b, steps = BENCH["length"], BENCH["chi"], BENCH["batch"], BENCH["steps"]
+    inputs = order1_inputs(length, chi, "haar-random", BENCH["gamma"])
+    w, t0, obs, noise = inputs
+    plan = order1_plan(steps, chi, "1site", FAST)
+    res, out = timed_order1("phase 13b", dev, plan, inputs, b)
+    check_order1_rows("phase 13b", res, length, steps, len(ORDER1_PVM))
+    launches = out["launches"]
+    expected = dict(lanczos_solve0=2 * (length - 1) * steps, ns_polar=2 * (length - 1) * steps,
+                    lanczos_solve1=(2 * length - 1) * steps, env_update=(3 * length - 2) * steps,
+                    op_scan=steps + 1, lanczos_solve2=0, subspace_split=0)
+    log(f"[phase 13b] launches " + ", ".join(f"{k} {launches[k]}" for k in expected) + f" (the loop's: {expected})")
+    for k, count in expected.items():
+        check(launches[k] == count, f"[phase 13b] {k} launched {launches[k]} times, the loop says {count}")
+    out["expected_launches"] = expected
+    out["mean_z_final"] = res[:, :length, -1].mean().item()
+    out["profile"] = profile_run("phase 13b, one step", lambda: run_tjm_batch(
+        t0, w, noise, obs, dataclasses.replace(plan, num_steps=1), batch=b, device=dev, dtype=torch.complex64),
+        steps=1)
+    out["profile"].pop("names")
+    return out
+
+
+def phase_order1_dynamic(dev):
+    """13c. "order 1, dynamic TDVP": phase 13b's start with
+    ``tdvp_mode="dynamic"``, fast knobs: the two-site update where a bond's
+    rank is below 64 (near the ends, where the haar caps are 2..32), the
+    one-site update inside.  Timed; the launches of K1 and K5 (one a bond
+    batch in the two-site branch) and K16 (one a bond batch in the one-site
+    branch) against the branches the sweeps took."""
+    from yaqs_tpu_torch.methods import tdvp
+
+    length, chi, b, steps = BENCH["length"], BENCH["chi"], BENCH["batch"], BENCH["steps"]
+    inputs = order1_inputs(length, chi, "haar-random", BENCH["gamma"])
+    plan = order1_plan(steps, chi, "dynamic", FAST)
+    calls = []
+    original = tdvp._by_branch
+
+    def recording(sat, *args):
+        calls.append(list(sat))
+        return original(sat, *args)
+
+    tdvp._by_branch = recording
+    try:
+        # the warm-up's branches are dropped with the counts
+        res, out = timed_order1("phase 13c", dev, plan, inputs, b)
+        calls_run = calls[-2 * (length - 1) * steps:]
+    finally:
+        tdvp._by_branch = original
+    check_order1_rows("phase 13c", res, length, steps, len(ORDER1_PVM))
+    launches = out["launches"]
+    grow = sum(1 for sat in calls_run if not all(sat))
+    sat = sum(1 for sat in calls_run if any(sat))
+    mixed = sum(1 for s in calls_run if any(s) and not all(s))
+    expected = dict(lanczos_solve2=grow, subspace_split=grow, lanczos_solve0=sat)
+    log(f"[phase 13c] branches over {len(calls_run)} bond visits: two-site {grow}, one-site {sat}, both at once "
+        f"{mixed}; launches " + ", ".join(f"{k} {launches[k]}" for k in expected) + f" (expected {expected})")
+    check(grow > 0 and sat > 0, "the dynamic sweeps did not take both branches")
+    for k, count in expected.items():
+        check(launches[k] == count, f"[phase 13c] {k} launched {launches[k]} times, the branches say {count}")
+    out.update(expected_launches=expected, two_site_visits=grow, one_site_visits=sat, mixed_visits=mixed,
+               mean_z_final=res[:, :length, -1].mean().item())
+    return out
+
+
+def phase_order1_guards(dev):
+    """14. The order-1 guards.  (a) Noiseless L=32, chi=32, 10 steps, each
+    with a scheduled one-site (x at site 10, t=0.3) and two-site (rank-2
+    matrix on (15, 16), t=0.5) jump: the card's c64 against the port's c128
+    on the CPU, max|dZ| <= 1e-3, for 2site from Neel, 1site and dynamic
+    from haar-random (fast knobs).  (b) L=4, chi=4, z and lowering 0.1,
+    B=4096: within 5 SE + 1e-3 of the exact Lindblad evolution, 2site from
+    x+ (exact knobs), 1site from haar-random (both knob sets).  (c) PVM
+    rows within 1e-4: 8 bitstrings of phase 8's noiseless 10-qubit
+    brickwork against the numpy state vector; noiseless order-1 TFIM at
+    L=10 against the CPU's c128; MCWF at L=10, the card's local route
+    against the CPU's dense route, with a ``zz`` row beside them."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch import kernels
+    from yaqs_tpu_torch.analog.lindblad import noise_model_jump_ops
+    from yaqs_tpu_torch.analog.run import run_mcwf_batch, run_tjm_batch, schedule_jumps
+
+    out = {}
+    length, chi, steps, dt = 32, 32, 10, BENCH["dt"]
+    times = np.arange(steps + 1) * dt
+    jumps = yt.NoiseModel(scheduled_jumps=[{"name": "x", "sites": [10], "time": 0.3},
+                                           {"name": "pair", "sites": [15, 16], "time": 0.5,
+                                            "matrix": PAIR_JUMP}]).scheduled_jumps
+    for mode, start in (("2site", "Neel"), ("1site", "haar-random"), ("dynamic", "haar-random")):
+        w, t0, obs, _ = order1_inputs(length, chi, start, bitstrings=())
+        t0, tables = schedule_jumps(t0, jumps, times, svd_threshold=1e-6)
+        plan = order1_plan(steps, chi, mode, FAST, scheduled=tables)
+        t_card = time.perf_counter()
+        card = run_tjm_batch(t0, w, None, obs, plan, device=dev, dtype=torch.complex64, batch=1,
+                             scheduled=tables).cpu()
+        t_card = time.perf_counter() - t_card
+        t_cpu = time.perf_counter()
+        ref = run_tjm_batch(t0, w, None, obs, plan, device="cpu", dtype=torch.complex128, batch=1, scheduled=tables)
+        t_cpu = time.perf_counter() - t_cpu
+        dz = (card.double() - ref).abs().max().item()
+        log(f"[phase 14a] order 1, {mode} from {start}, L={length} chi={chi} {steps} steps with scheduled jumps, card "
+            f"c64 vs CPU c128: max|dZ| = {dz:.3e} (limit {CPU_PARITY_TOL}); card {t_card:.2f} s, CPU {t_cpu:.2f} s")
+        check(bool(torch.isfinite(card).all()) and dz <= CPU_PARITY_TOL, f"order-1 {mode} card vs CPU disagree: {dz}")
+        out[f"parity_{mode}"] = dict(max_abs_dz=dz, card_seconds=t_card, cpu_seconds=t_cpu)
+
+    length, chi, b, gamma = 4, 4, 4096, 0.1
+    for mode, start, knobs_name in (("2site", "x+", "exact"), ("1site", "haar-random", "fast"),
+                                    ("1site", "haar-random", "exact")):
+        w, t0, obs, noise = order1_inputs(length, chi, start, gamma, bitstrings=())
+        model = yt.NoiseModel([{"name": n, "sites": [i], "strength": gamma} for n in ("z", "lowering")
+                               for i in range(length)])
+        psi0 = yt.to_statevector(t0)
+        psi0 = psi0 / np.linalg.norm(psi0)
+        exact = exact_lindblad_z(yt.mpo_to_matrix(w), noise_model_jump_ops(model, length), psi0, dt, steps, length)
+        plan = order1_plan(steps, chi, mode, FAST if knobs_name == "fast" else EXACT)
+        kernels.reset_launch_counts()
+        res = run_tjm_batch(t0, w, noise, obs, plan, device=dev, dtype=torch.complex64, batch=b, seed=19)
+        if mode == "1site":
+            solves = kernels.launch_counts()["lanczos_solve0"]
+            check(solves == 2 * (length - 1) * steps, f"the one-site guard launched lanczos_solve0 {solves} times")
+        statistical_guard(f"order-1 TJM {mode} from {start} L={length} chi={chi} B={b} {steps} steps, "
+                          f"{knobs_name} knob set, vs exact Lindblad", res, exact, out, f"lindblad_{mode}_{knobs_name}",
+                          phase="phase 14b")
+
+    # (c) PVM rows
+    n, chi_d = 10, 32
+    text = brickwork_qasm(n, 8)
+    psi = statevector(yt.load_circuit(text))
+    probs = np.abs(psi.reshape(-1)) ** 2
+    top = np.argsort(probs)[::-1][:8]
+    bits = ["".join(str(d) for d in np.unravel_index(i, psi.shape)) for i in top]  # axis q is qubit q
+    want = np.array([abs(psi[tuple(int(c) for c in bstr)]) ** 2 for bstr in bits])
+    obs_d = yt.compile_observables([yt.Observable(bstr) for bstr in bits], n, 2)
+    kernels.reset_launch_counts()
+    res = yt.run_digital_batch(text, yt.named_product_state("zeros", n, chi_d), None, obs_d, max_bond_dim=chi_d,
+                               gate_mode="swaps", config=digital_config(chi_d, FAST), device=dev,
+                               dtype=torch.complex64)
+    got = res.trajectories[0, :, -1].double().cpu().numpy()
+    dp = float(np.abs(got - want).max())
+    log(f"[phase 14c] 8 bitstrings of the noiseless n={n} brickwork (8 layers, chi={chi_d}, swaps, fast knobs): "
+        f"max|dP| = {dp:.3e} against the state vector (limit {PVM_TOL}; P from {want.min():.3e} to "
+        f"{want.max():.3e}); op_scan launches {kernels.launch_counts()['op_scan']}")
+    check(np.isfinite(got).all() and dp <= PVM_TOL and kernels.launch_counts()["op_scan"] > 0,
+          f"digital PVM rows off: {dp}")
+    out["pvm_digital_max_abs_d"] = dp
+
+    length, chi, steps = 10, 16, 10
+    pvm10 = ["0" * 10, "1" * 10, "01" * 5, "10" * 5, "0011001100", "1111100000", "0101001010", "1000000001"]
+    w, t0, obs, _ = order1_inputs(length, chi, "Neel", bitstrings=pvm10)
+    plan = order1_plan(steps, chi, "2site", FAST)
+    card = run_tjm_batch(t0, w, None, obs, plan, device=dev, dtype=torch.complex64, batch=1).cpu()
+    ref = run_tjm_batch(t0, w, None, obs, plan, device="cpu", dtype=torch.complex128, batch=1)
+    dp = (card.double() - ref)[:, length:].abs().max().item()
+    log(f"[phase 14c] order-1 TFIM L={length} chi={chi} from Neel, 8 PVM rows: card c64 vs CPU c128 max|dP| = "
+        f"{dp:.3e} (limit {PVM_TOL}; P up to {ref[:, length:].max().item():.3e})")
+    check(bool(torch.isfinite(card).all()) and dp <= PVM_TOL, f"order-1 PVM rows off: {dp}")
+    out["pvm_order1_max_abs_d"] = dp
+
+    w = yt.ising_mpo(length, 1.0, 0.5)
+    psi0 = yt.to_statevector(yt.named_product_state("Neel", length, 1))
+    obs_m = [yt.Observable(bstr) for bstr in pvm10] + [yt.Observable("zz", [3, 4])]
+    card = run_mcwf_batch(psi0, w, None, obs_m, dt=dt, num_steps=steps, batch=1, device=dev, dtype=torch.complex64,
+                          route="local").cpu()
+    ref = run_mcwf_batch(psi0, w, None, obs_m, dt=dt, num_steps=steps, batch=1, device="cpu",
+                         dtype=torch.complex128, route="dense")
+    dp = (card.double() - ref)[:, :-1].abs().max().item()
+    dzz = (card.double() - ref)[:, -1].abs().max().item()
+    log(f"[phase 14c] MCWF L={length} from Neel, card local route c64 vs CPU dense route c128: 8 PVM rows max|dP| = "
+        f"{dp:.3e} (limit {PVM_TOL}), zz row max|dZZ| = {dzz:.3e} (limit {GUARD_TOL})")
+    check(bool(torch.isfinite(card).all()) and dp <= PVM_TOL and dzz <= GUARD_TOL,
+          f"MCWF PVM or zz rows off: {dp}, {dzz}")
+    out.update(pvm_mcwf_max_abs_d=dp, zz_mcwf_max_abs_d=dzz)
     return out
 
 
@@ -2622,7 +3115,9 @@ def main() -> None:
                      ("digital_window", phase_digital_window), ("digital_two_site", phase_digital_two_site),
                      ("digital_oracle", phase_digital_oracle), ("window_parity", phase_window_parity),
                      ("mcwf", phase_mcwf), ("mcwf_two_site", phase_mcwf_two_site), ("mcwf_guards", phase_mcwf_guards),
-                     ("noisy_guards", phase_noisy_guards)):
+                     ("noisy_guards", phase_noisy_guards), ("analog_order1", phase_order1),
+                     ("analog_1site", phase_order1_1site), ("analog_dynamic", phase_order1_dynamic),
+                     ("order1_guards", phase_order1_guards)):
         phases[name] = fn(dev)
         log(f"[time] phase {name}: {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()

@@ -60,6 +60,7 @@ from yaqs_tpu_torch.kernels.ns_polar import (
     polar_cluster,
     polar_clusters_held,
 )
+from yaqs_tpu_torch.kernels.op_scan import op_scan, op_scan_plain
 from yaqs_tpu_torch.kernels.pair_weights import pair_weights, pair_weights_plain
 from yaqs_tpu_torch.kernels.qr import householder_qr, householder_qr_plain
 from yaqs_tpu_torch.kernels.sample_shots import sample_shots, sample_shots_plain
@@ -225,10 +226,17 @@ def test_wrappers_take_plain_path_on_cpu_without_building():
     _, _, left_envs, right_envs = site_moments_and_environments(t)
     pair_args = (t, left_envs, right_envs, torch.tensor([0, 2]), _complex(rng, (2, 4, 4)), torch.tensor([0.1, 0.2]))
     torch.testing.assert_close(pair_weights(*pair_args), pair_weights_plain(*pair_args), rtol=0, atol=0)
+    bond = theta[:, 0, 0]
+    for got, ref in zip(lanczos_solve(f, None, g, bond, 4, True, 1e-5), lanczos_solve_plain(f, None, g, bond, 4, True, 1e-5)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    sel = torch.tensor([[-1, -1, -1, -1], [0, 1, 0, 1]], dtype=torch.int32)
+    ops = _complex(rng, (2, 4, 2, 2))
+    torch.testing.assert_close(op_scan(t, sel, ops), op_scan_plain(t, sel, ops), rtol=0, atol=0)
     assert set(kernels.launch_counts()) == {
         "ns_polar", "lanczos_epilogue", "bond_gate", "moment_scan", "sample_shots", "heff2", "heff1",
-        "lanczos_solve2", "lanczos_solve1", "env_update", "sv_mpo_matvec", "arnoldi_step", "arnoldi_epilogue", "svd_jacobi",
-        "householder_qr", "householder_qr_r", "subspace_split", "ns_canon", "pair_weights",
+        "lanczos_solve2", "lanczos_solve1", "lanczos_solve0", "env_update", "sv_mpo_matvec", "arnoldi_step",
+        "arnoldi_epilogue", "svd_jacobi", "householder_qr", "householder_qr_r", "subspace_split", "ns_canon",
+        "pair_weights", "op_scan",
     }
     assert not any(kernels.launch_counts().values())
     assert build.load_library.cache_info().currsize == 0  # nothing was built
@@ -304,7 +312,7 @@ def test_build_digest_covers_the_shared_headers(tmp_path):
     assert '#include "launch.cuh"' in (build.CSRC / "ns_polar.cuh").read_text()
     includers = [p.name for p in build._sources() if '#include "launch.cuh"' in p.read_text()]
     assert includers == ["bond_gate.cu", "env_update.cu", "householder_qr.cu", "lanczos_epilogue.cu", "lanczos_solve.cu",
-                         "pair_weights.cu", "sample_shots.cu", "sv_mpo.cu", "svd_jacobi.cu"]
+                         "op_scan.cu", "pair_weights.cu", "sample_shots.cu", "sv_mpo.cu", "svd_jacobi.cu"]
     includers = [p.name for p in build._sources() if '#include "heff.cuh"' in p.read_text()]
     assert includers == ["heff.cu", "lanczos_solve.cu"]
 
@@ -335,6 +343,10 @@ def test_wrappers_refuse_non_cuda_devices():
     w = v[:, 0]
     with pytest.raises(ValueError, match="unsupported device"):
         lanczos_solve(env, w12, env, t[:, :2].reshape(2, 2, 2, 4, 4), 4, True, 1e-5)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lanczos_solve(env, None, env, t[:, 0, 0], 4, True, 1e-5)  # a bond matrix (K16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        op_scan(t, torch.empty((1, 3), dtype=torch.int32, device="meta"), t[:1, :, :, :2, :2])
     with pytest.raises(ValueError, match="unsupported device"):
         lanczos_solve(env, w12[:6, :6], env, t[:, 0], 4, False, 1e-5)
     hess = v[:, :, :4]
@@ -875,6 +887,92 @@ def test_lanczos_solve_clusters_fit_the_card(cuda):
     """Every cluster shape a path takes is one the card can place."""
     for chi, dw, p in ((64, 3, 4), (64, 3, 2), (64, 5, 4), (64, 5, 2), (32, 1, 4), (32, 1, 2)):
         assert solve_clusters_held(chi, dw, p, cuda.index or 0) >= 1, (chi, dw, p)
+
+
+# K16's shapes: the one-site sweep's bonds at the analog TFIM (B=32, chi=64,
+# Dw=3, k=4), XXZ (Dw=5), a ragged one (chi=37, Dw=5), small odd ones
+SOLVE0_SHAPES = [(32, 64, 3, 4), (16, 64, 5, 4), (3, 37, 5, 4), (1, 5, 2, 6), (4, 16, 1, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reorth", [False, True], ids=["three-term", "reorth"])
+@pytest.mark.parametrize(("batch", "chi", "dw", "k"), SOLVE0_SHAPES)
+def test_lanczos_solve0_kernel_matches_plain(cuda, batch, chi, dw, k, reorth):
+    """K16: a bond matrix's solve under the zero-site H_eff in one launch,
+    against the plain loop on the card; the same limits as K1 and K2's (the
+    result within 1e-4 relative, the rest within 1e-4 or 4x the plain loop's
+    own change under a 1e-7 change of v; identical breakdowns: trajectory 1
+    an eigenvector, trajectory 2 zero); a transposed start read in place."""
+    gen = torch.Generator(device=cuda).manual_seed(batch + chi + dw + k)
+    f, _, g, v = _hermitian_heff_inputs(gen, batch, chi, dw, 1, cuda)
+    c = v.reshape(batch, chi, chi).mT.contiguous().mT  # as an LQ shift hands it over
+    kernels.reset_launch_counts()
+    got = lanczos_solve(f, None, g, c, k, reorth, 1.1920929e-05)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["lanczos_solve0"] == 1
+    ref = lanczos_solve_plain(f, None, g, c, k, reorth, 1.1920929e-05)
+    noise = 1 + 1e-7 * torch.randn(c.shape, generator=gen, device=cuda)
+    moved = lanczos_solve_plain(f, None, g, c * noise, k, reorth, 1.1920929e-05)
+    results = [lanczos_epilogue_plain(x[1], x[2], -0.5j, x[0], x[3], x[0][:, 0]) for x in (got, ref, moved)]
+    for a, b, m in zip((*got, results[0]), (*ref, results[1]), (*moved, results[2])):
+        assert a.shape == b.shape and _rel_err(a, b) <= max(1e-4, 4 * _rel_err(m, b))
+    assert _rel_err(results[0], results[1]) <= 1e-4
+    assert torch.equal(got[2] == 0, ref[2] == 0)
+    if batch > 2:
+        assert got[2][1, 0] == 0 and got[3][2] == 0 and not got[0][2].any()
+    with pytest.raises(ValueError):
+        lanczos_solve(f, torch.zeros((dw, dw), dtype=torch.complex64, device=cuda), g, c, k, reorth, 1e-5)
+    assert solve_clusters_held(chi, dw, 1, cuda.index or 0) >= 1
+
+
+def _op_scan_inputs(gen, batch, length, chi, nc, device):
+    """Random MPS canonical at 0 with unit norm (the CPU's QR) and ``nc``
+    chains: product terms (a random unit-norm operator at two sites, the
+    identity elsewhere) and bitstring projectors, alternating; their values
+    lie well inside float32's range at these lengths."""
+    t = _randc(gen, (batch, length, 2, chi, chi), "cpu") / np.sqrt(4 * chi)
+    t[:, 0, :, 1:, :] = 0
+    t[:, -1, :, :, 1:] = 0
+    t = normalize_canonical(t.to(torch.complex128))[0].to(torch.complex64).to(device)
+    rng = np.random.default_rng(batch + length + chi + nc)
+    sel = np.full((nc, length), -1, dtype=np.int32)
+    ops = np.tile(np.eye(2, dtype=np.complex64), (nc, length, 1, 1))
+    for row in range(nc):
+        if row % 2:
+            sel[row] = rng.integers(0, 2, length)
+        else:
+            for site in rng.choice(length, min(2, length), replace=False):
+                m = rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2))
+                ops[row, site] = m / np.linalg.norm(m)
+    return t, torch.as_tensor(sel).to(device), torch.as_tensor(ops).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("batch", "length", "chi", "nc"), [(32, 100, 64, 1), (32, 24, 64, 5), (512, 20, 32, 4),
+                                                           (3, 9, 37, 3), (5, 6, 9, 2), (2, 1, 1, 1)])
+def test_op_scan_kernel_matches_plain(cuda, batch, length, chi, nc):
+    """K17 against its plain version on the card, every value within 1e-4
+    of itself (relative, floored at 1e-3 of its row's largest over the
+    batch; float32 chains of up to chi^3 sums a site); a strided batch read
+    in place."""
+    gen = torch.Generator(device="cpu").manual_seed(batch + length)
+    t, sel, ops = _op_scan_inputs(gen, batch, length, chi, nc, cuda)
+    strided = torch.stack([t, t], dim=1)[:, 1]  # a stride between trajectories
+    kernels.reset_launch_counts()
+    got = op_scan(strided, sel, ops)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["op_scan"] == 1
+    ref = op_scan_plain(t, sel, ops)
+    scale = torch.maximum(ref.abs(), 1e-3 * ref.abs().amax(dim=0, keepdim=True))
+    assert ((got - ref).abs() / scale).max().item() <= 1e-4
+    assert torch.isfinite(got).all()
+    with pytest.raises(ValueError):
+        op_scan(t.to(torch.complex128), sel, ops)
+    with pytest.raises(ValueError):
+        op_scan(t, sel.long(), ops)
+    if chi > 1:
+        with pytest.raises(ValueError):
+            op_scan(t.transpose(-1, -2), sel, ops)  # a site not contiguous
 
 
 @pytest.mark.cuda

@@ -122,10 +122,15 @@ def test_host_tables_match_jax():
     for a, b in zip(tm.local_obs_rows(sp.sorted_observables), Simulator._local_obs_rows(sp, 2), strict=True):
         assert a[0] == b[0] == "terms" and a[1][0][0][0] == b[1][0][0][0]
         np.testing.assert_array_equal(a[1][0][0][1], b[1][0][0][1])
+    # PVM and multi-site rows are ported: the simulator's tables
+    extra = AnalogSimParams(observables=[Observable("pvm", bitstring="01101"), Observable(np.kron(op, op), [0, 1])],
+                            elapsed_time=DT, dt=DT)
+    assert tm.local_obs_rows(extra.sorted_observables)[1] == Simulator._local_obs_rows(extra, 2)[1] == ("pvm", 22)
+    for a, b in zip(tm.dense_observables(extra.sorted_observables, length),
+                    Simulator._dense_observables(extra, length, 2), strict=True):
+        np.testing.assert_array_equal(a, b)
     with pytest.raises(NotImplementedError):
-        tm.local_obs_rows([Observable("pvm", bitstring="01101")])
-    with pytest.raises(NotImplementedError):
-        tm.dense_observables([Observable(np.kron(op, op), [0, 1])], length)
+        tm.local_obs_rows([Observable("entropy", [0, 1])])
     # two-site channels (crosstalk, a long-range pair, a rank-1 adjacent
     # matrix) equal the simulator's factors; a rank > 1 matrix is refused by both
     two_site = [{"name": "crosstalk_xx", "sites": [0, 1], "strength": 0.1},

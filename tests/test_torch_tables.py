@@ -112,7 +112,7 @@ def test_compile_observables_identical():
         np.testing.assert_array_equal(co.sites1, ref.sites1)
         np.testing.assert_array_equal(co.rows1, ref.rows1)
         assert co.num_rows == ref.num_rows
-    # the multi-site, entropy and Schmidt-spectrum tables; PVM rows still raise
+    # the multi-site, entropy and Schmidt-spectrum tables
     spec2 = [("z", 1), ("zz", [0, 1]), ("xx", [3, 1]), ("entropy", [2, 3]), ("schmidt_spectrum", 1), ("x", 4)]
     ref = j_compile_observables([JObservable(n, s) for n, s in spec2], length, 2)
     got = compile_observables([Observable(n, s) for n, s in spec2], length, 2)
@@ -124,10 +124,13 @@ def test_compile_observables_identical():
             if f.name != "num_rows":
                 assert getattr(co, f.name).dtype == np.asarray(r).dtype, f.name
         assert not co.only_one_site
-    with pytest.raises(NotImplementedError):
-        compile_observables([JObservable("0" * length)], length, 2)
-    with pytest.raises(NotImplementedError):
-        convert.compiled_observables(j_compile_observables([JObservable("0" * length)], length, 2))
+    # PVM rows are ported: the JAX package's tables
+    pvm = [JObservable("0" * length), JObservable("z", 1), JObservable("01" * 2 + "1")]
+    ref = j_compile_observables(pvm, length, 2)
+    for co in (compile_observables(pvm, length, 2), convert.compiled_observables(ref)):
+        np.testing.assert_array_equal(co.pvm_bits, ref.pvm_bits)
+        np.testing.assert_array_equal(co.pvm_rows, ref.pvm_rows)
+        assert co.pvm_bits.dtype == ref.pvm_bits.dtype and not co.only_one_site
 
 
 @pytest.mark.parametrize("name", ["zeros", "ones", "x+", "x-", "y+", "y-", "Neel", "wall"])

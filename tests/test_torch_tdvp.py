@@ -115,5 +115,10 @@ def test_tdvp_step_substeps_match_jax():
     for b in range(B):
         ref = np.asarray(refs[b])
         np.testing.assert_allclose(jm.to_statevector_np(got[b]), jm.to_statevector_np(ref), atol=1e-10, rtol=0)
-    with pytest.raises(NotImplementedError):
-        tt.tdvp_step(convert.to_torch(t), convert.to_torch(w), 0.1, tt.TDVPConfig(mode="1site"))
+    # one-site TDVP is ported: with polar shifts (its null columns stay null on the padded end bonds)
+    cfg1 = jt.TDVPConfig(krylov_dim=5, threshold=1e-10, max_bond_dim=CHI, mode="1site", canon_method="newton")
+    got = tt.tdvp_step(convert.to_torch(t), convert.to_torch(w), 0.1, convert.tdvp_config(cfg1)).numpy()
+    refs = jax.vmap(lambda a: jt.tdvp_step(a, jnp.asarray(w), 0.1, cfg1))(jnp.asarray(t))
+    for b in range(B):
+        np.testing.assert_allclose(jm.to_statevector_np(got[b]), jm.to_statevector_np(np.asarray(refs[b])), atol=1e-10,
+                                   rtol=0)

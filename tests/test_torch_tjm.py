@@ -166,10 +166,16 @@ def test_trajectory_result_independent_of_batch():
 def test_unported_plans_raise():
     w, t0, co, _, plan = _setup()
     tco = convert.compiled_observables(co)
-    for change in (dict(order=1), dict(evolution_mode="bug"), dict(has_scheduled=True)):
+    for change, exc in ((dict(evolution_mode="bug"), NotImplementedError), (dict(has_scheduled=True), ValueError)):
         bad = ttjm.TrajectoryPlan(**{**convert.trajectory_plan(plan).__dict__, **change})
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(exc):  # BUG is not ported; scheduled jumps need order 1, as in the simulator
             run_tjm_batch(t0, w, None, tco, bad, batch=1, device="cpu")
+    # order 1 is ported: the JAX package's run (exact knobs: each step's QR canonicalization
+    # leaves the fast splits' partial-isometry defect, ~3e-8 here, to rounding)
+    order1 = dataclasses.replace(plan, order=1, evolution=TDVPConfig(krylov_dim=6, threshold=1e-10, max_bond_dim=CHI))
+    ref = _jax_batch(w, t0, co, None, order1, [0])
+    got = run_tjm_batch(t0, w, None, tco, convert.trajectory_plan(order1), batch=1, device="cpu")
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-10, rtol=0)
 
 
 def test_entry_point_defaults_to_the_card():

@@ -9,10 +9,13 @@ synchronization inside a time step.  The hand-written CUDA kernels live in
 ``kernels/`` and are built on first use; importing the package needs neither
 ``nvcc`` nor a card, and never imports JAX.
 
-The ported slices are the order-2 TJM trajectory path
-(:func:`yaqs_tpu_torch.analog.run.run_tjm_batch`, with the fast and the
-exact knob set, ``record_diagnostics`` and one-site, multi-site, entropy and
-Schmidt-spectrum rows), the noisy digital TEBD path
+The ported slices are the TJM trajectory path
+(:func:`yaqs_tpu_torch.analog.run.run_tjm_batch`: order 2 and the default
+order 1, two-site, one-site and dynamic TDVP, scheduled jumps with order 1
+(:func:`yaqs_tpu_torch.analog.run.schedule_jumps`), product and haar-random
+starts, the fast and the exact knob set, ``record_diagnostics`` and
+one-site, multi-site, entropy, Schmidt-spectrum and PVM rows), the noisy
+digital TEBD path
 (:func:`yaqs_tpu_torch.digital.run.run_digital_batch`) and the MCWF
 state-vector path (:func:`yaqs_tpu_torch.analog.run.run_mcwf_batch`), each
 with one- and two-site noise.  All run on the card unless the caller passes
@@ -21,10 +24,10 @@ another ``device``.
 
 from __future__ import annotations
 
-from .analog.run import run_mcwf_batch, run_tjm_batch
+from .analog.run import run_mcwf_batch, run_tjm_batch, schedule_jumps
 from .analog.tjm import TrajectoryPlan
 from .core.mpo_builders import heisenberg_mpo, ising_mpo, mpo_to_matrix
-from .core.mps_ops import named_product_state, to_statevector
+from .core.mps_ops import canonical_start, haar_random_mps, named_product_state, to_statevector
 from .core.noise_model import NoiseModel, compile_noise
 from .core.observables import Observable, compile_observables
 from .digital.circuit import Circuit, GateOp, load_circuit
@@ -39,8 +42,10 @@ __all__ = [
     "Observable",
     "TDVPConfig",
     "TrajectoryPlan",
+    "canonical_start",
     "compile_noise",
     "compile_observables",
+    "haar_random_mps",
     "heisenberg_mpo",
     "ising_mpo",
     "load_circuit",
@@ -49,5 +54,6 @@ __all__ = [
     "run_digital_batch",
     "run_mcwf_batch",
     "run_tjm_batch",
+    "schedule_jumps",
     "to_statevector",
 ]

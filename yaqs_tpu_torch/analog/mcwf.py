@@ -31,11 +31,19 @@ K12's one-site terms where one factor's ``f^dag f`` is a multiple of the
 identity (Pauli crosstalk, unitary long-range factors); any other such
 product is applied beside K12 in plain PyTorch.
 
+Observables: one-site rows, multi-site rows (sums of products of one-site
+factors, ``product_terms``) and PVM rows (``|psi[idx]|^2``, ``idx`` the
+bitstring's basis index, site 0 least significant), each divided by
+``<psi|psi>``: dense embedded matrices on the dense route; on the local
+route the one-site rows from the sites' reduced matrices, a multi-site row
+as ``Re <psi|F psi>`` of each term's factors applied as a channel is, a PVM
+row by a gather (plain PyTorch).
+
 Draws come from outside, as on the TJM path: ``draws(stream, j) -> (u (B,),
 gumbel (B, nc))`` for step ``j`` on the trajectory stream.  One- and
-two-site processes and one-site observables are ported; an adjacent
-two-site process of operator-Schmidt rank > 1 on the local route, and any
-other observable, raise ``NotImplementedError``.
+two-site processes are ported; an adjacent two-site process of
+operator-Schmidt rank > 1 on the local route, and entropy or
+Schmidt-spectrum rows, raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,7 +58,8 @@ import torch
 from ..kernels.sv_mpo import apply_one_site, sv_mpo_matvec
 from ..methods.stochastic import WEIGHT_FLOOR
 from ..ops.krylov import arnoldi_expm_apply
-from .embedding import embed_one_site, operator_schmidt_factors
+from ..core.observables import product_terms
+from .embedding import embed_one_site, embed_operator, operator_schmidt_factors
 from .tjm import TRAJECTORY_STREAM
 
 __all__ = [
@@ -112,24 +121,56 @@ def local_jump_channels(noise_model) -> list[list[tuple[int, np.ndarray]]]:
     return channels
 
 
-def _one_site(obs) -> tuple[int, np.ndarray]:
-    sites = obs.site_list
-    if obs.name in {"pvm", "entropy", "schmidt_spectrum"} or len(sites) != 1:
-        msg = f"{obs!r}: only one-site observables are ported to the MCWF path"
+def _basis_index(bitstring: str, d: int) -> int:
+    """The basis index of a bitstring, site 0 least significant."""
+    return sum(int(b) * d**i for i, b in enumerate(bitstring))
+
+
+def _refuse_bond_rows(obs) -> None:
+    if obs.name in {"entropy", "schmidt_spectrum"}:
+        msg = "entropy observables require the MPS representation"
         raise NotImplementedError(msg)
-    return int(sites[0]), np.asarray(obs.matrix)
 
 
-def local_obs_rows(observables) -> list:
-    """Observables as ``("terms", [[(site, matrix)]])`` rows, in the given
-    order (one-site only)."""
-    return [("terms", [[_one_site(obs)]]) for obs in observables]
+def local_obs_rows(observables, d: int = 2) -> list:
+    """Observables as rows of the local route, in the given order:
+    ``("pvm", index)``, or ``("terms", [[(site, matrix), ...], ...])``, a
+    sum of products of one-site factors (``Simulator._local_obs_rows``)."""
+    rows = []
+    for obs in observables:
+        _refuse_bond_rows(obs)
+        sites = obs.site_list
+        if obs.name == "pvm":
+            rows.append(("pvm", _basis_index(obs.bitstring, d)))
+        elif len(sites) == 1:
+            rows.append(("terms", [[(sites[0], np.asarray(obs.matrix))]]))
+        else:
+            rows.append(("terms", product_terms(obs.matrix, sites, d)))
+    return rows
 
 
 def dense_observables(observables, length: int, d: int = 2) -> list[np.ndarray]:
-    """Dense embedded matrices of the observables, in the given order
-    (one-site only)."""
-    return [embed_one_site(m, site, length, d) for site, m in map(_one_site, observables)]
+    """Dense embedded matrices of the observables, in the given order: a
+    one-site operator, a multi-site one summed from its product terms, a
+    PVM row's projector (``Simulator._dense_observables``)."""
+    out = []
+    for obs in observables:
+        _refuse_bond_rows(obs)
+        sites = obs.site_list
+        if obs.name == "pvm":
+            dim = d**length
+            proj = np.zeros((dim, dim), dtype=np.complex128)
+            idx = _basis_index(obs.bitstring, d)
+            proj[idx, idx] = 1.0
+            out.append(proj)
+        elif len(sites) == 1:
+            out.append(embed_one_site(obs.matrix, sites[0], length, d))
+        else:
+            dense = np.zeros((d**length, d**length), dtype=np.complex128)
+            for factors in product_terms(obs.matrix, sites, d):
+                dense += embed_operator(dict(factors), length, d)
+            out.append(dense)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -317,22 +358,24 @@ class MCWFLocalContext:
     krylov_dim: int
 
     def tables(self, device, dtype: torch.dtype) -> LocalTables:
-        """The device tables of the local route (one-site observables only;
-        anything else raises ``NotImplementedError``)."""
+        """The device tables of the local route."""
         d = self.d
         eye = np.eye(d, dtype=np.complex128)
 
         def dev(x, dt=dtype):
             return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dt)
 
-        obs_sites, obs_mats = [], []
-        for kind, payload in self.obs_rows:
-            if kind != "terms" or len(payload) != 1 or len(payload[0]) != 1:
-                msg = "PVM, multi-term and multi-site observable rows are not ported to the MCWF path (one-site only)"
-                raise NotImplementedError(msg)
-            site, m = payload[0][0]
-            obs_sites.append(int(site))
-            obs_mats.append(np.asarray(m, dtype=np.complex128))
+        obs_sites, obs_mats, obs_rows1, pvm_rows, term_rows = [], [], [], [], []
+        for row, (kind, payload) in enumerate(self.obs_rows):
+            if kind == "pvm":
+                pvm_rows.append((row, int(payload)))
+            elif len(payload) == 1 and len(payload[0]) == 1:
+                site, m = payload[0][0]
+                obs_sites.append(int(site))
+                obs_mats.append(np.asarray(m, dtype=np.complex128))
+                obs_rows1.append(row)
+            else:
+                term_rows.append((row, tuple(tuple((int(st), dev(m)) for st, m in term) for term in payload)))
 
         # each channel as two (site, matrix) slots, slot 2 the identity at
         # slot 1's site for a one-site channel; A^dag A into K12's one-site
@@ -370,6 +413,10 @@ class MCWFLocalContext:
             ch_op2=dev(np.stack([sl[3] for sl in slots]) if slots else np.zeros((0, d, d))),
             obs_sites=obs_sites,
             obs_op=dev(np.stack(obs_mats) if obs_mats else np.zeros((0, d, d))),
+            obs_rows1=obs_rows1,
+            pvm_rows=pvm_rows,
+            term_rows=term_rows,
+            num_obs=len(self.obs_rows),
         )
 
 
@@ -382,8 +429,10 @@ class LocalTables:
     sites on the host (``ch_sites``, ``ch_sites2``) and on the device
     (``ch_site2 == ch_site1`` and ``ch_op2`` the identity for a one-site
     channel); the indices of the one-site channels (with their ``A^dag
-    A``) and of the two-factor ones; the observables' sites (host) and
-    matrices."""
+    A``) and of the two-factor ones; the one-site observables' sites (host),
+    matrices and rows; the PVM rows ``(row, basis index)``; the multi-site
+    rows ``(row, terms)``, each term a tuple of ``(site, matrix)``; and the
+    row count."""
 
     mpo: torch.Tensor
     local: torch.Tensor | None
@@ -399,6 +448,10 @@ class LocalTables:
     ch_op2: torch.Tensor
     obs_sites: list
     obs_op: torch.Tensor
+    obs_rows1: list
+    pvm_rows: list
+    term_rows: list
+    num_obs: int
 
     @property
     def num_channels(self) -> int:
@@ -483,7 +536,17 @@ def mcwf_trajectory_local(
         return lambda idx: torch.stack([rho[s] for s in idx], dim=1) if idx else psi.new_zeros((psi.shape[0], 0, d, d))
 
     def measure(psi, rho_at):
-        vals = torch.einsum("kab,zkba->zk", tab.obs_op, rho_at(tab.obs_sites)).real
+        vals = psi.real.new_zeros((psi.shape[0], tab.num_obs))
+        if tab.obs_rows1:
+            vals[:, tab.obs_rows1] = torch.einsum("kab,zkba->zk", tab.obs_op, rho_at(tab.obs_sites)).real
+        for row, idx in tab.pvm_rows:
+            vals[:, row] = psi[:, idx].real.square() + psi[:, idx].imag.square()
+        for row, terms in tab.term_rows:
+            for term in terms:
+                phi = psi
+                for site, m in term:
+                    phi = apply_one_site(phi, m, site, d)
+                vals[:, row] += (psi.conj() * phi).sum(dim=-1).real
         return vals / _norm2(psi)[:, None]
 
     psi = psi0

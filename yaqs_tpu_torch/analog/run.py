@@ -6,6 +6,8 @@ tables in, one batched call of :func:`..analog.tjm.tjm_trajectory`,
 observables ``(B, n_obs, T)`` out.  :func:`run_mcwf_batch` is the state-vector
 branch of ``Simulator.run`` (``simulator.py`` ``_run_analog_mcwf``): it
 routes to the dense or the local MCWF route exactly as the simulator does.
+:func:`schedule_jumps` prepares an order-1 run's scheduled jumps as the
+simulator does.
 """
 
 from __future__ import annotations
@@ -26,10 +28,12 @@ from .mcwf import (
     mcwf_trajectory,
     mcwf_trajectory_local,
 )
+from ..methods.scheduled_jumps import apply_scheduled_jumps_host, compile_scheduled_jumps, split_t0_jumps
 from .tjm import GeneratorDraws, TrajectoryPlan, tjm_trajectory
 
 __all__ = [
     "run_tjm_batch",
+    "schedule_jumps",
     "run_mcwf_batch",
     "mcwf_route",
     "full_precision_matmuls",
@@ -76,6 +80,23 @@ def _trajectory_indices(traj_indices, batch) -> list[int]:
     return [int(i) for i in traj_indices]
 
 
+def schedule_jumps(tensors0, scheduled_jumps: list[dict], times, *, svd_threshold: float = 1e-9):
+    """What ``Simulator.run`` does with a noise model's scheduled jumps
+    before an order-1 run: the jumps at ``times[0]`` are applied to the
+    initial state ``tensors0 (L, d, chi, chi)`` on the host (which comes
+    back canonical at 0 and normalized), the later ones compiled into the
+    per-step tables.  Returns ``(tensors0, scheduled)``, ``scheduled`` the
+    tables ``run_tjm_batch`` takes (None when no later jump remains)."""
+    tensors0 = np.asarray(tensors0)
+    length, d = tensors0.shape[:2]
+    times = np.asarray(times, dtype=np.float64)
+    t0_jumps, later = split_t0_jumps(scheduled_jumps, times)
+    if t0_jumps:
+        tensors0 = apply_scheduled_jumps_host(tensors0, t0_jumps, threshold=svd_threshold)
+    scheduled = compile_scheduled_jumps(later, times, length, d) if later else None
+    return tensors0, scheduled
+
+
 def run_tjm_batch(
     tensors0,
     mpo,
@@ -89,15 +110,18 @@ def run_tjm_batch(
     traj_indices=None,
     batch: int | None = None,
     draws=None,
+    scheduled=None,
 ):
-    """Run ``B`` order-2 TJM trajectories from one initial state.
+    """Run ``B`` TJM trajectories (order 1 or 2) from one initial state.
 
     ``tensors0 (L, d, chi, chi)`` (canonical at 0, normalized) and ``mpo
     (L, d, d, Dw, Dw)`` are numpy arrays or tensors; ``noise`` and
     ``observables`` are the host tables from ``compile_noise`` and
-    ``compile_observables``.  The batch is ``traj_indices`` (default
-    ``range(batch)``); trajectory ``i`` draws from generators seeded by
-    ``(seed, stream, i)`` unless ``draws`` supplies the draws.
+    ``compile_observables``; ``scheduled`` the scheduled-jump tables of an
+    order-1 plan with ``has_scheduled`` (:func:`schedule_jumps`).  The batch
+    is ``traj_indices`` (default ``range(batch)``); trajectory ``i`` draws
+    from generators seeded by ``(seed, stream, i)`` unless ``draws``
+    supplies the draws.
 
     Runs on the card unless ``device`` says otherwise (no CPU fallback);
     ``dtype`` defaults to complex64 on a CUDA device and complex128
@@ -119,7 +143,7 @@ def run_tjm_batch(
     co = observables.to(device, dtype)
     if draws is None and noise_t is not None:
         draws = GeneratorDraws(seed, traj_indices, noise_t.num_channels, device, t0.real.dtype)
-    results, diagnostics, _ = tjm_trajectory(draws, t0, w, noise_t, co, plan)
+    results, diagnostics, _ = tjm_trajectory(draws, t0, w, noise_t, co, plan, scheduled=scheduled)
     return (results, diagnostics) if plan.record_diagnostics else results
 
 
@@ -151,9 +175,9 @@ def run_mcwf_batch(
 
     ``psi0 (d^L,)`` is the initial state vector (site 0 least significant;
     normalized here, as ``State.to_vector`` does), ``mpo (L, d, d, Dw, Dw)``
-    the Hamiltonian, ``noise`` a :class:`NoiseModel` of one-site processes
-    (or None) and ``observables`` one-site :class:`Observable` objects, in
-    the order of the result's rows.  ``route="auto"`` takes the local route
+    the Hamiltonian, ``noise`` a :class:`NoiseModel` (or None) and
+    ``observables`` :class:`Observable` objects (one-site, multi-site or
+    PVM), in the order of the result's rows.  ``route="auto"`` takes the local route
     (Arnoldi with ``k = min(25, d^L)`` around the MPO applied across the
     vector, kernels K12 and K13) above ``d^L = 4096`` and the dense
     propagator otherwise, as ``Simulator.run`` does; ``"dense"`` or
@@ -182,7 +206,7 @@ def run_mcwf_batch(
         route = mcwf_route(dim)
     if route == "local":
         channels = local_jump_channels(noise)
-        ctx = make_mcwf_local_context(mpo, channels, local_obs_rows(observables), dt, min(MCWF_KRYLOV_DIM, dim))
+        ctx = make_mcwf_local_context(mpo, channels, local_obs_rows(observables, d), dt, min(MCWF_KRYLOV_DIM, dim))
         num_channels, trajectory = len(channels), mcwf_trajectory_local
     elif route == "dense":
         obs_dense = dense_observables(observables, length, d)

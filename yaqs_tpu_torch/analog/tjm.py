@@ -1,7 +1,9 @@
-"""Order-2 Tensor Jump Method trajectories over a batch.
+"""Tensor Jump Method trajectories over a batch.
 
-Port of ``yaqs_tpu.analog.tjm`` at order 2.  One call runs a batch of ``B``
-trajectories as a Python loop over time steps:
+Port of ``yaqs_tpu.analog.tjm``.  One call runs a batch of ``B``
+trajectories as a Python loop over time steps.
+
+Order 2:
 
 - ``Phi_0 = jump(dissipate(psi0, dt/2))``;
 - step ``Phi_{j+1} = jump(dissipate(tdvp(Phi_j, dt), dt))`` on the
@@ -13,6 +15,12 @@ trajectories as a Python loop over time steps:
   otherwise the jump canonicalizes it and the rows and the diagnostics
   (effective bond dimensions from the bond spectra) are read from the
   canonical state, as ``Simulator.run`` does with ``record_diagnostics``.
+
+Order 1 (the JAX package's default): each step evolves in place; with
+noise it renormalizes the center, dissipates by ``dt`` and jumps on the
+trajectory stream, or, at a step that carries scheduled jumps, applies them
+instead of the stochastic jump; without noise it canonicalizes (or applies
+the step's scheduled jumps).  Then it measures the canonical state.
 
 Random streams: JAX's ``fold_in`` key hierarchy has no torch counterpart.
 A draw source is any callable ``draws(stream, j) -> (u (B,), gumbel (B, nc))``
@@ -31,7 +39,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..core.mps_ops import bond_spectra, norm_squared_center0, normalize_canonical
+from ..core.mps_ops import apply_operator_everywhere, bond_spectra, norm_squared_center0, normalize_canonical
 from ..core.noise_model import CompiledNoise
 from ..core.observables import (
     CompiledObservables,
@@ -39,9 +47,11 @@ from ..core.observables import (
     local_rows,
     with_bond_rows,
 )
+from ..kernels.bond_gate import bond_gate
 from ..methods.dissipation import apply_dissipation
 from ..methods.stochastic import stochastic_process
 from ..methods.tdvp import TDVPConfig, tdvp_step
+from ..ops.decomp import split_matrix_truncated
 
 __all__ = [
     "TrajectoryPlan",
@@ -63,9 +73,11 @@ class TrajectoryPlan:
     """Trajectory schedule.  ``num_steps`` dt-steps; observables are sampled
     at every grid point when ``sample_timesteps`` else only at the end.
 
-    Ported: ``order=2``, ``evolution_mode="tdvp"``, no scheduled jumps;
-    other values raise ``NotImplementedError``.  ``record_diagnostics`` adds
-    the effective-bond curves (one bond-spectra sweep a measurement).
+    Ported: ``order`` 1 and 2, ``evolution_mode="tdvp"`` (``"bug"`` raises
+    ``NotImplementedError``); scheduled jumps (``has_scheduled``, with
+    non-factorizable two-site slots ``has_scheduled2``) with order 1 only.
+    ``record_diagnostics`` adds the effective-bond curves (one bond-spectra
+    sweep a measurement).
     """
 
     dt: float
@@ -190,15 +202,105 @@ def _order2_branches(draws: Draws | None, noise, observables, plan: TrajectoryPl
 
 
 def _check_plan(plan: TrajectoryPlan) -> None:
-    if plan.order != 2:
-        msg = "only order-2 TJM is ported"
-        raise NotImplementedError(msg)
+    if plan.order not in (1, 2):
+        msg = f"order must be 1 or 2, got {plan.order}"
+        raise ValueError(msg)
     if plan.evolution_mode != "tdvp":
         msg = f"evolution_mode={plan.evolution_mode!r} is not ported (tdvp only)"
         raise NotImplementedError(msg)
-    if plan.has_scheduled or plan.has_scheduled2:
-        msg = "scheduled jumps are not ported"
-        raise NotImplementedError(msg)
+    if (plan.has_scheduled or plan.has_scheduled2) and plan.order != 1:
+        msg = "scheduled jumps are supported for analog TJM order=1 only"
+        raise ValueError(msg)
+
+
+def _apply_two_site_slot(state: torch.Tensor, bond: int, m2: torch.Tensor, cfg: TDVPConfig) -> torch.Tensor:
+    """A scheduled non-factorizable two-site jump on bond ``bond`` of every
+    trajectory: merge with the ``(d^2, d^2)`` matrix as the gate (kernel
+    K10), then a truncated split (kernel K9; the run's mode, threshold and
+    bond cap, ``min_keep=1``, values to the right)."""
+    b, _, d, chi, _ = state.shape
+    state = state.contiguous()  # K10 takes each site's block contiguous; an einsum's output may be permuted
+    left, right, _, _ = split_matrix_truncated(
+        bond_gate(state[:, bond], state[:, bond + 1], m2), chi, mode=cfg.trunc_mode, threshold=cfg.threshold,
+        max_bond_dim=cfg.max_bond_dim, min_keep=1, svd_distribution="right",
+    )
+    out = state.clone()
+    out[:, bond] = left.reshape(b, d, chi, chi)
+    out[:, bond + 1] = right.reshape(b, chi, d, chi).permute(0, 2, 1, 3)
+    return out
+
+
+def _apply_scheduled(state: torch.Tensor, mats: torch.Tensor, slots, cfg: TDVPConfig) -> torch.Tensor:
+    """A step's scheduled jumps: the one-site stack ``mats (L, d, d)`` as one
+    ``einsum``, then the two-site ``slots`` (``(bond, (d^2, d^2) matrix)``
+    pairs) in the user's order, then canonical form at 0 with unit norm."""
+    state = apply_operator_everywhere(state, mats)
+    for bond, m2 in slots:
+        state = _apply_two_site_slot(state, bond, m2, cfg)
+    return normalize_canonical(state, method=cfg.canon_method)[0]
+
+
+def _scheduled_steps(scheduled, device, dtype):
+    """The compiled tables ``(flags, mats, two)`` (numpy, from
+    ``compile_scheduled_jumps``) as one entry a step: None, or the step's
+    one-site stack on ``device`` and its active two-site slots."""
+    if scheduled is None:
+        return None
+    flags, mats, two = scheduled
+    steps = []
+    for j, flag in enumerate(np.asarray(flags)):
+        if not flag:
+            steps.append(None)
+            continue
+        slots = []
+        if two is not None:
+            bonds, mats2, active = (np.asarray(x) for x in two)
+            slots = [
+                (int(bonds[j, s]), torch.as_tensor(mats2[j, s]).to(device=device, dtype=dtype).contiguous())
+                for s in range(bonds.shape[1]) if active[j, s]
+            ]
+        steps.append((torch.as_tensor(np.asarray(mats[j])).to(device=device, dtype=dtype), slots))
+    return steps
+
+
+def _run_order1(draws: Draws | None, tensors0, noise, observables, plan: TrajectoryPlan, evolve, scheduled):
+    """The order-1 loop: evolve; with noise renormalize the center, dissipate
+    by ``dt``, then the step's scheduled jumps or the stochastic jump on the
+    trajectory stream; without noise the scheduled jumps or a QR
+    canonicalization; measure.  Only the last column is measured when
+    ``sample_timesteps`` is off (the JAX package measures every step and
+    keeps the last)."""
+    dt, cfg = plan.dt, plan.evolution
+    t_total = plan.num_times
+    steps = _scheduled_steps(scheduled, tensors0.device, tensors0.dtype)
+    if plan.has_scheduled != (steps is not None) or (
+        steps is not None and plan.has_scheduled2 != (scheduled[2] is not None)
+    ):
+        msg = "plan.has_scheduled and plan.has_scheduled2 must match the scheduled tables given"
+        raise ValueError(msg)
+    obs0, diag0 = _measure(tensors0, observables, plan)
+    cols, diags = [obs0], [diag0]
+    state = tensors0
+    for j in range(1, t_total):
+        state = evolve(state, dt)
+        step = None if steps is None else steps[j - 1]
+        if noise is not None:
+            state = apply_dissipation(_renorm_center0(state), noise, dt, cfg)
+            if step is not None:
+                state = _apply_scheduled(state, *step, cfg)
+            else:
+                state, _ = stochastic_process(state, noise, dt, draws(TRAJECTORY_STREAM, j), cfg)
+        elif step is not None:
+            state = _apply_scheduled(state, *step, cfg)
+        else:
+            state, _ = normalize_canonical(state)
+        if plan.sample_timesteps or j == t_total - 1:
+            obs_j, diag_j = _measure(state, observables, plan)
+            cols.append(obs_j)
+            diags.append(diag_j)
+    if not plan.sample_timesteps:
+        cols, diags = cols[-1:], diags[-1:]
+    return torch.stack(cols, dim=-1), torch.stack(diags, dim=-1), state
 
 
 def tjm_trajectory(
@@ -208,19 +310,23 @@ def tjm_trajectory(
     noise: CompiledNoise | None,
     observables: CompiledObservables,
     plan: TrajectoryPlan,
+    scheduled=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Run a batch of order-2 TJM trajectories.
+    """Run a batch of TJM trajectories (order 1 or 2).
 
     ``tensors0 (B, L, d, chi, chi)`` canonical at 0 and normalized; ``mpo
     (L, d, d, Dw, Dw)``; ``noise`` and ``observables`` as torch tables on the
     same device (``CompiledNoise.to``, ``CompiledObservables.to``); ``draws``
-    a draw source (unused when ``noise`` is None).
+    a draw source (unused when ``noise`` is None); ``scheduled`` the
+    ``compile_scheduled_jumps`` tables ``(flags, mats, two)`` (numpy) for an
+    order-1 plan with ``has_scheduled``, shared by the batch.
 
     Returns ``(results (B, n_obs, n_cols), diagnostics (B, 3, n_cols),
     final (B, L, d, chi, chi))``: ``n_obs`` is the scalar rows plus ``chi``
     per Schmidt-spectrum row; the diagnostics (``sum chi_eff^3``, max and
     total effective bond) are zeros unless ``plan.record_diagnostics``; the
-    final state is the last measurement state, canonical at 0 and normalized.
+    final state is canonical at 0 and normalized (at order 2 the last
+    measurement state).
     """
     _check_plan(plan)
     dt = plan.dt
@@ -231,14 +337,17 @@ def tjm_trajectory(
         msg = "a noisy run needs a draw source"
         raise ValueError(msg)
 
-    obs0, diag0 = _measure(tensors0, observables, plan)
-    if plan.num_steps == 0:
-        obs0, diag0 = (x[..., None].expand(*x.shape, n_cols).clone() for x in (obs0, diag0))
-        return obs0, diag0, tensors0
-
     def evolve(t, step_dt):
         return tdvp_step(t, mpo, step_dt, cfg)
 
+    if plan.num_steps == 0:
+        obs0, diag0 = _measure(tensors0, observables, plan)
+        obs0, diag0 = (x[..., None].expand(*x.shape, n_cols).clone() for x in (obs0, diag0))
+        return obs0, diag0, tensors0
+    if plan.order == 1:
+        return _run_order1(draws, tensors0, noise, observables, plan, evolve, scheduled)
+
+    obs0, diag0 = _measure(tensors0, observables, plan)
     measure_branch, trajectory_branch, body, fast = _order2_branches(draws, noise, observables, plan, evolve)
 
     def restore(psi):

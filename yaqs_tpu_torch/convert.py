@@ -28,6 +28,7 @@ __all__ = [
     "batched",
     "compiled_noise",
     "compiled_observables",
+    "scheduled_tables",
     "tdvp_config",
     "trajectory_plan",
     "compiled_circuit",
@@ -66,13 +67,19 @@ def compiled_noise(noise) -> CompiledNoise | None:
 
 def compiled_observables(co) -> CompiledObservables:
     """The JAX package's ``CompiledObservables`` as the port's: one-site,
-    product-term, entropy and Schmidt-spectrum tables (PVM rows raise
-    ``NotImplementedError``)."""
-    if co.pvm_bits.shape[0]:
-        msg = "PVM observables are not ported"
-        raise NotImplementedError(msg)
+    product-term, entropy, Schmidt-spectrum and PVM tables."""
     fields = [f.name for f in dataclasses.fields(CompiledObservables) if f.name != "num_rows"]
     return CompiledObservables(**{name: np.array(getattr(co, name)) for name in fields}, num_rows=int(co.num_rows))
+
+
+def scheduled_tables(scheduled) -> tuple | None:
+    """The JAX package's ``compile_scheduled_jumps`` tables as numpy copies,
+    ``(flags, mats, two)`` with ``two`` None or ``(bonds, mats2, active)``:
+    what ``run_tjm_batch`` takes as ``scheduled``."""
+    if scheduled is None:
+        return None
+    flags, mats, two = scheduled
+    return np.array(flags), np.array(mats), None if two is None else tuple(np.array(x) for x in two)
 
 
 def tdvp_config(cfg) -> TDVPConfig:

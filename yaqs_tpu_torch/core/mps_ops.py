@@ -31,6 +31,8 @@ from ..ops.decomp import merge_two_site, split_two_site_truncated
 __all__ = [
     "product_state_tensors",
     "named_product_state",
+    "haar_random_mps",
+    "canonical_start",
     "to_statevector",
     "transfer_right",
     "norm_squared_center0",
@@ -83,8 +85,10 @@ def named_product_state(
     basis_string: str | None = None,
     rng: np.random.Generator | None = None,
 ) -> np.ndarray:
-    """Preset product states: zeros, ones, x+/-, y+/-, Neel, wall, basis,
-    random.  (``haar-random`` is not ported.)"""
+    """Preset states: zeros, ones, x+/-, y+/-, Neel, wall, basis, random
+    (product states) and haar-random (:func:`haar_random_mps`, entangled and
+    canonical at the last site; :func:`canonical_start` brings it to the
+    TJM's canonical-at-0 start)."""
     if name in _LOCAL_STATES:
         vecs = [_LOCAL_STATES[name]] * length
     elif name == "Neel":
@@ -105,12 +109,43 @@ def named_product_state(
         vs = rng.normal(size=(length, d)) + 1j * rng.normal(size=(length, d))
         vecs = list(vs / np.linalg.norm(vs, axis=1, keepdims=True))
     elif name == "haar-random":
-        msg = "the haar-random preset is not ported yet"
-        raise NotImplementedError(msg)
+        return haar_random_mps(length, chi, d=d, dtype=dtype, rng=rng)
     else:
         msg = f"Unknown preset state {name!r}"
         raise ValueError(msg)
     return product_state_tensors(vecs, chi, d=d, dtype=dtype)
+
+
+def haar_random_mps(
+    length: int, chi: int, d: int = 2, dtype=np.complex128, rng: np.random.Generator | None = None
+) -> np.ndarray:
+    """Entangled Haar-random MPS ``(L, d, chi, chi)`` (numpy): each site a
+    left-orthonormal Haar isometry, its bonds capped at ``min(d^i, d^(L-i),
+    chi)``, the phases of its QR fixed so that the draw is a Haar sample.
+    The same ``rng`` gives the JAX package's array, entry by entry."""
+    rng = rng or np.random.default_rng()
+    caps = [1] * (length + 1)
+    for i in range(1, length):
+        caps[i] = min(d**i, d ** (length - i), chi)
+    out = np.zeros((length, d, chi, chi), dtype=dtype)
+    for i in range(length):
+        cl, cr = caps[i], caps[i + 1]
+        x = rng.standard_normal((d * cl, cr)) + 1j * rng.standard_normal((d * cl, cr))
+        q, r = np.linalg.qr(x)
+        diag = np.diag(r)
+        phases = np.where(np.abs(diag) > 0, diag / np.abs(np.where(diag == 0, 1, diag)), 1.0)
+        q = q / phases[None, :]
+        out[i, :, :cl, :cr] = q.reshape(d, cl, cr)
+    return out
+
+
+def canonical_start(tensors) -> np.ndarray:
+    """One padded MPS ``(L, d, chi, chi)`` brought canonical at 0 and
+    normalized (complex128 on the CPU, Householder QR), as the JAX
+    package's ``State.to_padded_mps`` does with explicit tensors: the start
+    the TJM takes."""
+    t = torch.as_tensor(np.asarray(tensors, dtype=np.complex128))[None]
+    return normalize_canonical(t)[0][0].numpy()
 
 
 def to_statevector(tensors) -> np.ndarray:
@@ -162,7 +197,7 @@ def canonicalize_right(tensors: torch.Tensor, method: str = "qr") -> torch.Tenso
     if method != "qr":
         msg = f"Unknown canonicalization method: {method!r}"
         raise ValueError(msg)
-    out = torch.empty_like(tensors)
+    out = torch.empty_like(tensors, memory_format=torch.contiguous_format)
     c = torch.eye(chi, dtype=tensors.dtype, device=tensors.device).expand(b, chi, chi)
     for i in range(length - 1, 0, -1):
         # absorb the carried factor from the right, then split m = c_new . q

@@ -102,13 +102,75 @@ def _as_sites(sites: object) -> list[int]:
 
 
 class NoiseModel:
-    """List of one- and two-site Lindblad jump processes with float strengths."""
+    """List of one- and two-site Lindblad jump processes with float
+    strengths, and deterministic ``scheduled_jumps`` (dicts ``{time, sites,
+    name[, matrix]}``, applied at fixed grid times by the order-1 TJM;
+    :mod:`..methods.scheduled_jumps`), normalized as the JAX package does."""
 
-    def __init__(self, processes: list[dict[str, Any]] | None = None) -> None:
-        if processes is not None and not isinstance(processes, (list, tuple)):
-            msg = "processes must be a list or tuple of dictionaries."
-            raise TypeError(msg)
+    def __init__(
+        self, processes: list[dict[str, Any]] | None = None, scheduled_jumps: list[dict[str, Any]] | None = None
+    ) -> None:
+        for label, entries in (("processes", processes), ("scheduled_jumps", scheduled_jumps)):
+            if entries is not None and not isinstance(entries, (list, tuple)):
+                msg = f"{label} must be a list or tuple of dictionaries."
+                raise TypeError(msg)
+        self.scheduled_jumps = [self._normalize_scheduled_jump(j) for j in scheduled_jumps or []]
         self.processes = [self._normalize_process(p) for p in processes or []]
+
+    @staticmethod
+    def _normalize_scheduled_jump(original: object) -> dict[str, Any]:
+        """The JAX package's checks: the keys, a finite real time, one site
+        or an adjacent pair (sorted; a custom matrix needs ascending sites),
+        no ``factors``; the matrix resolved from the name unless given."""
+        if not isinstance(original, dict):
+            msg = "Each scheduled jump must be a dictionary."
+            raise TypeError(msg)
+        missing = [k for k in ("time", "sites", "name") if k not in original]
+        if missing:
+            msg = f"Each scheduled jump must have a {missing[0]!r} key."
+            raise ValueError(msg)
+        jump = dict(original)
+        if "factors" in jump:
+            msg = "Scheduled jumps do not accept 'factors'; use 'matrix' for custom operators."
+            raise ValueError(msg)
+        if not isinstance(jump["name"], str):
+            msg = "Scheduled jump 'name' must be a string."
+            raise TypeError(msg)
+        if not jump["name"]:
+            msg = "Scheduled jump 'name' must be a nonempty string."
+            raise ValueError(msg)
+        t = jump["time"]
+        if isinstance(t, bool) or not isinstance(t, (int, float, np.integer, np.floating)):
+            msg = "Scheduled jump time must be a real number (booleans are not allowed)."
+            raise TypeError(msg)
+        if not math.isfinite(float(t)):
+            msg = f"Scheduled jump time must be finite, got {float(t)}."
+            raise ValueError(msg)
+        jump["time"] = float(t)
+        sites = _as_sites(jump["sites"])
+        user_matrix = "matrix" in jump
+        swapped = False
+        if len(sites) == 2:
+            sorted_sites = sorted(sites)
+            swapped = sorted_sites != sites
+            if sorted_sites[1] - sorted_sites[0] != 1:
+                msg = (
+                    f"Scheduled jump acts on non-adjacent sites {sites}. "
+                    "Only nearest-neighbor scheduled jumps are supported."
+                )
+                raise ValueError(msg)
+            if swapped and user_matrix:
+                msg = f"Custom full scheduled-jump matrices require ascending site order; got sites {sites}."
+                raise ValueError(msg)
+            sites = sorted_sites
+        jump["sites"] = sites
+        if user_matrix:
+            jump["matrix"] = _as_square_matrix(jump["matrix"], "Scheduled jump matrix")
+        elif (suffix := _crosstalk_suffix(jump["name"])) is not None:
+            jump["matrix"] = np.kron(*_pauli_kron(suffix, swapped))
+        else:
+            jump["matrix"] = NoiseModel.get_operator(jump["name"])
+        return jump
 
     @staticmethod
     def _normalize_process(original: object) -> dict[str, Any]:

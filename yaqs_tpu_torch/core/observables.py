@@ -14,10 +14,12 @@ and are evaluated either on canonical-at-0 normalized states
 - entropy rows read the bond entropies and Schmidt-spectrum rows the bond
   spectra of :func:`..mps_ops.bond_spectra` (kernels K14 and K9 on the
   card); spectra ride as ``chi`` extra rows per observable, appended after
-  the scalar rows.
+  the scalar rows;
+- PVM rows (a full bitstring ``b``) read ``|<b|psi>|^2`` by a projector
+  transfer scan.
 
-PVM (bitstring projector) rows are not ported and raise
-``NotImplementedError``.
+The product terms' and the PVM rows' scans are one launch of kernel K17
+(``kernels/op_scan.py``) for the whole batch.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from ..models.operators import PAULI, hadamard, identity, projector_0, projector_1
+from ..kernels.op_scan import op_scan
 from . import mps_ops
 
 __all__ = [
@@ -60,15 +63,30 @@ _BOND_KINDS = ("entropy", "schmidt_spectrum")
 
 class Observable:
     """What to measure: a named operator (``x, y, z, id, h, p0, p1`` on one
-    site, ``xx, yy, zz`` on two), a square matrix on its sites, or the
+    site, ``xx, yy, zz`` on two), a square matrix on its sites, the
     ``entropy`` / ``schmidt_spectrum`` of a bond (``sites`` a nearest-neighbour
-    pair, or its left site).
+    pair, or its left site), or the probability of a bitstring (``"pvm"``
+    with ``bitstring="0110..."``, or the bitstring itself as ``gate``; one
+    character a site, site 0 first, no ``sites``).
 
     :func:`compile_observables` also takes the JAX package's ``Observable``
-    objects (anything with ``name``, ``matrix`` and ``site_list``).
+    objects (anything with ``name``, ``matrix`` and ``site_list``, and
+    ``bitstring`` for PVM rows).
     """
 
-    def __init__(self, gate, sites: int | list[int]) -> None:
+    def __init__(self, gate, sites: int | list[int] | None = None, bitstring: str | None = None) -> None:
+        if isinstance(gate, str) and (gate.lower() == "pvm" or (gate and set(gate) <= {"0", "1"})):
+            self.name = "pvm"
+            self.bitstring = gate if gate.lower() != "pvm" else bitstring
+            if not self.bitstring or not set(self.bitstring) <= {"0", "1"}:
+                msg = f"a PVM observable needs a bitstring of 0s and 1s, got {self.bitstring!r}"
+                raise ValueError(msg)
+            self.matrix = None
+            self.sites = None
+            return
+        if sites is None:
+            msg = "Observable requires sites"
+            raise ValueError(msg)
         if isinstance(gate, str):
             name = gate.lower()
             if name in _NAMED:
@@ -93,6 +111,8 @@ class Observable:
 
     @property
     def site_list(self) -> list[int]:
+        if self.sites is None:
+            return []
         return [self.sites] if isinstance(self.sites, int) else list(self.sites)
 
     def __repr__(self) -> str:
@@ -100,7 +120,7 @@ class Observable:
 
 
 _TABLES = ("ops1", "sites1", "rows1", "t_coeff", "t_sites", "t_ops", "t_rows", "e_bonds", "e_rows", "s_bonds",
-           "s_rows")
+           "s_rows", "pvm_bits", "pvm_rows")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,7 +129,7 @@ class CompiledObservables:
     multi-site product terms ``t_coeff (nt,)``, ``t_sites (nt, K)`` (identity
     padding at site -1), ``t_ops (nt, K, d, d)``, ``t_rows``; entropy rows
     ``e_bonds``, ``e_rows``; Schmidt-spectrum rows ``s_bonds``, ``s_rows``;
-    and the scalar row count."""
+    PVM rows ``pvm_bits (np, L)``, ``pvm_rows``; and the scalar row count."""
 
     ops1: Any
     sites1: Any
@@ -122,6 +142,8 @@ class CompiledObservables:
     e_rows: Any
     s_bonds: Any
     s_rows: Any
+    pvm_bits: Any
+    pvm_rows: Any
     num_rows: int
 
     @property
@@ -131,7 +153,7 @@ class CompiledObservables:
 
     @property
     def only_one_site(self) -> bool:
-        return self.t_coeff.shape[0] == 0 and not self.has_bond_rows
+        return self.t_coeff.shape[0] == 0 and not self.has_bond_rows and self.pvm_bits.shape[0] == 0
 
     def to(self, device, dtype: torch.dtype) -> CompiledObservables:
         """Tables as torch tensors on ``device`` (operators in ``dtype``,
@@ -193,6 +215,7 @@ def compile_observables(observables, length: int, d: int) -> CompiledObservables
     ops1, sites1, rows1 = [], [], []
     t_coeff, t_sites, t_ops, t_rows = [], [], [], []
     e_bonds, e_rows, s_bonds, s_rows = [], [], [], []
+    pvm_bits, pvm_rows = [], []
 
     def pad_op(m):
         m = np.asarray(m, dtype=np.complex128)
@@ -205,8 +228,13 @@ def compile_observables(observables, length: int, d: int) -> CompiledObservables
     for row, obs in enumerate(observables):
         sites = obs.site_list
         if obs.name == "pvm":
-            msg = f"{obs!r}: PVM observables are not ported"
-            raise NotImplementedError(msg)
+            bits = [int(b) for b in obs.bitstring]
+            if len(bits) != length:
+                msg = f"PVM bitstring length {len(bits)} != chain length {length}"
+                raise ValueError(msg)
+            pvm_bits.append(bits)
+            pvm_rows.append(row)
+            continue
         if not all(0 <= s < length for s in sites):
             msg = f"observable sites {sites} outside [0, {length})"
             raise ValueError(msg)
@@ -252,27 +280,35 @@ def compile_observables(observables, length: int, d: int) -> CompiledObservables
         e_rows=arr(e_rows, np.int32, ()),
         s_bonds=arr(s_bonds, np.int32, ()),
         s_rows=arr(s_rows, np.int32, ()),
+        pvm_bits=arr(pvm_bits, np.int32, (length,)),
+        pvm_rows=arr(pvm_rows, np.int32, ()),
         num_rows=len(observables),
     )
 
 
-def _term_values(tensors: torch.Tensor, co: CompiledObservables) -> torch.Tensor:
-    """Multi-site product terms ``(B, nt)``: one transfer scan over the chain
-    for all terms at once, each site's factor the term's operator there or
-    the identity."""
-    b, length, d, chi, _ = tensors.shape
+def _scan_tables(co: CompiledObservables, length: int, dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """K17's chains: the product terms, then the PVM rows, as ``sel (nc, L)``
+    int32 (-1: the term's operator at the site, or the identity; ``b``: a
+    projector) and ``ops (nc, L, d, d)``."""
     nt, kmax = co.t_sites.shape
-    eye = torch.eye(d, dtype=tensors.dtype, device=tensors.device)
-    env = torch.eye(chi, dtype=tensors.dtype, device=tensors.device).expand(b, nt, chi, chi)
-    for i in range(length):
-        op = eye.expand(nt, d, d)
-        for j in range(kmax):  # sites are distinct: at most one matches
-            op = torch.where((co.t_sites[:, j] == i)[:, None, None], co.t_ops[:, j], op)
-        a = tensors[:, i]
-        ak = torch.einsum("tab,zblr->ztalr", op, a)
-        tmp = torch.einsum("ztlm,ztsmr->ztslr", env, ak)
-        env = torch.einsum("zslb,ztslr->ztbr", a.conj(), tmp)
-    return torch.diagonal(env, dim1=-2, dim2=-1).sum(-1)
+    d = co.t_ops.shape[-1]
+    device = co.t_sites.device
+    sites = torch.arange(length, device=device)
+    ops = torch.eye(d, dtype=dtype, device=device).expand(nt, length, d, d)
+    for j in range(kmax):  # sites are distinct: at most one matches
+        ops = torch.where((co.t_sites[:, j, None] == sites)[..., None, None], co.t_ops[:, None, j].to(dtype), ops)
+    npvm = co.pvm_bits.shape[0]
+    sel = torch.cat([torch.full((nt, length), -1, dtype=torch.int32, device=device), co.pvm_bits.to(torch.int32)])
+    ops = torch.cat([ops, ops.new_zeros((npvm, length, d, d))])
+    return sel.contiguous(), ops.contiguous()
+
+
+def _chain_values(tensors: torch.Tensor, co: CompiledObservables) -> torch.Tensor:
+    """The product terms' scans (the JAX package's ``_term_values``), then
+    the PVM rows' (``_pvm_values``, ``|<b|psi>|^2`` of normalized states),
+    ``(B, nt + np)`` complex: one launch of kernel K17 for all of them."""
+    sel, ops = _scan_tables(co, tensors.shape[1], tensors.dtype)
+    return op_scan(tensors.contiguous(), sel, ops)  # K17 reads each site's block contiguous
 
 
 def evaluate_observables(tensors: torch.Tensor, co: CompiledObservables) -> torch.Tensor:
@@ -286,14 +322,19 @@ def evaluate_observables(tensors: torch.Tensor, co: CompiledObservables) -> torc
 
 
 def local_rows(tensors: torch.Tensor, co: CompiledObservables) -> torch.Tensor:
-    """The one-site and multi-site rows ``(B, num_rows)`` of canonical-at-0
-    normalized states; entropy rows are left 0."""
+    """The one-site, multi-site and PVM rows ``(B, num_rows)`` of
+    canonical-at-0 normalized states; entropy rows are left 0."""
     b = tensors.shape[0]
     out = tensors.real.new_zeros((b, co.num_rows))
     if co.ops1.shape[0]:
         out[:, co.rows1] = mps_ops.site_expectations(tensors, co.ops1, co.sites1).real
-    if co.t_coeff.shape[0]:
-        out.index_add_(1, co.t_rows, _term_values(tensors, co).real * co.t_coeff)
+    nt, npvm = co.t_coeff.shape[0], co.pvm_bits.shape[0]
+    if nt or npvm:
+        vals = _chain_values(tensors, co).real
+        if nt:
+            out.index_add_(1, co.t_rows, vals[:, :nt] * co.t_coeff)
+        if npvm:
+            out[:, co.pvm_rows] = vals[:, nt:]
     return out
 
 

@@ -91,7 +91,7 @@ def run_digital_batch(
     chi, chi)`` the initial product state (canonical at 0, normalized; zero
     padded to ``max_bond_dim`` when that is larger); ``noise`` the
     ``CompiledNoise`` (one- and two-site processes) or None; ``observables`` the ``CompiledObservables`` or
-    None; ``config`` carries the truncation policy and the knob set
+    None (PVM rows, bitstring probabilities, only without other rows); ``config`` carries the truncation policy and the knob set
     (``max_bond_dim`` is set to the padded bond dimension).
 
     As in the JAX package: a noiseless run has one trajectory and takes all
@@ -118,6 +118,10 @@ def run_digital_batch(
     compiled = compile_circuit(circ, gate_mode)
 
     wants_obs = observables is not None and observables.num_rows > 0
+    if wants_obs and 0 < observables.pvm_bits.shape[0] < observables.num_rows:
+        # the JAX package's DigitalSimParams rule
+        msg = "Cannot mix 'pvm' observables with non-pvm observables."
+        raise ValueError(msg)
     if sample_layers and not wants_obs:
         msg = "sample_layers=True requires observables to sample"
         raise ValueError(msg)

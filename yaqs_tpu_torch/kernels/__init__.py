@@ -32,6 +32,7 @@ LAUNCHES: dict[str, int] = {
     "heff1": 0,
     "lanczos_solve2": 0,
     "lanczos_solve1": 0,
+    "lanczos_solve0": 0,
     "env_update": 0,
     "sv_mpo_matvec": 0,
     "arnoldi_step": 0,
@@ -42,6 +43,7 @@ LAUNCHES: dict[str, int] = {
     "subspace_split": 0,
     "ns_canon": 0,
     "pair_weights": 0,
+    "op_scan": 0,
 }
 
 

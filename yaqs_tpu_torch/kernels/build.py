@@ -70,8 +70,8 @@ _SIGNATURES = {
     # (f, stride_f, a_bra, stride_bra, a_ket, stride_ket, W, out, stride_out, batch, chi, dw, cols, chunk, tm3,
     #  right, stream)
     "env_update_launch": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _P],
-    # (f, stride_f, v, stride_v, stride_c0, stride_c1, stride_p, stride_q, W, g, stride_g, basis, alphas,
-    #  betas, nrm, scratch, batch, chi, dw, p, k, reorth, tol, stream)
+    # (f, stride_f, v, stride_v, stride_c0, stride_c1, stride_p, stride_q, W (null for p = 1), g, stride_g,
+    #  basis, alphas, betas, nrm, scratch, batch, chi, dw, p, k, reorth, tol, stream)
     "lanczos_solve_launch": [_P, _LL, _P, _LL, _LL, _LL, _LL, _LL, _P, _P, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _F, _P],
     # (chi, dw, p) -> clusters the card holds at once
@@ -88,6 +88,8 @@ _SIGNATURES = {
     "svd_jacobi_launch": [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     # (batch, rows, cols, vectors) -> complex64 elements of W and V scratch
     "svd_jacobi_workspace": [_I, _I, _I, _I],
+    # (tensors, stride_z, stride_site, sel, ops, out, batch, nc, L, d, chi, stream)
+    "op_scan_launch": [_P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 # functions that return something else than a cudaError_t
 _RESTYPES = {"svd_jacobi_workspace": _LL}

@@ -1,12 +1,17 @@
 // The merged-MPO effective Hamiltonian of TDVP on one tile of output rows:
-// the matvec body of kernels K1 and K2, shared by the single-matvec kernels
-// (heff.cu) and the one-launch Lanczos solves (lanczos_solve.cu).
+// the matvec body of kernels K1, K2 and K16, shared by the single-matvec
+// kernels (heff.cu) and the one-launch Lanczos solves (lanczos_solve.cu).
 //
 // Per trajectory, with c, x running over the P physical combinations of the
-// block (P = 4 for the two-site block theta, P = 2 for one site):
+// block (P = 4 for the two-site block theta, P = 2 for one site, P = 1 for
+// a bond matrix):
 //   X[a, (w, c), q] = sum_p f[a, w, p] v[c, p, q]
 //   Y[a, q, (x, u)] = sum_(w, c) X[a, (w, c), q] W[(w, c), (x, u)]
 //   out[x, a, b]    = sum_(q, u) Y[a, q, (x, u)] g[b, u, q]
+// The bond's zero-site H_eff (heff0, yaqs_tpu/methods/tdvp.py heff_bond)
+// has no W: Y is X, and phase (2) below is skipped, so
+//   out[a, b] = sum_(w, p, q) f[a, w, p] c[p, q] g[b, w, q],
+// 2 Dw chi^3 complex MACs a trajectory.
 // A tile is TA rows a (tile_rows: 16, 16, 11, 8, 6, 5 for Dw = 1..6); the
 // tile's output rows are (a, x), NR = TA * P of them, each of chi columns b.
 //
@@ -61,7 +66,8 @@ struct Tile {
 
   // shared memory of one tile's matvec, in float2, at padded width chs
   __host__ __device__ static constexpr int f_elems(int chs) { return RT2 * chs; }
-  __host__ __device__ static constexpr int w_elems() { return R * R; }
+  // none for the zero-site H_eff: an odd Dw^2 would leave the next arrays off their 16-byte alignment
+  __host__ __device__ static constexpr int w_elems() { return P == 1 ? 0 : R * R; }
   __host__ __device__ static constexpr int xy_elems(int chs) { return TA * R * chs; }
   __host__ __device__ static constexpr int g_elems(int chs) { return (chs / 2) * (2 * DW * QC + 2); }
 };
@@ -174,29 +180,36 @@ __device__ __forceinline__ void matvec_tile(const float2* fs, const float2* ws, 
   }
   __syncthreads();
 
-  // (2) Y = X W in place, a thread a column (ta, q); the padding column q = chi is zero
-  for (int e = tid; e < T::TA * chs; e += kThreads) {
-    const int ta = e / chs, q = e % chs;
-    float2* col = xy + ta * R * chs + q;
-    if (q >= chi) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) col[r * chs] = make_float2(0.f, 0.f);
-      continue;
+  if constexpr (P == 1) {
+    // heff0: no W, Y is X; only the padding column q = chi is zeroed
+    if (chs > chi) {
+      for (int e = tid; e < T::TA * R; e += kThreads) xy[e * chs + chi] = make_float2(0.f, 0.f);
     }
-    float2 xin[R];
+  } else {
+    // (2) Y = X W in place, a thread a column (ta, q); the padding column q = chi is zero
+    for (int e = tid; e < T::TA * chs; e += kThreads) {
+      const int ta = e / chs, q = e % chs;
+      float2* col = xy + ta * R * chs + q;
+      if (q >= chi) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) xin[r] = col[r * chs];
-#pragma unroll
-    for (int o = 0; o < R; o += 2) {
-      float2 y0 = make_float2(0.f, 0.f), y1 = make_float2(0.f, 0.f);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 wp = *reinterpret_cast<const float4*>(ws + r * R + o);
-        cfma(y0, xin[r], lo(wp));
-        cfma(y1, xin[r], hi(wp));
+        for (int r = 0; r < R; ++r) col[r * chs] = make_float2(0.f, 0.f);
+        continue;
       }
-      col[o * chs] = y0;
-      col[(o + 1) * chs] = y1;
+      float2 xin[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) xin[r] = col[r * chs];
+#pragma unroll
+      for (int o = 0; o < R; o += 2) {
+        float2 y0 = make_float2(0.f, 0.f), y1 = make_float2(0.f, 0.f);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 wp = *reinterpret_cast<const float4*>(ws + r * R + o);
+          cfma(y0, xin[r], lo(wp));
+          cfma(y1, xin[r], hi(wp));
+        }
+        col[o * chs] = y0;
+        col[(o + 1) * chs] = y1;
+      }
     }
   }
   __syncthreads();

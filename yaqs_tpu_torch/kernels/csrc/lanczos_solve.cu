@@ -1,5 +1,5 @@
-// Kernels K1 (lanczos_solve2) and K2 (lanczos_solve1): a whole fixed-k
-// Lanczos solve of the TDVP sweep in one launch, per trajectory,
+// Kernels K1 (lanczos_solve2), K2 (lanczos_solve1) and K16 (lanczos_solve0):
+// a whole fixed-k Lanczos solve of a TDVP sweep in one launch, per trajectory,
 //   nrm = ||v||;  q_0 = v / nrm (v where nrm = 0);  alive = true;
 //   for j < k:  w = H_eff q_j;  alpha = Re <q_j, w>;
 //     reorth:     two classical Gram-Schmidt passes of w against rows 0..j
@@ -9,17 +9,24 @@
 //     betas[j] = alive' ? beta : 0;  beta_prev = beta;  alive = alive'
 // with H_eff the merged-MPO effective Hamiltonian of heff.cuh: P = 4 for the
 // two-site block theta and the merged pair W12 (lanczos_solve2), P = 2 for
-// one site and Wm (lanczos_solve1).  It writes the basis rows q_0..q_(k-1),
-// alphas, betas and nrm: what the epilogue (lanczos_epilogue.cu, K3) reads.
+// one site and Wm (lanczos_solve1), P = 1 for a bond matrix under the
+// zero-site H_eff, no W (lanczos_solve0).  It writes the basis rows
+// q_0..q_(k-1), alphas, betas and nrm: what the epilogue
+// (lanczos_epilogue.cu, K3) reads.
 //
 // Replaces: yaqs_tpu/ops/krylov.py lanczos_expm_apply (:31-101; the
 // fori_body :74-92, both variants) around yaqs_tpu/methods/tdvp.py:173
-// heff_two_site_merged (K1) and :188 heff_one_site_merged (K2).  Before, a
-// solve was k matvec launches (heff.cu), k recurrence launches and about ten
-// small PyTorch operations of its prologue.
+// heff_two_site_merged (K1), :188 heff_one_site_merged (K2) and :199
+// heff_bond (K16: the one-site and dynamic sweeps' bond evolutions,
+// tdvp.py:361-362 and :453-454, 2 (L - 1) solves a one-site sweep).
+// Before, a solve was k matvec launches (heff.cu), k recurrence launches
+// and about ten small PyTorch operations of its prologue.
 //
-// What bounds it on the card: the k matvecs' FP32 operations (heff.cuh); the
+// What bounds it on the card: the k matvecs' FP32 operations (heff.cuh;
+// 2 Dw chi^3 complex MACs a matvec for K16, whose n = chi^2); the
 // recurrence moves a few vectors of n = P chi^2 complex64 per iteration.
+// K16 is K2's design with no W and P = 1: a simple kernel, its clusters as
+// many blocks as K2's (ceil(chi / TA)) with half the work a block.
 //
 // Design: one thread block cluster a trajectory.  Block r of the cluster
 // owns the tile of TA output rows a starting at r TA (heff.cuh), so a
@@ -143,7 +150,9 @@ __device__ __forceinline__ void solve_block(const float2* f, long long sf, const
   float2* bz = basis + z * k * n;
   const int a0 = rank * T::TA;  // the block's tile
   heff::stage_f<P, DW>(fs, fz, a0, chi, chs);
-  for (int e = threadIdx.x; e < T::w_elems(); e += kThreads) ws[e] = w[e];
+  if constexpr (P > 1) {  // the zero-site H_eff has no W
+    for (int e = threadIdx.x; e < T::w_elems(); e += kThreads) ws[e] = w[e];
+  }
 
   // the elements (x, a, b) of a trajectory's vector this thread owns (-1:
   // none), and where each lies in v
@@ -335,12 +344,19 @@ __global__ void __launch_bounds__(kThreads, 2) lanczos_solve1_kernel(SOLVE_PARAM
   solve_block<2, DW>(SOLVE_ARGS);
 }
 
+template <int DW>
+__global__ void __launch_bounds__(kThreads, 2) lanczos_solve0_kernel(SOLVE_PARAMS) {
+  solve_block<1, DW>(SOLVE_ARGS);
+}
+
 template <int P, int DW>
 constexpr auto solve_kernel() {
   if constexpr (P == 4) {
     return lanczos_solve2_kernel<DW>;
-  } else {
+  } else if constexpr (P == 2) {
     return lanczos_solve1_kernel<DW>;
+  } else {
+    return lanczos_solve0_kernel<DW>;
   }
 }
 
@@ -408,6 +424,7 @@ int checked_dispatch(int p, int dw, const Args& a, cudaStream_t stream, int* hel
   }
   if (p == 4) return dispatch<4>(dw, a, stream, held);
   if (p == 2) return dispatch<2>(dw, a, stream, held);
+  if (p == 1) return dispatch<1>(dw, a, stream, held);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -416,11 +433,11 @@ int checked_dispatch(int p, int dw, const Args& a, cudaStream_t stream, int* hel
 // f, g: (chi, dw, chi) contiguous per trajectory, sf / sg elements between
 // trajectories; v: (p, chi, chi) per trajectory, sv elements between
 // trajectories, v[c, p', q] at c0 sc0 + c1 sc1 + p' sp + q sq with c = (c0,
-// c1) for p = 4 and c = c0 for p = 2 (a permuted or strided block read in
-// place); w: (dw p, p dw);
+// c1) for p = 4, c = c0 for p = 2 and c = 0 for p = 1 (a permuted or
+// strided block read in place); w: (dw p, p dw), unused (may be null) for p = 1;
 // basis (batch, k, n), alphas, betas (batch, k) float, nrm (batch,) float,
 // scratch (2, batch, n), n = p chi^2, all contiguous.  p = 4 runs
-// lanczos_solve2, p = 2 lanczos_solve1.
+// lanczos_solve2, p = 2 lanczos_solve1, p = 1 lanczos_solve0.
 extern "C" int lanczos_solve_launch(const void* f, long long sf, const void* v, long long sv, long long sc0,
                                     long long sc1, long long sp, long long sq, const void* w, const void* g,
                                     long long sg,

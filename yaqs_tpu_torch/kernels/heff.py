@@ -16,7 +16,7 @@ import torch
 from . import LAUNCHES, inner_contiguous, on_card
 from .build import check, load_library
 
-__all__ = ["heff2", "heff2_plain", "heff1", "heff1_plain", "MAX_CHI", "MAX_DW"]
+__all__ = ["heff2", "heff2_plain", "heff1", "heff1_plain", "heff0_plain", "MAX_CHI", "MAX_DW"]
 
 MAX_CHI = 64
 MAX_DW = 6
@@ -41,6 +41,15 @@ def heff1_plain(f: torch.Tensor, wm: torch.Tensor, g: torch.Tensor, a: torch.Ten
     xm = x.permute(0, 1, 4, 2, 3).reshape(b, chi * chi, dw * d)
     y = (xm @ wm).reshape(b, chi, chi, d, dw)  # (a, q, t, v)
     return torch.einsum("zaqtv,zbvq->ztab", y, g)
+
+
+def heff0_plain(f: torch.Tensor, g: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The zero-site action ``K_eff c`` on bond matrices ``c (B, chi, chi)``
+    (``yaqs_tpu.methods.tdvp.heff_bond``): ``f c``, then ``g``.  It has no
+    kernel of its own: the one-site sweep's bond solves run it inside K16
+    (``lanczos_solve0``)."""
+    x = torch.einsum("zawp,zpq->zawq", f, c)
+    return torch.einsum("zawq,zbwq->zab", x, g)
 
 
 def _launch(name: str, f, w, g, v, p: int) -> torch.Tensor:

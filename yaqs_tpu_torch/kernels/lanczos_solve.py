@@ -1,15 +1,18 @@
-"""Kernels K1 and K2: a whole Lanczos solve of the TDVP sweep in one launch
-(``csrc/lanczos_solve.cu``, the matvec body shared with ``csrc/heff.cu``
-through ``csrc/heff.cuh``).
+"""Kernels K1, K2 and K16: a whole Lanczos solve of a TDVP sweep in one
+launch (``csrc/lanczos_solve.cu``, the matvec body shared with
+``csrc/heff.cu`` through ``csrc/heff.cuh``).
 
 Replace ``yaqs_tpu.ops.krylov.lanczos_expm_apply`` up to its epilogue (the
 prologue and the ``fori_loop``, both variants) around
 ``yaqs_tpu.methods.tdvp.heff_two_site_merged`` (``lanczos_solve2``, for the
-two-site block ``theta (B, d, d, chi, chi)`` and the merged pair ``w12``)
-and ``heff_one_site_merged`` (``lanczos_solve1``, one site ``a (B, d, chi,
-chi)`` and ``wm``).  A solve returns the Krylov basis ``(B, k, n)``, the
-recurrence's ``alphas`` and ``betas (B, k)`` and the start vectors' norms
-``nrm (B,)``: what the epilogue (:mod:`.lanczos_epilogue`, K3) reads.
+two-site block ``theta (B, d, d, chi, chi)`` and the merged pair ``w12``),
+``heff_one_site_merged`` (``lanczos_solve1``, one site ``a (B, d, chi,
+chi)`` and ``wm``) and ``heff_bond`` (``lanczos_solve0``, a bond matrix
+``c (B, chi, chi)`` under the zero-site projector, no MPO: the one-site and
+dynamic sweeps' backward bond evolutions).  A solve returns the Krylov
+basis ``(B, k, n)``, the recurrence's ``alphas`` and ``betas (B, k)`` and
+the start vectors' norms ``nrm (B,)``: what the epilogue
+(:mod:`.lanczos_epilogue`, K3) reads.
 
 On the card each trajectory runs on a thread block cluster, a block per
 tile of the matvec's output rows (:func:`cluster_blocks`); the blocks add
@@ -28,7 +31,7 @@ import torch
 
 from . import LAUNCHES, inner_contiguous, on_card
 from .build import check, load_library
-from .heff import MAX_BATCH, MAX_CHI, MAX_DW, heff1_plain, heff2_plain
+from .heff import MAX_BATCH, MAX_CHI, MAX_DW, heff0_plain, heff1_plain, heff2_plain
 
 __all__ = [
     "MAX_K",
@@ -116,20 +119,22 @@ def lanczos_loop_plain(
     return basis, alphas, betas, nrm
 
 
-def _heff_plain(v: torch.Tensor):
-    return heff2_plain if v.dim() == 5 else heff1_plain
+def _heff_plain(f, w, g, v: torch.Tensor):
+    if v.dim() == 3:
+        return heff0_plain(f, g, v)
+    return (heff2_plain if v.dim() == 5 else heff1_plain)(f, w, g, v)
 
 
 def lanczos_solve_plain(
-    f: torch.Tensor, w: torch.Tensor, g: torch.Tensor, v: torch.Tensor, k: int, reorthogonalize: bool, tol: float
+    f: torch.Tensor, w: torch.Tensor | None, g: torch.Tensor, v: torch.Tensor, k: int, reorthogonalize: bool,
+    tol: float,
 ):
     """Plain PyTorch version: :func:`lanczos_loop_plain` with the plain
     matvec (``heff2_plain`` for a 5-d ``theta``, ``heff1_plain`` for a 4-d
-    site)."""
+    site, ``heff0_plain`` for a 3-d bond matrix, whose ``w`` is None)."""
     shape, b = v.shape, v.shape[0]
-    heff = _heff_plain(v)
     return lanczos_loop_plain(
-        lambda q: heff(f, w, g, q.reshape(shape)), v.reshape(b, -1), k, reorthogonalize, tol
+        lambda q: _heff_plain(f, w, g, q.reshape(shape)), v.reshape(b, -1), k, reorthogonalize, tol
     )
 
 
@@ -156,9 +161,12 @@ def solve_clusters_held(chi: int, dw: int, p: int, device_index: int) -> int:
     return held
 
 
+_NAMES = {5: "lanczos_solve2", 4: "lanczos_solve1", 3: "lanczos_solve0"}
+
+
 def lanczos_solve(
     f: torch.Tensor,
-    w: torch.Tensor,
+    w: torch.Tensor | None,
     g: torch.Tensor,
     v: torch.Tensor,
     k: int,
@@ -167,9 +175,11 @@ def lanczos_solve(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The Krylov basis, ``alphas``, ``betas`` and ``nrm`` of
     ``exp(coeff H_eff) v`` for ``v`` a two-site block ``theta (B, 2, 2, chi,
-    chi)`` with ``w = w12`` (``lanczos_solve2``) or a site ``(B, 2, chi,
-    chi)`` with ``w = wm`` (``lanczos_solve1``), environments ``f, g (B,
-    chi, Dw, chi)``; ``min(k, n)`` iterations, ``n = v[0].numel()``.
+    chi)`` with ``w = w12`` (``lanczos_solve2``), a site ``(B, 2, chi,
+    chi)`` with ``w = wm`` (``lanczos_solve1``) or a bond matrix ``(B, chi,
+    chi)`` with ``w`` None (``lanczos_solve0``, the zero-site H_eff),
+    environments ``f, g (B, chi, Dw, chi)``; ``min(k, n)`` iterations, ``n =
+    v[0].numel()``.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the kernel,
     which takes complex64, ``d = 2``, ``chi <= 64``, ``Dw <= 6``, ``min(k, n) <=
@@ -178,24 +188,33 @@ def lanczos_solve(
     of its product permuted, a site lies inside the chain: both are read in
     place) and a contiguous ``w``; anything else raises ``ValueError``.
     """
-    five = v.dim() == 5
-    name = "lanczos_solve2" if five else "lanczos_solve1"
+    name = _NAMES.get(v.dim(), "lanczos_solve")
     if not on_card(name, v):
         return lanczos_solve_plain(f, w, g, v, k, reorthogonalize, tol)
-    p = 4 if five else 2
-    if v.dim() not in (4, 5) or v.shape[1 : 1 + p // 2] != (2,) * (p // 2) or v.shape[-1] != v.shape[-2]:
-        msg = f"{name} takes theta (B, 2, 2, chi, chi) or a site (B, 2, chi, chi), got {tuple(v.shape)}"
+    p = {5: 4, 4: 2, 3: 1}.get(v.dim(), 0)
+    if not p or v.shape[1 : 1 + p // 2] != (2,) * (p // 2) or v.shape[-1] != v.shape[-2]:
+        msg = (
+            f"{name} takes theta (B, 2, 2, chi, chi), a site (B, 2, chi, chi) or a bond (B, chi, chi), "
+            f"got {tuple(v.shape)}"
+        )
         raise ValueError(msg)
     b, chi = v.shape[0], v.shape[-1]
     if f.dim() != 4 or f.shape[0] != b or f.shape[1] != chi or f.shape[3] != chi:
         msg = f"{name}: f must be (B, chi, Dw, chi) = ({b}, {chi}, Dw, {chi}), got {tuple(f.shape)}"
         raise ValueError(msg)
     dw = f.shape[2]
-    if tuple(g.shape) != tuple(f.shape) or tuple(w.shape) != (dw * p, p * dw):
-        msg = f"{name}: g must be {tuple(f.shape)} and W ({dw * p}, {p * dw}), got {tuple(g.shape)}, {tuple(w.shape)}"
+    if tuple(g.shape) != tuple(f.shape):
+        msg = f"{name}: g must be {tuple(f.shape)}, got {tuple(g.shape)}"
+        raise ValueError(msg)
+    if p == 1:
+        if w is not None:
+            msg = f"{name}: the zero-site H_eff takes no MPO matrix"
+            raise ValueError(msg)
+    elif w is None or tuple(w.shape) != (dw * p, p * dw):
+        msg = f"{name}: W must be ({dw * p}, {p * dw}), got {None if w is None else tuple(w.shape)}"
         raise ValueError(msg)
     for label, t in (("f", f), ("W", w), ("g", g), ("v", v)):
-        if t.dtype != torch.complex64 or t.device != v.device:
+        if t is not None and (t.dtype != torch.complex64 or t.device != v.device):
             msg = f"{name}: {label} must be complex64 on {v.device}, got {t.dtype} on {t.device}"
             raise ValueError(msg)
     if not (inner_contiguous(f) and inner_contiguous(g)):
@@ -204,7 +223,7 @@ def lanczos_solve(
     if v.is_conj():
         msg = f"{name} takes v with its conjugation resolved"
         raise ValueError(msg)
-    if not w.is_contiguous() or w.is_conj():
+    if w is not None and (not w.is_contiguous() or w.is_conj()):
         msg = f"{name}: W must be contiguous with its conjugation resolved"
         raise ValueError(msg)
     n = p * chi * chi
@@ -224,11 +243,16 @@ def lanczos_solve(
     scratch = torch.empty((min(kk - 1, 2), b, n), dtype=v.dtype, device=v.device)
     lib = load_library()
     stream = torch.cuda.current_stream(v.device).cuda_stream
-    # v[c, p, q] at c0 sc0 + c1 sc1 + p sp + q sq, c = (c0, c1) for theta
-    sc0, sc1, sp, sq = v.stride()[1:] if five else (v.stride(1), 0, *v.stride()[2:])
+    # v[c, p, q] at c0 sc0 + c1 sc1 + p sp + q sq, c = (c0, c1) for theta, c = 0 for a bond
+    if p == 4:
+        sc0, sc1, sp, sq = v.stride()[1:]
+    elif p == 2:
+        sc0, sc1, sp, sq = v.stride(1), 0, *v.stride()[2:]
+    else:
+        sc0, sc1, sp, sq = 0, 0, *v.stride()[1:]
     err = lib.lanczos_solve_launch(
-        f.data_ptr(), f.stride(0), v.data_ptr(), v.stride(0), sc0, sc1, sp, sq, w.data_ptr(), g.data_ptr(),
-        g.stride(0),
+        f.data_ptr(), f.stride(0), v.data_ptr(), v.stride(0), sc0, sc1, sp, sq, None if w is None else w.data_ptr(),
+        g.data_ptr(), g.stride(0),
         basis.data_ptr(), alphas.data_ptr(), betas.data_ptr(), nrm.data_ptr(), scratch.data_ptr(),
         b, chi, dw, p, kk, int(reorthogonalize), tol, stream,
     )

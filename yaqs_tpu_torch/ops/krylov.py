@@ -5,10 +5,11 @@ reorthogonalizing and the three-term variant) and ``arnoldi_expm_apply``: a
 fixed number ``k`` of iterations with per-trajectory breakdown masking (an
 ``alive`` mask over the batch axis in place of the JAX package's scalar
 one), so a trajectory whose Krylov space closed early keeps the exact
-result.  The TDVP sweep's solves, whose operator is the merged-MPO
-effective Hamiltonian, take :func:`lanczos_expm_heff`: on the card the
-prologue, the ``k`` matvecs and the recurrence are one launch (kernels K1
-and K2, ``kernels/lanczos_solve.py``).  :func:`lanczos_expm_apply` takes
+result.  The TDVP sweeps' solves, whose operator is the merged-MPO
+effective Hamiltonian (or the zero-site one of a bond), take
+:func:`lanczos_expm_heff`: on the card the prologue, the ``k`` matvecs and
+the recurrence are one launch (kernels K1, K2 and K16,
+``kernels/lanczos_solve.py``).  :func:`lanczos_expm_apply` takes
 any matvec and runs the plain loop (CPU tensors only).  Both end in the
 epilogue — the small exponential ``exp(coeff T) e0`` and the basis
 combination — kernel K3 (``kernels/lanczos_epilogue.py``).  Each Arnoldi
@@ -82,7 +83,7 @@ def lanczos_expm_apply(
 
 def lanczos_expm_heff(
     f: torch.Tensor,
-    w: torch.Tensor,
+    w: torch.Tensor | None,
     g: torch.Tensor,
     v: torch.Tensor,
     coeff: complex,
@@ -91,10 +92,12 @@ def lanczos_expm_heff(
 ) -> torch.Tensor:
     """``exp(coeff * H_eff) @ v`` for the merged-MPO effective Hamiltonian,
     per trajectory: ``v`` a two-site block ``theta (B, d, d, chi, chi)``
-    with the merged pair ``w`` (``heff_two_site_merged``) or a site ``(B, d,
-    chi, chi)`` with ``w`` the merged site (``heff_one_site_merged``),
-    environments ``f, g (B, chi, Dw, chi)``.  The solve (K1 or K2), then the
-    epilogue (K3): two launches on the card, ``v`` read in place.  Returns a
+    with the merged pair ``w`` (``heff_two_site_merged``), a site ``(B, d,
+    chi, chi)`` with ``w`` the merged site (``heff_one_site_merged``) or a
+    bond matrix ``(B, chi, chi)`` with ``w`` None (``heff_bond``, the
+    zero-site H_eff), environments ``f, g (B, chi, Dw, chi)``.  The solve
+    (K1, K2 or K16), then the epilogue (K3): two launches on the card, ``v``
+    read in place.  Returns a
     new tensor of ``v``'s shape; a zero start vector comes back unchanged
     (the epilogue passes basis row 0 through, which is ``v`` itself where
     its norm is zero).
