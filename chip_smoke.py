@@ -162,7 +162,27 @@ Phases (any failure raises and exits non-zero):
    exact Lindblad evolution (two-site from x+, one-site from haar-random,
    5 SE + 1e-3); PVM rows within 1e-4 on phase 8's brickwork (the state
    vector), the order-1 TFIM at L=10 (the CPU's c128) and the MCWF local
-   route at L=10 (the CPU's dense route, a ``zz`` row beside them).
+   route at L=10 (the CPU's dense route, a ``zz`` row beside them);
+15. "order 1, subspace split, householder": phase 13's cell with
+   ``_FAST_PATH_EXACT``'s knobs and ``svd_method="subspace"`` (iters 2,
+   ``subspace_orth``): timed, K18 ``subspace_power`` once a two-site bond
+   visit (1,970), a profiled step; the digital swaps cell with the same split
+   (152 launches); the ``mpo`` route's zip-up once (chi=32, against the
+   state vector); 15b the same with cholesky (K19), whose non-finite rows,
+   if any, are reported beside the CPU's complex64 run;
+16. "BUG": TFIM L=100, chi=32, B=32, z and lowering 0.05, 10 steps, exact
+   knobs, ``evolution_mode="bug"`` at orders 1 and 2: timed, the launches of
+   K20 ``masked_qr``, K9, K2, K3 and K8 against the loop's; chi=64 raises
+   ``ValueError``;
+17. "ensemble": 8 members (x+, Neel, six haar-random) of TFIM L=100, chi=64,
+   exact knobs, 10 noiseless steps, Z rows and two correlator pairs:
+   members/s, the K17 bra-stream launches; again with BUG at chi=32;
+18. guards: (a) L=32 order 1 noiseless, card c64 vs CPU c128 with each
+   split and BUG; (b) BUG at L=4, B=4096, orders 1 and 2, against the exact
+   Lindblad evolution; (c) the ensemble at L=10 against the state vector;
+   (d) the order-1 cell's PVM rows at L=100, card vs CPU c128, relative.
+   Phase 3 holds K18/K19 (``subspace_power``), K20 (``masked_qr``), K17's
+   bra stream (``op_scan_bra``) and K9 at BUG's (32, 192, 128).
 
 The last two lines of standard output are the kernel table and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come on
@@ -240,10 +260,13 @@ TABLE_PATH = dict(ns_polar="analog_1site", lanczos_epilogue="analog", bond_gate=
                   sv_mpo_matvec="mcwf", arnoldi_step="mcwf", arnoldi_epilogue="mcwf", svd_jacobi="analog_exact",
                   householder_qr="analog_exact", householder_qr_r="analog_exact", subspace_split="analog",
                   ns_canon="analog",
-                  pair_weights="analog_two_site", lanczos_solve0="analog_1site", op_scan="analog_order1")
+                  pair_weights="analog_two_site", lanczos_solve0="analog_1site", op_scan="analog_order1",
+                  subspace_power_householder="analog_householder", subspace_power_cholesky="analog_cholesky",
+                  masked_qr="analog_bug", op_scan_bra="ensemble")
 # the phases whose main-path launch counts the JSON file keeps per kernel
 LAUNCH_PATHS = ("analog", "digital", "analog_xxz", "digital_window", "mcwf", "analog_exact", "analog_two_site",
-                "digital_two_site", "mcwf_two_site", "analog_order1", "analog_1site", "analog_dynamic")
+                "digital_two_site", "mcwf_two_site", "analog_order1", "analog_1site", "analog_dynamic",
+                "analog_householder", "analog_cholesky", "analog_bug", "ensemble")
 # the order-1 phases (13, 13b, 13c): phase 4's cell at order 1 with four PVM rows beside Z, and its
 # one-site and dynamic TDVP from a haar-random start of this numpy seed
 ORDER1_PVM = ("0" * 100, "1" * 100, "01" * 50, "0" * 50 + "1" * 50)
@@ -254,6 +277,28 @@ PVM_TOL = 1e-4  # phase 14c: PVM rows, absolute
 # order-1 phase's PVM rows, the digital width's, and a ragged shape
 OP_SCAN_SHAPES = {"zz": (32, 100, 64, "zz"), "pvm": (32, 100, 64, "pvm"), "digital": (512, 20, 32, "pvm"),
                   "ragged": (5, 9, 37, "mixed")}
+# phases 15-18: _FAST_PATH_EXACT with svd_method="subspace" (the JAX package's default
+# subspace_qr="householder", subspace_orth on), BUG's chi on the card (its right legs at 2 chi <= 64),
+# the digital swaps cell's bond splits (one a gate), the ensemble guard's limits (TDVP; BUG, whose own
+# error at L=10, chi=16 is about 0.02 in complex128)
+POWER = dict(svd_method="subspace", subspace_iters=2, subspace_qr="householder", subspace_orth=True,
+             canon_method="qr", lanczos_reorth=True)
+BUG_CHI = 32
+DIGITAL_SPLITS = 152
+ENSEMBLE_TOL = 1e-4
+BUG_DENSE_TOL = 0.05
+# K18/K19 in phase 3: (B, rows, cols, chi, left isometric) of the analog split (both
+# distributions), the digital one, the mpo route's zip-up at chi=32 and a ragged shape
+POWER_SPLIT_SHAPES = {"analog_right": (32, 128, 128, 64, True), "analog_left": (32, 128, 128, 64, False),
+                      "digital": (512, 64, 64, 32, True), "zipup": (32, 64, 128, 32, True),
+                      "ragged": (3, 37, 21, 9, True)}
+LIBRARY_CALLS = dict(householder="torch.linalg.qr and matmul a step (the plain version), host-paced",
+                     cholesky="torch.linalg.cholesky_ex, solve_triangular and matmul a step (the plain version), "
+                              "host-paced")
+# K20: BUG's prep at chi=32, the guards' (B=4096, chi=16) and a ragged shape; K17's bra
+# stream: (members, kets a member, L, chi) of the ensemble cell and a ragged shape
+MASKED_QR_SHAPES = {"bug": (32, 64, 32), "guard": (4096, 32, 16), "ragged": (3, 37, 21)}
+BRA_SHAPES = {"ensemble": (8, 2, 100, 64), "ragged": (3, 3, 9, 37)}
 # the products of the polar factor's schedule in K4, K5 and K6 (ns_polar.cuh), for every shape
 NS_PRODUCTS = "3xTF32 on the tensor cores (mma.sync m16n8k8, FP32 accumulators)"
 NEWTON_TOL = 1e-4  # K5 and K6 against their plain versions (relative; the Newton steps amplify the summation order)
@@ -799,7 +844,8 @@ def phase_kernels(dev):
     )
     log(f"[time] phase 3, K4, K3, K10, K7, K11: {time.perf_counter() - t_start:.1f} s")
     for name, fn in (("TDVP", tdvp_kernel_rows), ("MCWF", mcwf_kernel_rows), ("K9, K14", decomp_kernel_rows),
-                     ("K5, K6", newton_kernel_rows), ("K15", two_site_kernel_rows), ("K16, K17", order1_kernel_rows)):
+                     ("K5, K6", newton_kernel_rows), ("K15", two_site_kernel_rows), ("K16, K17", order1_kernel_rows),
+                     ("K18, K19, K20, K17's bra stream", port16_kernel_rows)):
         t_start = time.perf_counter()
         rows.update(fn(dev, randc, gen))
         log(f"[time] phase 3, {name}: {time.perf_counter() - t_start:.1f} s")
@@ -864,6 +910,7 @@ def decomp_kernel_rows(dev, randc, gen):
     for key, (bs, r, c, vectors) in {"analog": (b, 2 * chi, 2 * chi, True), "digital": (nd, 2 * cd, 2 * cd, True),
                                      "values": (b, chi, chi, False), "zipup": (b, 4 * chi, 2 * chi, True),
                                      "zipup_scratch": (80, 4 * chi, 2 * chi, True),
+                                     "bug": (b, 6 * BUG_CHI, 4 * BUG_CHI, True),
                                      "tall_scratch": (2, 4096, 2 * chi, True)}.items():
         k = min(r, c)
         checks = {}
@@ -1565,6 +1612,183 @@ def order1_kernel_rows(dev, randc, gen):
         "op_scan": dict(source="yaqs_tpu_torch/kernels/csrc/op_scan.cu", replaces="yaqs_tpu/core/observables.py:229",
                         **rows["op_scan"]["pvm"], **rows["op_scan"]),
     }
+
+
+def power_bound(b, rows, cols, chi, iters, left_isometric, method):
+    """K18/K19's least time: m read once, omega and the floor's noise, the
+    factors and s written once; 2 iters + 2 products of n nc chi complex
+    MACs and iters + 1 orthonormalizations (householder: a QR and its Q,
+    2 (n chi^2 - chi^3 / 3); cholesky: the Gram n chi^2, the factor chi^3 / 6
+    and the substitution n chi^2 / 2)."""
+    n, nc = (rows, cols) if left_isometric else (cols, rows)
+    qr = 2 * (n * chi * chi - chi**3 // 3) if method == "householder" else n * chi * chi * 3 // 2 + chi**3 // 6
+    cmacs = b * ((2 * iters + 2) * n * nc * chi + (iters + 1) * qr)
+    nbytes = b * (rows * cols + rows * chi + chi * cols) * C64 + b * chi * 4 + nc * chi * C64 + (iters + 1) * n * chi * 4
+    return nbytes, cmacs * CMAC_FLOPS
+
+
+def power_errors(got, plain, exact):
+    """The kernel's and the plain complex64 version's relative distances
+    from the complex128 plain version: left @ right, s and the isometric
+    factor's defect."""
+    def dist(lr, ref):
+        return ((lr[0] @ lr[1]).to(torch.complex128) - ref[0] @ ref[1]).abs().max().item() / (
+            (ref[0] @ ref[1]).abs().max().item())
+    out = {}
+    for name, res in (("kernel", got), ("plain", plain)):
+        out[f"{name}_product"] = dist(res, exact)
+        out[f"{name}_s"] = ((res[2].double() - exact[2]).abs().max() / exact[2].abs().max()).item()
+    return out
+
+
+def port16_kernel_rows(dev, randc, gen):
+    """K18 and K19 ``subspace_power`` (the power-scheme subspace split,
+    householder and cholesky) at the analog split's (32, 128, 128), chi=64,
+    both distributions, the digital (512, 64, 64), chi=32, the ``mpo``
+    route's zip-up (32, 64, 128) at chi=32 and a ragged (3, 37, 21), chi=9:
+    K18 within 1e-4 of its plain version (left @ right and s, relative), K19
+    within 4x the plain complex64 version's own distance from complex128
+    plus 1e-5 (CholQR loses orthogonality as cond^2 eps32 in either); the
+    padded rank-4 analog block: K18 finite and isometric, K19's non-finite
+    matrices beside the CPU's complex64 plain version's on the same input.
+    K20 ``masked_qr`` at BUG's prep (32, 64, 32), the guards' (4096, 32, 16)
+    and a ragged (3, 37, 21), with zero columns: Q and R within 1e-4, the
+    same masks.  K17's bra stream (``op_scan_bra``) at the ensemble's
+    (8 members, 2 kets, L=100, chi=64; phase 17's pairs) and a ragged (3, 3
+    kets, L=9, chi=37, 5 chains with projectors): each value within 1e-4 of
+    itself.  The ragged shapes are held, not timed."""
+    from yaqs_tpu_torch.analog.ensemble import correlator_tables, fold_terms, prepare_phi
+    from yaqs_tpu_torch.core.mps_ops import normalize_canonical
+    from yaqs_tpu_torch.kernels.masked_qr import masked_qr, masked_qr_plain
+    from yaqs_tpu_torch.kernels.op_scan import op_scan, op_scan_plain
+    from yaqs_tpu_torch.kernels.subspace_power import subspace_power, subspace_power_plain
+    import yaqs_tpu_torch as yt
+
+    rows = {f"subspace_power_{m}": dict(max_abs_err=0.0, non_finite={}) for m in ("householder", "cholesky")}
+    rows.update(masked_qr=dict(max_abs_err=0.0), op_scan_bra=dict(max_abs_err=0.0))
+    c128 = torch.complex128
+    for key, (b, r, c, chi, liso) in POWER_SPLIT_SHAPES.items():
+        m = randc(b, r, c)
+        omega = randc(c if liso else r, chi)
+        for method in ("householder", "cholesky"):
+            name = f"subspace_power_{method}"
+            args = (chi, POWER["subspace_iters"], True, liso, method)
+            got = subspace_power(m, omega, *args)
+            plain = subspace_power_plain(m, omega, *args)
+            torch.cuda.synchronize()
+            errs = power_errors(got, plain, subspace_power_plain(m.to(c128), omega.to(c128), *args))
+            rel = dict(product=rel_err(got[0] @ got[1], plain[0] @ plain[1]), s=rel_err(got[2], plain[2]))
+            finite = bool(all(torch.isfinite(x).all() for x in got))
+            log(f"[phase 3] {name} {key} (B={b}, {r}x{c}, chi={chi}, left isometric {liso}): against the plain "
+                f"version {rel}; from complex128 " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f"; finite {finite}")
+            if method == "householder":
+                ok = max(rel.values()) <= DECOMP_TOL
+            else:
+                ok = all(errs[f"kernel_{q}"] <= 4 * errs[f"plain_{q}"] + 1e-5 for q in ("product", "s"))
+            check(finite and ok, f"{name} ({key}) disagrees with its plain version: {rel}, {errs}")
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], (got[0] @ got[1] - plain[0] @ plain[1])
+                                            .abs().max().item())
+            if key == "ragged":
+                continue
+            nbytes, flops = power_bound(b, r, c, chi, POWER["subspace_iters"], liso, method)
+            t = timings(f"{name} {key} (B={b}, {r}x{c}, chi={chi})", lambda m=m, o=omega, a=args: subspace_power(m, o, *a),
+                        lambda m=m, o=omega, a=args: subspace_power_plain(m, o, *a),
+                        lambda m=m, o=omega, a=args: subspace_power_plain(m, o, *a), (name.rsplit("_", 1)[0],),
+                        nbytes, flops, slow_plain=True)
+            rows[name][key] = dict(shape=[b, r, c, chi], left_isometric=liso, rel_errs=rel, from_c128=errs,
+                                   library_call=LIBRARY_CALLS[method], **t)
+    # the padded analog block (rank 4 in a (5, 65) corner): K18 finite and isometric; K19's non-finite
+    # matrices on the card and in the CPU's complex64 plain version on the same input
+    b, r, c, chi, _ = POWER_SPLIT_SHAPES["analog_right"]
+    m = svd_inputs("padded", b, r, c, dev, randc)
+    omega = randc(c, chi)
+    for method in ("householder", "cholesky"):
+        name = f"subspace_power_{method}"
+        args = (chi, POWER["subspace_iters"], True, True, method)
+        left, right, s = subspace_power(m, omega, *args)
+        torch.cuda.synchronize()
+        bad = int((~torch.isfinite(left).all(dim=(1, 2))).sum().item())
+        cpu = subspace_power_plain(m.cpu(), omega.cpu(), *args)
+        bad_cpu = int((~torch.isfinite(cpu[0]).all(dim=(1, 2))).sum().item())
+        iso = (left.mH @ left - torch.eye(chi, device=dev)).abs().max().item()
+        iso_cpu = (cpu[0].mH @ cpu[0] - torch.eye(chi)).abs().max().item()
+        log(f"[phase 3] {name} on padded rank-4 blocks (B={b}, {r}x{c}, chi={chi}): non-finite matrices {bad} of {b} "
+            f"on the card, {bad_cpu} of {b} in the CPU's complex64 plain version; isometry defect {iso:.3e} (the "
+            f"CPU's {iso_cpu:.3e})")
+        rows[name]["non_finite"] = dict(card=bad, cpu_complex64=bad_cpu, of=b, isometry=iso, cpu_isometry=iso_cpu)
+        if method == "householder":
+            check(bad == 0 and iso <= DECOMP_TOL, f"{name} on padded blocks: {bad} non-finite, defect {iso}")
+
+    for key, (b, n, k) in MASKED_QR_SHAPES.items():
+        a = randc(b, n, k)
+        a[0, :, k // 2] = 0  # a zero column
+        a[-1, :, 1:] = 0  # a rank-1 block
+        q, r = masked_qr(a)
+        q_ref, r_ref = masked_qr_plain(a)
+        torch.cuda.synchronize()
+        masks = torch.equal(torch.diagonal(r, dim1=-2, dim2=-1) == 0, torch.diagonal(r_ref, dim1=-2, dim2=-1) == 0)
+        err = max(rel_err(q, q_ref), rel_err(r, r_ref))
+        finite = bool(torch.isfinite(q).all() and torch.isfinite(r).all())
+        log(f"[phase 3] masked_qr {key} (B={b}, {n}x{k}): rel err {err:.3e}, the same masks {masks}, finite {finite}")
+        check(finite and masks and err <= DECOMP_TOL, f"masked_qr ({key}) disagrees with its plain version: {err}")
+        rows["masked_qr"]["max_abs_err"] = max(rows["masked_qr"]["max_abs_err"], (q - q_ref).abs().max().item(),
+                                               (r - r_ref).abs().max().item())
+        if key == "ragged":
+            continue
+        # a QR and its Q: 2 (n k^2 - k^3 / 3) complex MACs; the block in, Q and R out
+        t = timings(f"masked_qr {key} (B={b}, {n}x{k})", lambda a=a: masked_qr(a), lambda a=a: masked_qr_plain(a),
+                    lambda a=a: torch.linalg.qr(a), ("masked_qr",), b * (2 * n * k + k * k) * C64,
+                    b * 2 * (n * k * k - k**3 // 3) * CMAC_FLOPS, slow_plain=True)
+        rows["masked_qr"][key] = dict(shape=[b, n, k], library_call="torch.linalg.qr (one call)", **t)
+
+    for key, (b, npk, length, chi) in BRA_SHAPES.items():
+        psi = normalize_canonical(random_mps(gen, dev, b, length, chi).cpu().to(c128))[0]
+        if key == "ensemble":  # phase 17's pairs: B = Z_50 and X_50, A = Z_50 and Z_49 Z_50
+            pairs = [(yt.Observable("z", length // 2), yt.Observable("z", length // 2)),
+                     (yt.Observable("zz", [length // 2 - 1, length // 2]), yt.Observable("x", length // 2))]
+        else:
+            rng = np.random.default_rng(chi)
+            pairs = [(yt.Observable(rng.standard_normal((4, 4)) + 0j, [1, 6]), yt.Observable("x", 2)),
+                     (yt.Observable("zz", [3, 4]), yt.Observable("y", 0)), (yt.Observable("x", 8), yt.Observable("z", 5))]
+        mt_ops, mt_sites, b_ops = correlator_tables(pairs, 2)
+        kets = torch.stack([prepare_phi(psi, torch.as_tensor(op), site) for op, site in b_ops], dim=1)
+        ops = fold_terms(torch.as_tensor(mt_ops), torch.as_tensor(mt_sites), length).to(torch.complex64).to(dev)
+        ket_of = torch.arange(len(pairs), dtype=torch.int32).repeat_interleave(mt_ops.shape[1]).to(dev)
+        sel = torch.full(ops.shape[:2], -1, dtype=torch.int32, device=dev)
+        bra, kets = psi.to(torch.complex64).to(dev), kets.to(torch.complex64).contiguous().to(dev)
+        got = op_scan(kets, sel, ops, bra=bra, ket_of=ket_of)
+        ref = op_scan_plain(kets, sel, ops, bra, ket_of)
+        torch.cuda.synchronize()
+        scale = torch.maximum(ref.abs(), 1e-3 * ref.abs().amax())
+        err = ((got - ref).abs() / scale).max().item()
+        nc = sel.shape[0]
+        log(f"[phase 3] op_scan_bra {key} (B={b}, {npk} kets, L={length}, chi={chi}, {nc} chains): largest error "
+            f"relative to its value {err:.3e} (limit {OP_SCAN_TOL}); |values| {ref.abs().min().item():.3e} to "
+            f"{ref.abs().max().item():.3e}")
+        check(bool(torch.isfinite(got).all()) and err <= OP_SCAN_TOL, f"op_scan_bra ({key}) disagrees: {err}")
+        rows["op_scan_bra"]["max_abs_err"] = max(rows["op_scan_bra"]["max_abs_err"], (got - ref).abs().max().item())
+        if key == "ragged":
+            continue
+        # both site streams once (the bra, every ket), the tables, the values; 2 d chi^3 + d^2 chi^2 a site and chain
+        nbytes = b * (npk + 1) * length * 2 * chi * chi * C64 + ops.numel() * C64 + sel.numel() * 4 + b * nc * C64
+        cmacs = b * nc * length * (4 * chi**3 + 4 * chi * chi)
+        t = timings(f"op_scan_bra {key} (B={b}, {npk} kets, L={length}, chi={chi}, {nc} chains)",
+                    lambda k=kets, s=sel, o=ops, br=bra, ko=ket_of: op_scan(k, s, o, bra=br, ket_of=ko),
+                    lambda k=kets, s=sel, o=ops, br=bra, ko=ket_of: op_scan_plain(k, s, o, br, ko),
+                    lambda k=kets, s=sel, o=ops, br=bra, ko=ket_of: op_scan_plain(k, s, o, br, ko), ("op_scan",),
+                    nbytes, cmacs * CMAC_FLOPS)
+        rows["op_scan_bra"][key] = dict(shape=[b, npk, length, chi, nc], rel_err=err,
+                                        library_call="the plain loop's einsums (3 a site), host-paced", **t)
+    main = dict(subspace_power_householder="analog_right", subspace_power_cholesky="analog_right", masked_qr="bug",
+                op_scan_bra="ensemble")
+    sources = dict(subspace_power_householder="subspace_power.cu", subspace_power_cholesky="subspace_power.cu",
+                   masked_qr="masked_qr.cu", op_scan_bra="op_scan.cu")
+    replaces = dict(subspace_power_householder="yaqs_tpu/ops/decomp.py:228",
+                    subspace_power_cholesky="yaqs_tpu/ops/decomp.py:239", masked_qr="yaqs_tpu/methods/bug.py:35",
+                    op_scan_bra="yaqs_tpu/analog/ensemble.py:41")
+    return {name: dict(source=f"yaqs_tpu_torch/kernels/csrc/{sources[name]}", replaces=replaces[name],
+                       **row[main[name]], **row) for name, row in rows.items()}
 
 
 def hermitian_heff(f, g, w, v, p):
@@ -2948,6 +3172,399 @@ def phase_order1_guards(dev):
     return out
 
 
+def split_plan(steps, chi, method):
+    """Phase 13's order-1 plan with ``_FAST_PATH_EXACT``'s knobs and the
+    subspace split, ``method`` its QR: what a JAX user off a TPU gets on
+    asking for ``svd_method="subspace"`` (iters 2, ``subspace_orth``)."""
+    return order1_plan(steps, chi, "2site", {**POWER, "subspace_qr": method})
+
+
+def cpu_complex64_report(label, t0, w, noise, obs, plan, steps):
+    """The port's complex64 run on the CPU (B=1, ``steps`` steps) from the
+    same start: which columns are finite, for a non-finite card result."""
+    from yaqs_tpu_torch.analog.run import run_tjm_batch
+
+    t_cpu = time.perf_counter()
+    cpu = run_tjm_batch(t0, w, noise, obs, dataclasses.replace(plan, num_steps=steps), batch=1, device="cpu",
+                        dtype=torch.complex64, seed=0)
+    finite = torch.isfinite(cpu).all(dim=1)[0].tolist()
+    log(f"[{label}] the port's complex64 run on the CPU from the same start (B=1, {steps} steps): finite columns "
+        f"{finite} ({time.perf_counter() - t_cpu:.1f} s)")
+    return finite
+
+
+def phase_power_split(dev, method="householder"):
+    """15 (householder) and 15b (cholesky): phase 13's cell (TFIM L=100,
+    chi=64, B=32, z and lowering 0.05, 10 steps, c64, order 1, two-site TDVP,
+    Z and four PVM rows) with ``_FAST_PATH_EXACT``'s knobs and
+    ``svd_method="subspace"`` (iters 2, ``subspace_orth``, reorthogonalized
+    Lanczos, QR canonicalization): timed, K18 (K19) launched once a two-site
+    bond visit and K5 never, a profiled step.  Then the digital swaps cell
+    (n=20, chi=32, B=512, 256 shots) with the same split (one K18/K19 launch
+    a bond gate, 152), and with householder the ``mpo`` route's zip-up once
+    (phase 8's circuit with its long-range gates at chi=32).  A non-finite
+    cholesky result is reported beside the port's CPU complex64 run, not
+    failed (CholQR in complex64 on padded states)."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch import kernels
+    from yaqs_tpu_torch.analog.run import run_tjm_batch
+
+    label = "phase 15" if method == "householder" else "phase 15b"
+    name = f"subspace_power_{method}"
+    length, chi, b, steps = BENCH["length"], BENCH["chi"], BENCH["batch"], BENCH["steps"]
+    inputs = order1_inputs(length, chi, "x+", BENCH["gamma"])
+    w, t0, obs, noise = inputs
+    plan = split_plan(steps, chi, method)
+    res, out = timed_order1(label, dev, plan, inputs, b)
+    launches = out["launches"]
+    expected = {name: (2 * (length - 2) + 1) * steps, "subspace_split": 0, "op_scan": steps + 1}
+    log(f"[{label}] launches " + ", ".join(f"{k} {launches[k]}" for k in expected) + f" (the loop's: {expected})")
+    for k, count in expected.items():
+        check(launches[k] == count, f"[{label}] {k} launched {launches[k]} times, the loop says {count}")
+    bad = ~torch.isfinite(res).all(dim=1)  # (B, T)
+    out["non_finite_trajectories"] = int(bad.any(dim=1).sum().item())
+    if method == "householder" or not bad.any():
+        check_order1_rows(label, res, length, steps, len(ORDER1_PVM))
+        out["mean_z_final"] = res[:, :length, -1].mean().item()
+    else:
+        first = int(bad.any(dim=0).nonzero()[0].item())
+        log(f"[{label}] non-finite rows on the card: {out['non_finite_trajectories']} of {b} trajectories, from "
+            f"column {first} (CholQR in complex64 on the padded states' Grams)")
+        out["first_non_finite_column"] = first
+        out["cpu_complex64_finite_columns"] = cpu_complex64_report(label, t0, w, noise, obs, plan, min(max(first, 1), 2))
+    out["profile"] = profile_run(f"{label}, one step", lambda: run_tjm_batch(
+        t0, w, noise, obs, dataclasses.replace(plan, num_steps=1), batch=b, device=dev, dtype=torch.complex64),
+        steps=1)
+    out["profile"].pop("names")
+
+    n, chi_d, b_d, shots = DIGITAL["qubits"], DIGITAL["chi"], DIGITAL["num_traj"], DIGITAL["shots"]
+    circ, noise_d, obs_d, t0_d = digital_bench_inputs(n, chi_d)
+    kw = dict(max_bond_dim=chi_d, sample_layers=True, gate_mode="swaps",
+              config=digital_config(chi_d, {**POWER, "subspace_qr": method}), device=dev, dtype=torch.complex64)
+    yt.run_digital_batch(circ, t0_d, noise_d, obs_d, num_traj=8, shots=8, seed=DIGITAL["seed"] + 1, **kw)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    res_d = yt.run_digital_batch(circ, t0_d, noise_d, obs_d, num_traj=b_d, shots=shots, seed=DIGITAL["seed"], **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_start
+    dl = kernels.launch_counts()
+    z = res_d.trajectories
+    finite = bool(torch.isfinite(z).all())
+    out["digital"] = dict(seconds=seconds, traj_per_s=b_d / seconds, launches=dl, finite=finite)
+    log(f"[{label}] digital swaps n={n} chi={chi_d} B={b_d} {shots} shots with the {method} split: {seconds:.4f} s, "
+        f"{b_d / seconds:.2f} traj/s; {name} launches {dl[name]} (one a bond gate: {DIGITAL_SPLITS}); finite {finite}")
+    check(dl[name] == DIGITAL_SPLITS and dl["subspace_split"] == 0, f"[{label}] digital launches {dl}")
+    if method == "householder":
+        check(finite and z.abs().max().item() <= 1.0 + 1e-3, f"[{label}] digital rows non-finite or out of range")
+        # the mpo route's zip-up at chi=32: phase 8's circuit with its long-range cx and ccx (Dw 4 and 5)
+        n_o, chi_o = 10, 32
+        text = brickwork_qasm(n_o, 8).splitlines()
+        mpo_text = "\n".join(text[:-1] + ["cx q[0],q[9];", "ccx q[3],q[4],q[5];", "cx q[7],q[2];", text[-1]])
+        p = np.abs(statevector(yt.load_circuit(mpo_text))) ** 2
+        z_exact = np.array([p.take(0, axis=q).sum() - p.take(1, axis=q).sum() for q in range(n_o)])
+        obs_o = yt.compile_observables([yt.Observable("z", i) for i in range(n_o)], n_o, 2)
+        kernels.reset_launch_counts()
+        res_o = yt.run_digital_batch(mpo_text, yt.named_product_state("zeros", n_o, chi_o), None, obs_o,
+                                     max_bond_dim=chi_o, config=digital_config(chi_o, POWER), device=dev,
+                                     dtype=torch.complex64)
+        zl = kernels.launch_counts()[name]
+        dz = float(np.abs(res_o.trajectories[0, :, -1].double().cpu().numpy() - z_exact).max())
+        log(f"[{label}] mpo route (zip-up) n={n_o} chi={chi_o} with the householder split: max|d<Z>| = {dz:.3e} "
+            f"(limit {ORACLE_TOL}); {name} launches {zl}")
+        check(zl > 0 and dz <= ORACLE_TOL, f"[{label}] the zip-up run: {zl} launches, {dz}")
+        out["zipup"] = dict(max_abs_dz=dz, launches=zl)
+    return out
+
+
+def phase_power_split_cholesky(dev):
+    return phase_power_split(dev, "cholesky")
+
+
+def bug_plan(steps, chi, order):
+    return dataclasses.replace(order1_plan(steps, chi, "2site", EXACT), order=order, evolution_mode="bug")
+
+
+def phase_bug(dev):
+    """16. "BUG": TFIM L=100, chi=32, B=32, z and lowering 0.05, 10 steps,
+    c64, exact knobs, Z and four PVM rows, ``evolution_mode="bug"`` at order
+    1, then order 2: timed, the launches of K20 (L-1 a step), K9 (the
+    enlargements and ``compress``'s splits, 2 (L-1)), K2 and K3 (L) and K8
+    (2 (L-1)) against the loop's, a profiled step of order 1.  chi=64 raises
+    ``ValueError`` (its right legs at 128)."""
+    from yaqs_tpu_torch.analog.run import run_tjm_batch
+
+    length, b, steps, chi = BENCH["length"], BENCH["batch"], BENCH["steps"], BUG_CHI
+    inputs = order1_inputs(length, chi, "x+", BENCH["gamma"])
+    w, t0, obs, noise = inputs
+    out = {}
+    for order in (1, 2):
+        plan = bug_plan(steps, chi, order)
+        res, row = timed_order1(f"phase 16, order {order}", dev, plan, inputs, b)
+        check_order1_rows(f"phase 16, order {order}", res, length, steps, len(ORDER1_PVM))
+        launches = row["launches"]
+        expected = dict(masked_qr=(length - 1) * steps, svd_jacobi=2 * (length - 1) * steps,
+                        lanczos_solve1=length * steps, lanczos_epilogue=length * steps,
+                        env_update=2 * (length - 1) * steps, lanczos_solve2=0)
+        log(f"[phase 16] order {order} launches " + ", ".join(f"{k} {launches[k]}" for k in expected)
+            + f" (the loop's: {expected})")
+        for k, count in expected.items():
+            check(launches[k] == count, f"[phase 16] order {order}: {k} launched {launches[k]} times, not {count}")
+        row["mean_z_final"] = res[:, :length, -1].mean().item()
+        if order == 1:
+            row["profile"] = profile_run("phase 16, order 1, one step", lambda plan=plan: run_tjm_batch(
+                t0, w, noise, obs, dataclasses.replace(plan, num_steps=1), batch=b, device=dev,
+                dtype=torch.complex64), steps=1)
+            row["profile"].pop("names")
+        out[f"order{order}"] = row
+    w64, t64, obs64, noise64 = order1_inputs(length, 64, "x+", BENCH["gamma"])
+    try:
+        run_tjm_batch(t64, w64, noise64, obs64, bug_plan(1, 64, 1), batch=2, device=dev, dtype=torch.complex64)
+        raised = None
+    except ValueError as err:
+        raised = str(err)
+    log(f"[phase 16] BUG at chi=64 raises ValueError: {raised is not None} ({raised})")
+    check(raised is not None, "BUG at chi=64 ran on the card; its right legs at 128 exceed the kernels' chi <= 64")
+    out["chi64_raises"] = raised
+    out["launches"] = out["order1"]["launches"]
+    return out
+
+
+def ensemble_inputs(length, chi, members_haar=range(6), haar_chi=None):
+    """The ensemble cell's members (x+, Neel, then haar-random from the numpy
+    seeds given, at ``haar_chi`` padded to ``chi``), the MPO, Z at every
+    site and the two pairs <Z_c(t) Z_c(0)> and <(Z_(c-1) Z_c)(t) X_c(0)>."""
+    import yaqs_tpu_torch as yt
+
+    def padded(t):
+        t = np.asarray(t)
+        out = np.zeros(t.shape[:2] + (chi, chi), dtype=np.complex128)
+        out[:, :, : t.shape[2], : t.shape[3]] = t
+        return out
+
+    members = [np.asarray(yt.named_product_state(s, length, chi)) for s in ("x+", "Neel")]
+    members += [padded(haar_start(length, haar_chi or chi, seed)) for seed in members_haar]
+    c = length // 2
+    pairs = [(yt.Observable("z", c), yt.Observable("z", c)), (yt.Observable("zz", [c - 1, c]), yt.Observable("x", c))]
+    obs = yt.compile_observables([yt.Observable("z", i) for i in range(length)], length, 2)
+    return members, yt.ising_mpo(length, 1.0, 0.5), obs, pairs
+
+
+def ensemble_plan(steps, chi, mode, krylov_dim=BENCH["krylov_dim"], threshold=1e-6):
+    import yaqs_tpu_torch as yt
+
+    cfg = yt.TDVPConfig(krylov_dim=krylov_dim, trunc_mode="discarded_weight", threshold=threshold, max_bond_dim=chi,
+                        mode="2site", **EXACT)
+    return yt.TrajectoryPlan(dt=BENCH["dt"], num_steps=steps, evolution_mode=mode, evolution=cfg)
+
+
+def phase_ensemble(dev):
+    """17. "ensemble": TFIM L=100, chi=64, two-site TDVP, exact knobs,
+    noiseless, 10 steps; 8 members (x+, Neel, six haar-random from numpy
+    seeds 0-5), Z at every site, the pairs <Z_50(t) Z_50(0)> and
+    <(Z_49 Z_50)(t) X_50(0)>: members/s, the K17 bra launches (one a
+    measurement), finite rows and correlators within [-1, 1] in modulus;
+    then once more with ``evolution_mode="bug"`` at chi=32."""
+    from yaqs_tpu_torch import kernels
+    from yaqs_tpu_torch.analog.run import run_ensemble_batch
+
+    length, steps = BENCH["length"], BENCH["steps"]
+    out = {}
+    for mode, chi in (("tdvp", BENCH["chi"]), ("bug", BUG_CHI)):
+        members, w, obs, pairs = ensemble_inputs(length, chi)
+        plan = ensemble_plan(steps, chi, mode)
+        kw = dict(pairs=pairs, device=dev, dtype=torch.complex64)
+        run_ensemble_batch(members[:2], w, obs, dataclasses.replace(plan, num_steps=1), **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t_start = time.perf_counter()
+        res = run_ensemble_batch(members, w, obs, plan, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t_start
+        launches = kernels.launch_counts()
+        m = len(members)
+        row = dict(seconds=seconds, members_per_s=m / seconds, ms_per_step=1e3 * seconds / steps,
+                   peak_bytes=torch.cuda.max_memory_allocated(), launches=launches,
+                   correlators_final=[[x.real, x.imag] for x in res.correlators[:, -1].tolist()])
+        log(f"[phase 17] ensemble ({mode}) L={length} chi={chi} {m} members, {len(pairs)} pairs, {steps} steps: "
+            f"{seconds:.3f} s, {row['members_per_s']:.4f} members/s, {row['ms_per_step']:.1f} ms/step, peak "
+            f"{row['peak_bytes'] / 2**20:.1f} MiB; op_scan_bra launches {launches['op_scan_bra']} (one a "
+            f"measurement: {steps + 1}); final correlators {row['correlators_final']}")
+        check(launches["op_scan_bra"] == steps + 1, f"[phase 17] op_scan_bra launched {launches['op_scan_bra']}")
+        check(tuple(res.per_member.shape) == (m, length, steps + 1) and bool(torch.isfinite(res.per_member).all()),
+              f"[phase 17] rows misshaped or non-finite: {tuple(res.per_member.shape)}")
+        check(bool(torch.isfinite(res.correlators).all()) and res.correlators.abs().max().item() <= 1.0 + 1e-3,
+              "[phase 17] correlators non-finite or above 1 in modulus")
+        if mode == "bug":
+            check(launches["masked_qr"] > 0, "[phase 17] the BUG ensemble launched no masked_qr")
+        out[mode] = row
+    out["launches"] = out["tdvp"]["launches"]
+    return out
+
+
+def perturbed(t0, scale, seed=5):
+    """``t0`` with a relative ``scale`` of noise on its nonzero entries:
+    the CPU run's own sensitivity where BUG's enlarged basis is not unique."""
+    t0 = np.asarray(t0)
+    noise = np.random.default_rng(seed).standard_normal(t0.shape) * (np.abs(t0) > 0)
+    return t0 + scale * noise * np.abs(t0).max()
+
+
+def phase_port16_guards(dev):
+    """18. (a) Noiseless L=32, chi=32, order 1 from Neel, 10 steps: the
+    householder and the cholesky split, the card's c64 against the port's
+    c64 on the CPU, max|dZ| <= 1e-3 (both lie some 1e-3 to 1e-2 from
+    complex128 there: the power scheme in complex64; a non-finite cholesky
+    result is reported), and BUG at chi=16 against the CPU's c128, within
+    1e-3 or 4x the CPU run's own change under a 1e-7 change of its start,
+    whichever is larger (the identity augmentation's degenerate values
+    straddle the 2 chi cut, where rounding picks the surviving directions).  (b) BUG, L=4,
+    chi=4, z and lowering 0.1, B=4096, orders 1 and 2: within 5 SE + 1e-3 of
+    the exact Lindblad evolution.  (c) The ensemble at L=10, chi=16 (x+,
+    Neel, zeros, haar-random at chi 2; k=8), both pairs: TDVP within 1e-4
+    of the state vector's <psi0| U^dag A U B |psi0>; BUG within 0.05 of it
+    (its own error here, about 0.02 in complex128) and the card within 1e-3
+    or 4x the CPU c128 run's own change of its CPU c128 run.  (d) ROADMAP
+    queue 3 item 5: the order-1 cell's PVM rows at L=100 (noiseless, B=1,
+    fast knobs, from x+; four bitstrings far above float32's subnormals)
+    on the card against the port's CPU complex128 run, relative, with P
+    printed, and the card's final state evaluated in complex128 beside
+    K17's complex64 rows."""
+    import scipy.linalg
+
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch import kernels
+    from yaqs_tpu_torch.analog.embedding import embed_operator
+    from yaqs_tpu_torch.analog.lindblad import noise_model_jump_ops
+    from yaqs_tpu_torch.analog.run import run_ensemble_batch, run_tjm_batch
+
+    out = {}
+    length, chi, steps, dt = 32, 32, 10, BENCH["dt"]
+    for key, method in (("householder", "householder"), ("cholesky", "cholesky"), ("bug", None)):
+        c = 16 if method is None else chi
+        w, t0, obs, _ = order1_inputs(length, c, "Neel", bitstrings=())
+        plan = bug_plan(steps, c, 1) if method is None else split_plan(steps, c, method)
+        card = run_tjm_batch(t0, w, None, obs, plan, device=dev, dtype=torch.complex64, batch=1).cpu().double()
+        t_cpu = time.perf_counter()
+        ref = run_tjm_batch(t0, w, None, obs, plan, device="cpu", dtype=torch.complex128, batch=1)
+        t_cpu = time.perf_counter() - t_cpu
+        finite = bool(torch.isfinite(card).all())
+        row = dict(card_vs_c128=(card - ref).abs().max().item(), finite=finite, cpu_seconds=t_cpu)
+        if method is None:
+            # the enlarged basis is not unique: the CPU run's own change under a 1e-7 change of its start
+            moved = run_tjm_batch(perturbed(t0, 1e-7), w, None, obs, plan, device="cpu", dtype=torch.complex128, batch=1)
+            row.update(own_change=(moved - ref).abs().max().item(), against="CPU c128")
+            dz, limit = row["card_vs_c128"], max(CPU_PARITY_TOL, 4 * row["own_change"])
+            extra = f"; the CPU run's own change under a 1e-7 change of its start {row['own_change']:.3e}"
+        else:
+            # the power split's complex64 result lies off complex128 in the port's CPU run as on the card:
+            # the card is held against the CPU's complex64 run, both distances from complex128 printed
+            cpu64 = run_tjm_batch(t0, w, None, obs, plan, device="cpu", dtype=torch.complex64, batch=1).double()
+            row.update(cpu64_vs_c128=(cpu64 - ref).abs().max().item(), cpu64_finite=bool(torch.isfinite(cpu64).all()),
+                       against="CPU c64")
+            dz, limit = (card - cpu64).abs().max().item(), CPU_PARITY_TOL
+            extra = (f"; card vs CPU c128 {row['card_vs_c128']:.3e}, CPU c64 vs CPU c128 {row['cpu64_vs_c128']:.3e} "
+                     f"(CPU c64 finite {row['cpu64_finite']})")
+        log(f"[phase 18a] order 1, {key} (chi={c}) from Neel, L={length} {steps} steps, card c64 vs {row['against']}: "
+            f"max|dZ| = {dz:.3e} (limit {limit:.3e}); card finite {finite}; CPU c128 {t_cpu:.2f} s{extra}")
+        if method == "cholesky" and not finite:
+            log("[phase 18a] cholesky: non-finite rows on the card (CholQR in complex64), reported beside the CPU's "
+                "complex64 run above")
+        else:
+            check(finite and dz <= limit, f"[phase 18a] {key}: card vs {row['against']} {dz} > {limit}")
+        out[f"parity_{key}"] = dict(max_abs_dz=dz, limit=limit, **row)
+
+    length, chi, b, gamma = 4, 4, 4096, 0.1
+    for order in (1, 2):
+        w, t0, obs, noise = order1_inputs(length, chi, "x+", gamma, bitstrings=())
+        model = yt.NoiseModel([{"name": n, "sites": [i], "strength": gamma} for n in ("z", "lowering")
+                               for i in range(length)])
+        psi0 = yt.to_statevector(t0)
+        exact = exact_lindblad_z(yt.mpo_to_matrix(w), noise_model_jump_ops(model, length), psi0 / np.linalg.norm(psi0),
+                                 dt, steps, length)
+        kernels.reset_launch_counts()
+        res = run_tjm_batch(t0, w, noise, obs, bug_plan(steps, chi, order), device=dev, dtype=torch.complex64,
+                            batch=b, seed=23)
+        check(kernels.launch_counts()["masked_qr"] == (length - 1) * steps, "[phase 18b] BUG's masked_qr launches")
+        statistical_guard(f"BUG order {order} L={length} chi={chi} B={b} {steps} steps vs exact Lindblad", res, exact,
+                          out, f"lindblad_bug_order{order}", phase="phase 18b")
+
+    length, chi = 10, 16
+    members, w, obs, pairs = ensemble_inputs(length, chi, members_haar=(0,), haar_chi=2)
+    members = members[:2] + [np.asarray(yt.named_product_state("zeros", length, chi))] + members[2:]
+    a_ops = [embed_operator(dict(zip(a.site_list, [a.matrix] if len(a.site_list) == 1 else
+                                     [np.diag([1.0, -1.0])] * 2)), length) for a, _ in pairs]
+    b_ops = [embed_operator({bb.site_list[0]: bb.matrix}, length) for _, bb in pairs]
+    prop = scipy.linalg.expm(-1j * dt * yt.mpo_to_matrix(w))
+    exact = np.zeros((len(pairs), steps + 1), dtype=np.complex128)
+    for mem in members:
+        psi = yt.to_statevector(mem)
+        psi = psi / np.linalg.norm(psi)
+        for p in range(len(pairs)):
+            u, v = psi.copy(), b_ops[p] @ psi
+            for j in range(steps + 1):
+                exact[p, j] += np.vdot(u, a_ops[p] @ v)
+                u, v = prop @ u, prop @ v
+    exact /= len(members)
+    for mode in ("tdvp", "bug"):
+        plan = ensemble_plan(steps, chi, mode, krylov_dim=8, threshold=1e-10)
+        card = run_ensemble_batch(members, w, obs, plan, pairs=pairs, device=dev, dtype=torch.complex64)
+        d_exact = float(np.abs(card.correlators.cpu().numpy() - exact).max())
+        row = dict(max_abs_d_exact=d_exact)
+        if mode == "tdvp":
+            log(f"[phase 18c] ensemble ({mode}) L={length} chi={chi} {len(members)} members, {len(pairs)} pairs: card "
+                f"c64 correlators against the state vector max|d| = {d_exact:.3e} (limit {ENSEMBLE_TOL})")
+            check(d_exact <= ENSEMBLE_TOL, f"[phase 18c] TDVP ensemble off the state vector: {d_exact}")
+        else:
+            ref = run_ensemble_batch(members, w, obs, plan, pairs=pairs, device="cpu", dtype=torch.complex128)
+            moved = run_ensemble_batch([perturbed(mm, 1e-7) for mm in members], w, obs, plan, pairs=pairs,
+                                       device="cpu", dtype=torch.complex128)
+            own = (moved.correlators - ref.correlators).abs().max().item()
+            d_cpu = (card.correlators.cpu().to(torch.complex128) - ref.correlators).abs().max().item()
+            limit = max(CPU_PARITY_TOL, 4 * own)
+            d_cpu_exact = np.abs(ref.correlators.numpy() - exact).max()
+            log(f"[phase 18c] ensemble ({mode}) L={length} chi={chi}: card c64 against the state vector max|d| = "
+                f"{d_exact:.3e} (limit {BUG_DENSE_TOL}; the CPU c128 run's {d_cpu_exact:.3e}); card vs CPU c128 "
+                f"{d_cpu:.3e} (limit {limit:.3e}; the CPU run's own change under a 1e-7 change of its start {own:.3e})")
+            check(d_exact <= BUG_DENSE_TOL and d_cpu <= limit, f"[phase 18c] BUG ensemble: {d_exact}, {d_cpu}")
+            row.update(max_abs_d_cpu=d_cpu, own_change=own, cpu_max_abs_d_exact=float(d_cpu_exact))
+        out[f"ensemble_{mode}"] = row
+
+    # (d) PVM rows at L=100, relative (ROADMAP queue 3 item 5): bitstrings whose probabilities stay far above
+    # float32's subnormals from x+ (ferromagnetic, one flip, a domain wall); the card's final state also
+    # evaluated in complex128, which parts the evaluation's error from the evolution's
+    from yaqs_tpu_torch.analog.tjm import tjm_trajectory
+    from yaqs_tpu_torch.core.observables import local_rows
+
+    length, chi, steps = BENCH["length"], BENCH["chi"], BENCH["steps"]
+    bits = ("0" * length, "1" * length, "0" * (length - 1) + "1", "0" * (length // 2) + "1" * (length // 2))
+    w, t0, obs, _ = order1_inputs(length, chi, "x+", bitstrings=bits)
+    plan = order1_plan(steps, chi, "2site", FAST)
+    c64 = torch.complex64
+    card, _, final = tjm_trajectory(None, torch.as_tensor(t0).to(dev, c64)[None], torch.as_tensor(w).to(dev, c64),
+                                    None, obs.to(dev, c64), plan)
+    card = card.cpu().double()
+    t_cpu = time.perf_counter()
+    ref = run_tjm_batch(t0, w, None, obs, plan, device="cpu", dtype=torch.complex128, batch=1)
+    t_cpu = time.perf_counter() - t_cpu
+    p_card, p_ref = card[0, length:], ref[0, length:]
+    rel = ((p_card - p_ref).abs() / p_ref.abs()).amax(dim=1)
+    exact_eval = local_rows(final.cpu().to(torch.complex128), obs.to("cpu", torch.complex128))[0, length:]
+    rel_eval = ((p_card[:, -1] - exact_eval).abs() / exact_eval.abs())
+    log(f"[phase 18d] order-1 cell noiseless (L={length}, chi={chi}, B=1, fast knobs, from x+), PVM rows of "
+        f"0^L, 1^L, 0^(L-1)1, 0^(L/2)1^(L/2), card c64 vs CPU c128 ({t_cpu:.1f} s): largest relative |dP|/P per row "
+        f"over the run {[f'{x:.3e}' for x in rel.tolist()]}; P (CPU c128) at the end "
+        f"{[f'{x:.3e}' for x in p_ref[:, -1].tolist()]}, smallest over the run {p_ref.abs().min().item():.3e}; the "
+        f"card's final state evaluated in complex128 against K17's complex64 rows, relative "
+        f"{[f'{x:.3e}' for x in rel_eval.tolist()]}")
+    check(bool(torch.isfinite(card).all()) and p_ref.min().item() > 0, "[phase 18d] PVM rows non-finite or zero")
+    out["pvm_l100"] = dict(bitstrings=["0^L", "1^L", "0^(L-1)1", "0^(L/2)1^(L/2)"], relative=rel.tolist(),
+                           p_final=p_ref[:, -1].tolist(), p_min=p_ref.abs().min().item(),
+                           evaluation_relative=rel_eval.tolist(), cpu_seconds=t_cpu)
+    return out
+
+
 def profile_run(label, run, steps=1):
     """One more run under ``torch.profiler``: the device time by kernel, the
     device events per step, and the device's busy share of the profiled wall
@@ -3117,7 +3734,9 @@ def main() -> None:
                      ("mcwf", phase_mcwf), ("mcwf_two_site", phase_mcwf_two_site), ("mcwf_guards", phase_mcwf_guards),
                      ("noisy_guards", phase_noisy_guards), ("analog_order1", phase_order1),
                      ("analog_1site", phase_order1_1site), ("analog_dynamic", phase_order1_dynamic),
-                     ("order1_guards", phase_order1_guards)):
+                     ("order1_guards", phase_order1_guards), ("analog_householder", phase_power_split),
+                     ("analog_cholesky", phase_power_split_cholesky), ("analog_bug", phase_bug),
+                     ("ensemble", phase_ensemble), ("port16_guards", phase_port16_guards)):
         phases[name] = fn(dev)
         log(f"[time] phase {name}: {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()

@@ -81,10 +81,18 @@ def test_newton_subspace_split_matches_jax(iters, distribution, dtype):
 
 
 def test_subspace_split_unported_paths_raise():
-    theta = torch.zeros((1, 2, 2, 4, 4), dtype=torch.complex128)
+    """Once refusals, householder and cholesky are ported: each matches the
+    JAX split (its default ``iters=2``, ``orth_every=True``) on a padded
+    theta, and an unknown method still raises."""
+    theta = _blocks(np.random.default_rng(4), (2, 2, 2, 4, 4), np.complex128)
+    theta[1, :, :, 2:, :] = 0  # a padded block of lower rank
     for qr_method in ("householder", "cholesky"):
-        with pytest.raises(NotImplementedError):
-            tdec.split_two_site_subspace(theta, 4, qr_method=qr_method)
+        ref = jax.vmap(lambda th: jdec.split_two_site_subspace(th, 4, qr_method=qr_method))(jnp.asarray(theta))
+        got = tdec.split_two_site_subspace(convert.to_torch(theta), 4, qr_method=qr_method)
+        for r, g in zip(ref[:3], got[:3]):
+            np.testing.assert_allclose(convert.to_numpy(g), np.asarray(r), atol=1e-8, rtol=0)
+    with pytest.raises(ValueError):
+        tdec.split_two_site_subspace(convert.to_torch(theta), 4, qr_method="gram")
 
 
 @pytest.mark.parametrize(

@@ -60,10 +60,12 @@ from yaqs_tpu_torch.kernels.ns_polar import (
     polar_cluster,
     polar_clusters_held,
 )
+from yaqs_tpu_torch.kernels.masked_qr import masked_qr, masked_qr_plain
 from yaqs_tpu_torch.kernels.op_scan import op_scan, op_scan_plain
 from yaqs_tpu_torch.kernels.pair_weights import pair_weights, pair_weights_plain
 from yaqs_tpu_torch.kernels.qr import householder_qr, householder_qr_plain
 from yaqs_tpu_torch.kernels.sample_shots import sample_shots, sample_shots_plain
+from yaqs_tpu_torch.kernels.subspace_power import subspace_power, subspace_power_plain
 from yaqs_tpu_torch.kernels.subspace_split import cluster_size, held_clusters, subspace_split, subspace_split_plain
 from yaqs_tpu_torch.kernels.sv_mpo import sv_mpo_matvec, sv_mpo_matvec_plain
 from yaqs_tpu_torch.kernels.svd import MAX_SWEEPS, convergence, reset_convergence, svd, svd_plain
@@ -232,11 +234,21 @@ def test_wrappers_take_plain_path_on_cpu_without_building():
     sel = torch.tensor([[-1, -1, -1, -1], [0, 1, 0, 1]], dtype=torch.int32)
     ops = _complex(rng, (2, 4, 2, 2))
     torch.testing.assert_close(op_scan(t, sel, ops), op_scan_plain(t, sel, ops), rtol=0, atol=0)
+    kets, ket_of = torch.stack([t, t.conj()], dim=1), torch.tensor([1, 0], dtype=torch.int32)
+    torch.testing.assert_close(op_scan(kets, sel, ops, bra=t, ket_of=ket_of),
+                               op_scan_plain(kets, sel, ops, t, ket_of), rtol=0, atol=0)
+    for method in ("householder", "cholesky"):
+        for got, ref in zip(subspace_power(m, omega, 4, 1, True, True, method),
+                            subspace_power_plain(m, omega, 4, 1, True, True, method)):
+            torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    for got, ref in zip(masked_qr(m), masked_qr_plain(m)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
     assert set(kernels.launch_counts()) == {
         "ns_polar", "lanczos_epilogue", "bond_gate", "moment_scan", "sample_shots", "heff2", "heff1",
         "lanczos_solve2", "lanczos_solve1", "lanczos_solve0", "env_update", "sv_mpo_matvec", "arnoldi_step",
         "arnoldi_epilogue", "svd_jacobi", "householder_qr", "householder_qr_r", "subspace_split", "ns_canon",
-        "pair_weights", "op_scan",
+        "pair_weights", "op_scan", "op_scan_bra", "subspace_power_householder", "subspace_power_cholesky",
+        "masked_qr",
     }
     assert not any(kernels.launch_counts().values())
     assert build.load_library.cache_info().currsize == 0  # nothing was built
@@ -297,8 +309,9 @@ def test_ns_polar_cluster_rule(monkeypatch, batch, blocks):
 def test_build_digest_covers_the_shared_headers(tmp_path):
     """An edited header changes the library's name, so the kernels that
     include it are rebuilt rather than loaded stale; the sources in the
-    repository include ``ns_polar.cuh``, ``heff.cuh`` and ``launch.cuh``
-    (through ``ns_polar.cuh`` too) and the build hashes all three."""
+    repository include ``ns_polar.cuh``, ``heff.cuh``, ``householder.cuh``
+    and ``launch.cuh`` (through ``ns_polar.cuh`` too) and the build hashes
+    all four."""
     src, hdr = tmp_path / "k.cu", tmp_path / "k.cuh"
     src.write_text('#include "k.cuh"\n')
     hdr.write_text("// one\n")
@@ -306,13 +319,16 @@ def test_build_digest_covers_the_shared_headers(tmp_path):
     hdr.write_text("// two\n")
     assert build._digest([src], [hdr]) != before
     assert build._digest([src], [hdr]) == build._digest([src], [hdr])
-    assert [h.name for h in build._headers()] == ["heff.cuh", "launch.cuh", "ns_polar.cuh"]
+    assert [h.name for h in build._headers()] == ["heff.cuh", "householder.cuh", "launch.cuh", "ns_polar.cuh"]
     includers = [p.name for p in build._sources() if '#include "ns_polar.cuh"' in p.read_text()]
     assert includers == ["moment_scan.cu", "ns_canon.cu", "ns_polar.cu", "subspace_split.cu"]
     assert '#include "launch.cuh"' in (build.CSRC / "ns_polar.cuh").read_text()
     includers = [p.name for p in build._sources() if '#include "launch.cuh"' in p.read_text()]
     assert includers == ["bond_gate.cu", "env_update.cu", "householder_qr.cu", "lanczos_epilogue.cu", "lanczos_solve.cu",
-                         "op_scan.cu", "pair_weights.cu", "sample_shots.cu", "sv_mpo.cu", "svd_jacobi.cu"]
+                         "masked_qr.cu", "op_scan.cu", "pair_weights.cu", "sample_shots.cu", "subspace_power.cu",
+                         "sv_mpo.cu", "svd_jacobi.cu"]
+    includers = [p.name for p in build._sources() if '#include "householder.cuh"' in p.read_text()]
+    assert includers == ["householder_qr.cu", "masked_qr.cu", "subspace_power.cu"]
     includers = [p.name for p in build._sources() if '#include "heff.cuh"' in p.read_text()]
     assert includers == ["heff.cu", "lanczos_solve.cu"]
 
@@ -363,6 +379,10 @@ def test_wrappers_refuse_non_cuda_devices():
         householder_qr(t[:, 0, 0])
     with pytest.raises(ValueError, match="unsupported device"):
         subspace_split(t[:, 0, 0], t[0, 0, 0], 2, 1, True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        subspace_power(t[:, 0, 0], t[0, 0, 0], 2, 1, True, True, "householder")
+    with pytest.raises(ValueError, match="unsupported device"):
+        masked_qr(t[:, 0, 0])
     with pytest.raises(ValueError, match="unsupported device"):
         ns_canon_scan(t)
     with pytest.raises(ValueError, match="unsupported device"):
@@ -1349,3 +1369,120 @@ def test_decomp_wrappers_raise_when_the_kernel_cannot_load(cuda, monkeypatch):
         householder_qr(m)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         householder_qr(m, want_q=False)
+
+
+# K18 and K19 at the paths' shapes (the analog (32, 128, 128), chi = 64; the
+# digital (512, 64, 64), chi = 32; the zip-up's (32, 64, 128), chi = 32) and
+# ragged ones, both distributions, iters 2 (1 at the ragged shapes)
+POWER_SHAPES = [(32, 128, 128, 64, 2), (512, 64, 64, 32, 2), (32, 64, 128, 32, 2), (32, 64, 160, 32, 2),
+                (3, 37, 21, 9, 1), (2, 5, 7, 3, 1)]
+
+
+# orth_every off only at one power: without the QRs between powers a complex64
+# iterate powered five times loses its weak directions (the JAX docstring)
+POWER_CASES = [(*shape, method, liso, orth) for shape in POWER_SHAPES for method in ("householder", "cholesky")
+               for liso in (True, False) for orth in (True, False)
+               if (orth or shape[-1] == 1) and shape[3] <= (shape[1] if liso else shape[2]) <= 128]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("batch", "rows", "cols", "chi", "iters", "method", "left_isometric", "orth"), POWER_CASES)
+def test_subspace_power_kernel_matches_plain(cuda, batch, rows, cols, chi, iters, method, left_isometric, orth):
+    """K18/K19 against their plain version on the card on random blocks:
+    the product ``left @ right`` and ``s`` within 1e-4 (relative; complex64
+    with another summation order, the power steps amplifying it), the
+    isometric factor orthonormal within 1e-4.  CholQR loses orthogonality
+    as cond(y)^2 eps32, in the plain version as in the kernel: K19 is held
+    to the distance of the plain complex64 version from the complex128 one,
+    four times it plus 1e-5, on each of the three."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + cols)
+    m = _randc(gen, (batch, rows, cols), cuda)
+    omega = _randc(gen, ((cols if left_isometric else rows), chi), cuda)
+    kernels.reset_launch_counts()
+    left, right, s = subspace_power(m, omega, chi, iters, orth, left_isometric, method)
+    torch.cuda.synchronize()
+    name = f"subspace_power_{method}"
+    assert kernels.launch_counts() == {**{k: 0 for k in kernels.LAUNCHES}, name: 1}
+    l_ref, r_ref, s_ref = subspace_power_plain(m, omega, chi, iters, orth, left_isometric, method)
+    assert torch.isfinite(left).all() and torch.isfinite(right).all()
+
+    def defect(lf, rt):
+        iso = lf if left_isometric else rt.mH
+        return (iso.mH @ iso - torch.eye(chi, device=cuda)).abs().max().item()
+
+    if method == "householder":
+        assert _rel_err(left @ right, l_ref @ r_ref) <= 1e-4
+        assert _rel_err(s, s_ref) <= 1e-4
+        assert defect(left, right) <= 1e-4
+        return
+    c128 = torch.complex128
+    l64, r64, s64 = subspace_power_plain(m.to(c128), omega.to(c128), chi, iters, orth, left_isometric, method)
+    for got, plain, exact in ((left @ right, l_ref @ r_ref, l64 @ r64), (s, s_ref, s64)):
+        assert _rel_err(got.to(exact.dtype), exact) <= 4 * _rel_err(plain.to(exact.dtype), exact) + 1e-5
+    assert defect(left, right) <= 4 * defect(l_ref, r_ref) + 1e-5
+
+
+@pytest.mark.cuda
+def test_subspace_power_kernel_on_padded_blocks(cuda):
+    """K18 on a padded product state's split block (rank 1 at (128, 128),
+    chi = 64) and a zero block: finite, the left factor an isometry (the
+    floor completes the null directions), left @ right the block."""
+    m = torch.zeros((2, 128, 128), dtype=torch.complex64, device=cuda)
+    m[0, 0, 0] = 1.0
+    omega = _randc(torch.Generator(device=cuda).manual_seed(3), (128, 64), cuda)
+    left, right, s = subspace_power(m, omega, 64, 2, True, True, "householder")
+    torch.cuda.synchronize()
+    assert torch.isfinite(left).all() and torch.isfinite(right).all() and torch.isfinite(s).all()
+    assert (left.mH @ left - torch.eye(64, device=cuda)).abs().max().item() <= 1e-4
+    assert (left @ right - m).abs().max().item() <= 1e-5
+
+
+MASKED_QR_SHAPES = [(32, 64, 32), (32, 128, 64), (4096, 32, 16), (3, 37, 21), (2, 5, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("batch", "n", "k"), MASKED_QR_SHAPES)
+def test_masked_qr_kernel_matches_plain(cuda, batch, n, k):
+    """K20 against its plain version on full-rank blocks (Q and R within
+    1e-4, entry by entry: LAPACK's conventions) and on padded ones (a zero
+    column and a zero block: the same mask, nothing NaN), a strided batch
+    read in place."""
+    gen = torch.Generator(device=cuda).manual_seed(n + k)
+    a = _randc(gen, (batch, n, k), cuda)
+    a[0, :, k // 2] = 0  # a zero column
+    a[-1] = 0
+    strided = torch.stack([a, a], dim=1)[:, 0]
+    kernels.reset_launch_counts()
+    q, r = masked_qr(strided)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {**{name: 0 for name in kernels.LAUNCHES}, "masked_qr": 1}
+    q_ref, r_ref = masked_qr_plain(a)
+    assert torch.isfinite(q).all() and torch.isfinite(r).all()
+    assert torch.equal(torch.diagonal(r, dim1=-2, dim2=-1) == 0, torch.diagonal(r_ref, dim1=-2, dim2=-1) == 0)
+    assert _rel_err(q, q_ref) <= 1e-4 and _rel_err(r, r_ref) <= 1e-4
+    assert q[0, :, k // 2].abs().max().item() == 0 and q[-1].abs().max().item() == 0
+    with pytest.raises(ValueError):
+        masked_qr(a.to(torch.complex128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("batch", "npk", "length", "chi", "nc"), [(8, 2, 100, 64, 8), (4, 2, 10, 16, 6),
+                                                                  (3, 3, 9, 37, 5), (2, 1, 1, 1, 1)])
+def test_op_scan_bra_kernel_matches_plain(cuda, batch, npk, length, chi, nc):
+    """K17's bra stream against its plain version on the card: mixed
+    chains over a member's kets (``ket_of``) against its bra, product terms
+    and projectors, each value within 1e-4 of itself (floored as the
+    one-stream test's); the one-stream count untouched."""
+    gen = torch.Generator(device="cpu").manual_seed(batch + length + 7)
+    bra, sel, ops = _op_scan_inputs(gen, batch, length, chi, nc, cuda)
+    kets = torch.stack([_op_scan_inputs(gen, batch, length, chi, nc, cuda)[0] for _ in range(npk)], dim=1)
+    ket_of = torch.arange(nc, dtype=torch.int32, device=cuda) % npk
+    kernels.reset_launch_counts()
+    got = op_scan(kets, sel, ops, bra=bra, ket_of=ket_of)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {**{name: 0 for name in kernels.LAUNCHES}, "op_scan_bra": 1}
+    ref = op_scan_plain(kets, sel, ops, bra, ket_of)
+    scale = torch.maximum(ref.abs(), 1e-3 * ref.abs().amax(dim=0, keepdim=True))
+    assert ((got - ref).abs() / scale).max().item() <= 1e-4
+    with pytest.raises(ValueError):
+        op_scan(kets, sel, ops, bra=bra, ket_of=ket_of.long())

@@ -166,10 +166,18 @@ def test_trajectory_result_independent_of_batch():
 def test_unported_plans_raise():
     w, t0, co, _, plan = _setup()
     tco = convert.compiled_observables(co)
-    for change, exc in ((dict(evolution_mode="bug"), NotImplementedError), (dict(has_scheduled=True), ValueError)):
+    for change, exc in ((dict(evolution_mode="lanczos"), ValueError), (dict(has_scheduled=True), ValueError)):
         bad = ttjm.TrajectoryPlan(**{**convert.trajectory_plan(plan).__dict__, **change})
-        with pytest.raises(exc):  # BUG is not ported; scheduled jumps need order 1, as in the simulator
+        with pytest.raises(exc):  # an unknown mode; scheduled jumps need order 1, as in the simulator
             run_tjm_batch(t0, w, None, tco, bad, batch=1, device="cpu")
+    # BUG is ported: the JAX package's run on a chain short enough (L=4 at chi=8) that its
+    # enlarged basis is unique, so the two agree on the observables
+    w4, t4, co4, _, plan4 = _setup(length=4)
+    bug = dataclasses.replace(plan4, evolution_mode="bug")
+    ref = _jax_batch(w4, t4, co4, None, bug, [0])
+    got = run_tjm_batch(t4, w4, None, convert.compiled_observables(co4), convert.trajectory_plan(bug), batch=1,
+                        device="cpu")
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-10, rtol=0)
     # order 1 is ported: the JAX package's run (exact knobs: each step's QR canonicalization
     # leaves the fast splits' partial-isometry defect, ~3e-8 here, to rounding)
     order1 = dataclasses.replace(plan, order=1, evolution=TDVPConfig(krylov_dim=6, threshold=1e-10, max_bond_dim=CHI))

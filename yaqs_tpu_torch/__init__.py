@@ -24,7 +24,7 @@ another ``device``.
 
 from __future__ import annotations
 
-from .analog.run import run_mcwf_batch, run_tjm_batch, schedule_jumps
+from .analog.run import EnsembleResult, run_ensemble_batch, run_mcwf_batch, run_tjm_batch, schedule_jumps
 from .analog.tjm import TrajectoryPlan
 from .core.mpo_builders import heisenberg_mpo, ising_mpo, mpo_to_matrix
 from .core.mps_ops import canonical_start, haar_random_mps, named_product_state, to_statevector
@@ -37,6 +37,7 @@ from .methods.tdvp import TDVPConfig
 __all__ = [
     "Circuit",
     "DigitalRun",
+    "EnsembleResult",
     "GateOp",
     "NoiseModel",
     "Observable",
@@ -52,6 +53,7 @@ __all__ = [
     "mpo_to_matrix",
     "named_product_state",
     "run_digital_batch",
+    "run_ensemble_batch",
     "run_mcwf_batch",
     "run_tjm_batch",
     "schedule_jumps",

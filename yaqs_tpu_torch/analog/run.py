@@ -7,10 +7,14 @@ observables ``(B, n_obs, T)`` out.  :func:`run_mcwf_batch` is the state-vector
 branch of ``Simulator.run`` (``simulator.py`` ``_run_analog_mcwf``): it
 routes to the dense or the local MCWF route exactly as the simulator does.
 :func:`schedule_jumps` prepares an order-1 run's scheduled jumps as the
-simulator does.
+simulator does.  :func:`run_ensemble_batch` is the unitary ensemble of
+``Simulator.run`` on a list of states (``simulator.py``
+``_run_ensemble``), with two-time correlators.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -28,10 +32,13 @@ from .mcwf import (
     mcwf_trajectory,
     mcwf_trajectory_local,
 )
+from .ensemble import correlator_tables, ensemble_trajectory, prepare_phi
 from ..methods.scheduled_jumps import apply_scheduled_jumps_host, compile_scheduled_jumps, split_t0_jumps
 from .tjm import GeneratorDraws, TrajectoryPlan, tjm_trajectory
 
 __all__ = [
+    "EnsembleResult",
+    "run_ensemble_batch",
     "run_tjm_batch",
     "schedule_jumps",
     "run_mcwf_batch",
@@ -226,3 +233,74 @@ def run_mcwf_batch(
     if route == "dense" and not observables:
         return (out[0][:, :0], out[1]) if return_state else out[:, :0]
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class EnsembleResult:
+    """A unitary ensemble's rows: ``per_member (M, n_obs, T)`` and their
+    mean over the members ``mean (n_obs, T)`` (``n_obs`` counts ``chi`` rows
+    per Schmidt-spectrum observable), and the correlators ``<psi(t)| A
+    U(t) B |psi(0)>`` per member ``(M, P, T)`` and their mean ``(P, T)``
+    (None without pairs); ``T`` is 1 (the last time) where the plan does
+    not sample every step."""
+
+    per_member: torch.Tensor
+    mean: torch.Tensor
+    per_member_correlators: torch.Tensor | None
+    correlators: torch.Tensor | None
+
+
+def run_ensemble_batch(
+    members,
+    mpo,
+    observables: CompiledObservables,
+    plan: TrajectoryPlan,
+    *,
+    pairs=(),
+    device="cuda",
+    dtype: torch.dtype | None = None,
+) -> EnsembleResult:
+    """Evolve a list of states without noise and average their rows:
+    ``Simulator.run`` on a list of ``State`` objects.
+
+    ``members (M, L, d, chi, chi)`` are the padded states (canonical at 0,
+    normalized; a list of arrays of one shape, or one array), ``mpo (L, d,
+    d, Dw, Dw)``, ``observables`` the host tables of
+    ``compile_observables`` and ``plan`` the evolution (``dt``,
+    ``num_steps``, ``evolution_mode`` "tdvp" or "bug", ``evolution``;
+    ``sample_timesteps`` off keeps the last time only).  ``pairs`` are the
+    two-time correlators' ``(A, B)`` :class:`Observable` pairs, ``A`` on any
+    sites and ``B`` on one site (two-site ``B`` raises
+    ``NotImplementedError``); each member's ``B |psi0>`` evolves beside it.
+
+    Runs on the card unless ``device`` says otherwise (no CPU fallback);
+    ``dtype`` defaults to complex64 on a CUDA device and complex128
+    elsewhere.
+    """
+    check_device(device)
+    dtype = resolve_dtype(device, dtype)
+    full_precision_matmuls()
+    arrays = [np.asarray(m) for m in members]
+    if not arrays:
+        msg = "ensemble run requires at least one member state"
+        raise ValueError(msg)
+    if any(a.shape != arrays[0].shape for a in arrays):
+        msg = f"ensemble members must share one shape; got {sorted({a.shape for a in arrays})}"
+        raise ValueError(msg)
+    d = arrays[0].shape[1]
+    mt_ops, mt_sites, b_ops = correlator_tables(list(pairs), d)
+    t0 = torch.as_tensor(np.stack(arrays)).to(device=device, dtype=dtype)
+    w = torch.as_tensor(np.array(mpo)).to(device=device, dtype=dtype)
+    phis = [prepare_phi(t0, torch.as_tensor(b).to(device=device, dtype=dtype), site) for b, site in b_ops]
+    phis = torch.stack(phis, dim=1) if phis else t0.new_zeros((t0.shape[0], 0, *t0.shape[1:]))
+    obs, corr = ensemble_trajectory(
+        t0, w, observables.to(device, dtype), torch.as_tensor(mt_ops).to(device=device, dtype=dtype),
+        torch.as_tensor(mt_sites).to(device), phis.contiguous(), dataclasses.replace(plan, sample_timesteps=True),
+    )
+    if not plan.sample_timesteps:
+        obs, corr = obs[..., -1:], corr[..., -1:]
+    npairs = len(b_ops)
+    return EnsembleResult(
+        per_member=obs, mean=obs.mean(dim=0), per_member_correlators=corr if npairs else None,
+        correlators=corr.mean(dim=0) if npairs else None,
+    )

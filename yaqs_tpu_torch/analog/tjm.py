@@ -48,6 +48,7 @@ from ..core.observables import (
     with_bond_rows,
 )
 from ..kernels.bond_gate import bond_gate
+from ..methods.bug import bug_step
 from ..methods.dissipation import apply_dissipation
 from ..methods.stochastic import stochastic_process
 from ..methods.tdvp import TDVPConfig, tdvp_step
@@ -58,6 +59,7 @@ __all__ = [
     "GeneratorDraws",
     "stream_seed",
     "tjm_trajectory",
+    "make_evolve",
     "TRAJECTORY_STREAM",
     "SAMPLE_STREAM",
 ]
@@ -73,9 +75,10 @@ class TrajectoryPlan:
     """Trajectory schedule.  ``num_steps`` dt-steps; observables are sampled
     at every grid point when ``sample_timesteps`` else only at the end.
 
-    Ported: ``order`` 1 and 2, ``evolution_mode="tdvp"`` (``"bug"`` raises
-    ``NotImplementedError``); scheduled jumps (``has_scheduled``, with
-    non-factorizable two-site slots ``has_scheduled2``) with order 1 only.
+    ``order`` 1 or 2, ``evolution_mode`` ``"tdvp"`` or ``"bug"``
+    (:func:`..methods.bug.bug_step` in place of the TDVP step); scheduled
+    jumps (``has_scheduled``, with non-factorizable two-site slots
+    ``has_scheduled2``) with order 1 only.
     ``record_diagnostics`` adds the effective-bond curves (one bond-spectra
     sweep a measurement).
     """
@@ -205,9 +208,9 @@ def _check_plan(plan: TrajectoryPlan) -> None:
     if plan.order not in (1, 2):
         msg = f"order must be 1 or 2, got {plan.order}"
         raise ValueError(msg)
-    if plan.evolution_mode != "tdvp":
-        msg = f"evolution_mode={plan.evolution_mode!r} is not ported (tdvp only)"
-        raise NotImplementedError(msg)
+    if plan.evolution_mode not in ("tdvp", "bug"):
+        msg = f"evolution_mode must be 'tdvp' or 'bug', got {plan.evolution_mode!r}"
+        raise ValueError(msg)
     if (plan.has_scheduled or plan.has_scheduled2) and plan.order != 1:
         msg = "scheduled jumps are supported for analog TJM order=1 only"
         raise ValueError(msg)
@@ -303,6 +306,14 @@ def _run_order1(draws: Draws | None, tensors0, noise, observables, plan: Traject
     return torch.stack(cols, dim=-1), torch.stack(diags, dim=-1), state
 
 
+def make_evolve(mpo: torch.Tensor, plan: TrajectoryPlan) -> Callable[[torch.Tensor, float], torch.Tensor]:
+    """The step ``evolve(tensors, dt)`` of ``plan.evolution_mode``: a TDVP
+    step or a BUG step."""
+    cfg = plan.evolution
+    step = bug_step if plan.evolution_mode == "bug" else tdvp_step
+    return lambda t, step_dt: step(t, mpo, step_dt, cfg)
+
+
 def tjm_trajectory(
     draws: Draws | None,
     tensors0: torch.Tensor,
@@ -337,8 +348,7 @@ def tjm_trajectory(
         msg = "a noisy run needs a draw source"
         raise ValueError(msg)
 
-    def evolve(t, step_dt):
-        return tdvp_step(t, mpo, step_dt, cfg)
+    evolve = make_evolve(mpo, plan)
 
     if plan.num_steps == 0:
         obs0, diag0 = _measure(tensors0, observables, plan)

@@ -80,7 +80,8 @@ SHOT_STREAM = 1
 def _split(m: torch.Tensor, chi: int, cfg: TDVPConfig, distribution: str):
     if cfg.svd_method == "subspace":
         return split_matrix_subspace(
-            m, chi, iters=cfg.subspace_iters, qr_method=cfg.subspace_qr, svd_distribution=distribution
+            m, chi, iters=cfg.subspace_iters, orth_every=cfg.subspace_orth, qr_method=cfg.subspace_qr,
+            svd_distribution=distribution,
         )
     return split_matrix_truncated(
         m, chi, mode=cfg.trunc_mode, threshold=cfg.threshold, max_bond_dim=cfg.max_bond_dim,

@@ -44,6 +44,10 @@ LAUNCHES: dict[str, int] = {
     "ns_canon": 0,
     "pair_weights": 0,
     "op_scan": 0,
+    "op_scan_bra": 0,
+    "subspace_power_householder": 0,
+    "subspace_power_cholesky": 0,
+    "masked_qr": 0,
 }
 
 

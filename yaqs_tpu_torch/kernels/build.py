@@ -90,6 +90,14 @@ _SIGNATURES = {
     "svd_jacobi_workspace": [_I, _I, _I, _I],
     # (tensors, stride_z, stride_site, sel, ops, out, batch, nc, L, d, chi, stream)
     "op_scan_launch": [_P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (kets, stride_z, stride_p, stride_site, ket_of, kets a trajectory, bra, bra stride_z, bra stride_site, sel,
+    #  ops, out, batch, nc, L, d, chi, stream)
+    "op_scan_bra_launch": [_P, _LL, _LL, _LL, _P, _I, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (m, omega, noise, left, right, s, batch, rows, cols, chi, iters, orth_every, left_isometric, cholesky,
+    #  eps_reg, stream)
+    "subspace_power_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # (in, stride_in, q, r, batch, n, k, stream)
+    "masked_qr_launch": [_P, _LL, _P, _P, _I, _I, _I, _P],
 }
 # functions that return something else than a cudaError_t
 _RESTYPES = {"svd_jacobi_workspace": _LL}

@@ -28,6 +28,16 @@
 //  (B) E' = sum_s A_i[s]^H T_s, accumulated in registers, stored.
 // At CW = 64 and d = 2 the block holds E, two stages of a site and the d
 // products T: 224 KB.  d = 2, chi <= 64.
+//
+// With a bra (op_scan_bra): the mixed scans E_(i+1) = sum_s B_i[s]^H E_i
+// K_i[s] of <bra| O |ket>, replacing yaqs_tpu/analog/ensemble.py
+// mixed_site_expectation and mixed_terms_expectation (:26-72), the two-time
+// correlators: every (member, pair, term) chain in one launch, chain t of
+// trajectory z reading ket ket_of[t] of z and the bra of z.  Both site
+// streams are read once a chain (2 d chi^3 + d^2 chi^2 complex MACs a site
+// as above).  The ring's two stages hold the site's ket and its bra: the
+// next ket lands while (B) reads the bra, the next bra while (A) reads the
+// ket, so the block's shared memory is the one-stream kernel's.
 
 #include <cuda_runtime.h>
 
@@ -78,10 +88,13 @@ __device__ __forceinline__ void load_site(float2* stage, const float2* site, int
 // tensors: trajectory z's site i at z sz + i ss (elements), each (d, chi,
 // chi) contiguous; sel (nc, L): -1 for the operator ops[t, i] (d x d), b >= 0
 // for the projector onto b; out (batch, nc) complex.
-template <int CW>
+// With kBra: ket ket_of[t] of trajectory z at z sz + ket_of[t] sp, the bra
+// of z at z bz, its sites bs apart.
+template <int CW, bool kBra>
 __global__ void __launch_bounds__(kThreads, 1)
-    op_scan_kernel(const float2* tensors, long long sz, long long ss, const int* sel, const float2* ops,
-                   float2* out, int nc, int length, int chi) {
+    op_scan_kernel(const float2* tensors, long long sz, long long ss, long long sp, const int* ket_of,
+                   const float2* bra, long long bz, long long bs, const int* sel, const float2* ops, float2* out,
+                   int nc, int length, int chi) {
   constexpr int TT = CW / 16;
   constexpr int kTile = CW * CW;
   const long long z = blockIdx.x / nc;
@@ -97,15 +110,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   for (int a = threadIdx.x; a < chi; a += kThreads) et[a * CW + a] = make_float2(1.f, 0.f);
 
-  const float2* chain = tensors + z * sz;
+  const float2* chain = tensors + z * sz + (kBra ? __ldg(ket_of + t) * sp : 0);
+  const float2* bra_z = kBra ? bra + z * bz : nullptr;
   const int* sel_t = sel + static_cast<long long>(t) * length;
   const float2* ops_t = ops + static_cast<long long>(t) * length * kD * kD;
+  float2* ket_stage = stages;             // with kBra: the site's ket ...
+  float2* bra_stage = stages + kD * kTile;  // ... and its bra
   load_site<CW>(stages, chain, __ldg(sel_t), chi);
+  if (kBra) load_site<CW>(bra_stage, bra_z, __ldg(sel_t), chi);
 
   for (int i = 0; i < length; ++i) {
     const int b = __ldg(sel_t + i);
-    float2* cur = stages + (i & 1) * kD * kTile;
-    if (i + 1 < length) {
+    float2* cur = kBra ? ket_stage : stages + (i & 1) * kD * kTile;
+    if (kBra) {
+      cp_async_wait<1>();  // the ket has landed; the bra may be in flight
+    } else if (i + 1 < length) {
       load_site<CW>(stages + ((i + 1) & 1) * kD * kTile, chain + (i + 1) * ss, __ldg(sel_t + i + 1), chi);
       cp_async_wait<1>();
     } else {
@@ -163,6 +182,17 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
     }
     __syncthreads();
+    const float2* bra_cur = cur;
+    if (kBra) {  // the ket's stage is free: the next ket lands while the bra is read
+      if (i + 1 < length) {
+        load_site<CW>(ket_stage, chain + (i + 1) * ss, __ldg(sel_t + i + 1), chi);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      bra_cur = bra_stage;
+    }
 
     // (B) E'[bb, r] = sum_s sum_l conj(A[s][l, bb]) T_s[l, r], bb = ty TT + rr, r = tx TT + c
     float2 acc[TT][TT];
@@ -171,7 +201,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int c = 0; c < TT; ++c) acc[r][c] = make_float2(0.f, 0.f);
     for (int s = 0; s < nt; ++s) {
-      const float2* as = cur + s * kTile;
+      const float2* as = bra_cur + s * kTile;
       const float2* ts = prod + s * kTile;
       for (int l = 0; l < CW; ++l) {
         float2 av[TT], tv[TT];
@@ -191,6 +221,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int c = 0; c < TT; ++c) et[(tx * TT + c) * CW + ty * TT + r] = acc[r][c];
     __syncthreads();  // the stage read here is the next site's prefetch target
+    if (kBra && i + 1 < length) load_site<CW>(bra_stage, bra_z + (i + 1) * bs, __ldg(sel_t + i + 1), chi);
   }
 
   // tr E, by warp 0 over the diagonal
@@ -210,15 +241,36 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int CW>
-int run(const float2* tensors, long long sz, long long ss, const int* sel, const float2* ops, float2* out, int batch,
-        int nc, int length, int chi, cudaStream_t stream) {
-  auto kernel = op_scan_kernel<CW>;
+template <int CW, bool kBra>
+int run(const float2* tensors, long long sz, long long ss, long long sp, const int* ket_of, const float2* bra,
+        long long bz, long long bs, const int* sel, const float2* ops, float2* out, int batch, int nc, int length,
+        int chi, cudaStream_t stream) {
+  auto kernel = op_scan_kernel<CW, kBra>;
   static const cudaError_t configured = allow_smem(kernel, Layout<CW>::bytes());
   if (configured != cudaSuccess) return static_cast<int>(configured);
   kernel<<<static_cast<unsigned>(static_cast<long long>(batch) * nc), kThreads, Layout<CW>::bytes(), stream>>>(
-      tensors, sz, ss, sel, ops, out, nc, length, chi);
+      tensors, sz, ss, sp, ket_of, bra, bz, bs, sel, ops, out, nc, length, chi);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBra>
+int dispatch(const void* tensors, long long sz, long long ss, long long sp, const void* ket_of, const void* bra,
+             long long bz, long long bs, const void* sel, const void* ops, void* out, int batch, int nc, int length,
+             int d, int chi, void* stream) {
+  if (batch <= 0 || nc <= 0 || length <= 0 || d != kD || chi <= 0 || chi > kMaxChi ||
+      static_cast<long long>(batch) * nc > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* t = static_cast<const float2*>(tensors);
+  const auto* k = static_cast<const int*>(ket_of);
+  const auto* br = static_cast<const float2*>(bra);
+  const auto* s = static_cast<const int*>(sel);
+  const auto* o = static_cast<const float2*>(ops);
+  auto* res = static_cast<float2*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (chi <= 16) return run<16, kBra>(t, sz, ss, sp, k, br, bz, bs, s, o, res, batch, nc, length, chi, st);
+  if (chi <= 32) return run<32, kBra>(t, sz, ss, sp, k, br, bz, bs, s, o, res, batch, nc, length, chi, st);
+  return run<64, kBra>(t, sz, ss, sp, k, br, bz, bs, s, o, res, batch, nc, length, chi, st);
 }
 
 }  // namespace
@@ -228,16 +280,17 @@ int run(const float2* tensors, long long sz, long long ss, const int* sel, const
 // d) complex64 (read only where sel is -1); out (batch, nc) complex64.
 extern "C" int op_scan_launch(const void* tensors, long long sz, long long ss, const void* sel, const void* ops,
                               void* out, int batch, int nc, int length, int d, int chi, void* stream) {
-  if (batch <= 0 || nc <= 0 || length <= 0 || d != kD || chi <= 0 || chi > kMaxChi ||
-      static_cast<long long>(batch) * nc > 0x7fffffffLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto* t = static_cast<const float2*>(tensors);
-  const auto* s = static_cast<const int*>(sel);
-  const auto* o = static_cast<const float2*>(ops);
-  auto* res = static_cast<float2*>(out);
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (chi <= 16) return run<16>(t, sz, ss, s, o, res, batch, nc, length, chi, st);
-  if (chi <= 32) return run<32>(t, sz, ss, s, o, res, batch, nc, length, chi, st);
-  return run<64>(t, sz, ss, s, o, res, batch, nc, length, chi, st);
+  return dispatch<false>(tensors, sz, ss, 0, nullptr, nullptr, 0, 0, sel, ops, out, batch, nc, length, d, chi, stream);
+}
+
+// kets (batch, npk, L, d, chi, chi) complex64, each site contiguous, sz / sp /
+// ss elements between trajectories / kets / sites; ket_of (nc) int32 in [0,
+// npk); bra (batch, L, d, chi, chi), bz / bs elements between trajectories /
+// sites; sel, ops and out as op_scan_launch's.
+extern "C" int op_scan_bra_launch(const void* kets, long long sz, long long sp, long long ss, const void* ket_of,
+                                  int npk, const void* bra, long long bz, long long bs, const void* sel,
+                                  const void* ops, void* out, int batch, int nc, int length, int d, int chi,
+                                  void* stream) {
+  if (npk <= 0 || ket_of == nullptr || bra == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<true>(kets, sz, ss, sp, ket_of, bra, bz, bs, sel, ops, out, batch, nc, length, d, chi, stream);
 }

@@ -71,7 +71,8 @@ class TDVPConfig:
     sweeps: int = 1  # substeps of dt/sweeps each
     svd_method: str = "exact"  # "exact" | "subspace"
     subspace_iters: int = 2
-    subspace_qr: str = "householder"  # the subspace split takes "newton" only
+    subspace_orth: bool = True  # QR between powers (householder, cholesky)
+    subspace_qr: str = "householder"  # "householder" | "cholesky" | "newton"
     lanczos_reorth: bool = True
     canon_method: str = "qr"  # "qr" | "newton"
 
@@ -152,6 +153,7 @@ def _split_cfg(theta, chi, cfg: TDVPConfig, distribution: str):
             theta,
             chi,
             iters=cfg.subspace_iters,
+            orth_every=cfg.subspace_orth,
             qr_method=cfg.subspace_qr,
             svd_distribution=distribution,
         )

@@ -8,10 +8,10 @@ masking (:mod:`.truncation`), never shape shrinking.
 - the exact split is kernel K9's SVD (``kernels/svd.py``: one-sided Jacobi
   on the card, ``torch.linalg.svd`` on the CPU) plus
   :func:`.truncation.keep_mask`;
-- the subspace split is ported on its Newton half-step path only (the path
-  of the fast knob set), as kernel K5 (``kernels/subspace_split.py``: one
-  launch a split on the card); ``householder`` and ``cholesky`` raise
-  ``NotImplementedError``.
+- the subspace split runs its Newton half-step path (the fast knob set's)
+  as kernel K5 (``kernels/subspace_split.py``) and the classic power scheme
+  with ``householder`` or ``cholesky`` QRs as kernels K18 and K19
+  (``kernels/subspace_power.py``): one launch a split on the card.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..kernels.ns_polar import newton_schulz_orthogonalize, newton_schulz_orthogonalize_plain
+from ..kernels.subspace_power import subspace_power
 from ..kernels.subspace_split import subspace_split
 from ..kernels.svd import svd
 from .truncation import keep_mask
@@ -108,22 +109,24 @@ def split_matrix_subspace(
     chi: int,
     *,
     iters: int = 2,
+    orth_every: bool = True,
     qr_method: str = "householder",
     svd_distribution: str = "right",
 ):
-    """Approximate rank-``chi`` split of ``m (..., rows, cols)`` by half-step
-    subspace iteration with Newton–Schulz orthonormalization (no SVD).
+    """Approximate rank-``chi`` split of ``m (..., rows, cols)`` by subspace
+    iteration from the JAX package's range-finder start (no SVD).
 
-    Each iteration orthonormalizes after every application of ``m`` or
-    ``m^H``, so each polar factor's input carries the kept subspace's raw
-    sigma spread (the JAX package's ``orth_every`` has no effect on this path
-    and is not taken).  Kernel K5 runs the whole split, one launch for the
-    batch.  Returns ``(left, right, s_approx, keep)`` with the isometric
-    factor on the side opposite ``svd_distribution``.
+    ``qr_method="newton"`` takes the half-step scheme: a Newton–Schulz polar
+    factor after every application of ``m`` or ``m^H``, so each one's input
+    carries the kept subspace's raw sigma spread; ``orth_every`` has no
+    effect there, as in the JAX package.  Kernel K5 runs the whole split.
+    ``"householder"`` and ``"cholesky"`` take the classic power scheme, ``y
+    <- m (m^H y)``, with a QR between powers where ``orth_every`` is set and
+    one at the end (the householder QR on the JAX package's noise floor, the
+    cholesky one a CholQR on a shifted Gram); kernels K18 and K19 run the
+    whole split.  Returns ``(left, right, s_approx, keep)`` with the
+    isometric factor on the side opposite ``svd_distribution``.
     """
-    if qr_method != "newton":
-        msg = f"subspace split with qr_method={qr_method!r} is not ported (newton only)"
-        raise NotImplementedError(msg)
     rows, cols = m.shape[-2:]
     if svd_distribution == "right":
         # left factor isometric: dominant column subspace of m
@@ -134,7 +137,11 @@ def split_matrix_subspace(
     else:
         msg = "subspace splits support svd_distribution 'left'/'right' only"
         raise NotImplementedError(msg)
-    left, right, s_approx = subspace_split(m, omega, chi, iters, svd_distribution == "right")
+    left_isometric = svd_distribution == "right"
+    if qr_method == "newton":
+        left, right, s_approx = subspace_split(m, omega, chi, iters, left_isometric)
+    else:
+        left, right, s_approx = subspace_power(m, omega, chi, iters, orth_every, left_isometric, qr_method)
     keep = torch.full(m.shape[:-2], chi, dtype=torch.int64, device=m.device)
     return left, right, s_approx, keep
 
@@ -156,6 +163,7 @@ def split_two_site_subspace(
     chi: int,
     *,
     iters: int = 2,
+    orth_every: bool = True,
     qr_method: str = "householder",
     svd_distribution: str = "right",
 ):
@@ -165,6 +173,7 @@ def split_two_site_subspace(
         _theta_matrix(theta),
         chi,
         iters=iters,
+        orth_every=orth_every,
         qr_method=qr_method,
         svd_distribution=svd_distribution,
     )
