@@ -182,7 +182,36 @@ Phases (any failure raises and exits non-zero):
    Lindblad evolution; (c) the ensemble at L=10 against the state vector;
    (d) the order-1 cell's PVM rows at L=100, card vs CPU c128, relative.
    Phase 3 holds K18/K19 (``subspace_power``), K20 (``masked_qr``), K17's
-   bra stream (``op_scan_bra``) and K9 at BUG's (32, 192, 128).
+   bra stream (``op_scan_bra``) and K9 at BUG's (32, 192, 128);
+19. the Lindblad backend and MCWF-Krylov (TFIM J=1, g=0.5 from x+, z and
+   lowering 0.05 on every site, 10 steps of dt=0.1): (a) the dense route
+   at L=6 (vec(rho) 4096, complex128): the host Liouvillian, the 4096 x
+   4096 ``matrix_exp`` and ten K22 ``lindblad_step`` launches timed apart,
+   then ``run_lindblad`` (11 K22 launches) against the port's CPU
+   complex128 run and the numpy exact evolution (scipy's
+   ``expm_multiply``) within 1e-10; (b) RK4 at L=10 (24.6 M
+   nonzeros, 6 substeps a step): the host build, ``run_lindblad`` in
+   complex128 (240 K21 ``csr_spmm`` and 11 K23 ``coo_rows`` launches), the
+   evolution alone in complex128 and complex64, the trace row within 1e-10
+   (1e-4 in complex64), rho Hermitian, the first step against the port's
+   CPU complex128 run (1e-10; complex64 1e-4); at L=7 RK4 against the
+   dense propagator within 1e-6; (c) d > 2: Bose-Hubbard L=6,
+   d=3 with a ``destroy(3)`` jump (vec(rho) 531,441, RK4, complex128):
+   trace, Hermiticity, the first step against the CPU; two ions on an
+   8-point grid (d=8, the dense route) with ``position`` rows against the
+   CPU; (d) ``run_mcwf_batch(route="krylov")`` at L=10 against the dense
+   route with the same draws (complex64, 1e-4), and at the MCWF cell (L=20,
+   B=16, k=25): traj/s with and without the host build, launches a step
+   beside the local route's, the two routes' means within 5 SE + 1e-3.
+   The device loops of (a), (b) and (d) are profiled at the end of phase 3
+   (the exponential and ten K22 steps; five RK4 steps; two Krylov steps),
+   each held to its kernels and to no cuSPARSE or gemv kernel, where the
+   tracer keeps its rows.  Phase 3 holds K21 (the L=10 Liouvillian in
+   complex128 and complex64, a stage and a substep; the L=20 H_eff at
+   B=16), K22
+   (n=4096) and K23 (the L=10 trace rows, the L=20 expectation rows):
+   complex128 within 1e-12 and complex64 within 1e-5 of the plain version,
+   beside ``torch.sparse.mm`` and ``torch.mv``.
 
 The last two lines of standard output are the kernel table and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come on
@@ -194,6 +223,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -220,6 +250,7 @@ TV_TOL = 0.05
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # FP32 outside the tensor cores (TF32 stays off)
+FP64_FLOPS = 34e12  # FP64 outside the tensor cores (the complex128 rows of K21-K23)
 TF32_FLOPS = 495e12  # dense TF32 on the tensor cores
 TF32_SPLIT_PRODUCTS = 3  # 3xTF32: three TF32 products make one float32-accurate real product
 CMAC_FLOPS = 8  # one complex multiply-add is four real FMAs
@@ -262,11 +293,13 @@ TABLE_PATH = dict(ns_polar="analog_1site", lanczos_epilogue="analog", bond_gate=
                   ns_canon="analog",
                   pair_weights="analog_two_site", lanczos_solve0="analog_1site", op_scan="analog_order1",
                   subspace_power_householder="analog_householder", subspace_power_cholesky="analog_cholesky",
-                  masked_qr="analog_bug", op_scan_bra="ensemble")
+                  masked_qr="analog_bug", op_scan_bra="ensemble", csr_spmm="lindblad_rk4",
+                  lindblad_step="lindblad_dense", coo_rows="lindblad_rk4")
 # the phases whose main-path launch counts the JSON file keeps per kernel
 LAUNCH_PATHS = ("analog", "digital", "analog_xxz", "digital_window", "mcwf", "analog_exact", "analog_two_site",
                 "digital_two_site", "mcwf_two_site", "analog_order1", "analog_1site", "analog_dynamic",
-                "analog_householder", "analog_cholesky", "analog_bug", "ensemble")
+                "analog_householder", "analog_cholesky", "analog_bug", "ensemble", "lindblad_dense", "lindblad_rk4",
+                "lindblad_qudits", "mcwf_krylov")
 # the order-1 phases (13, 13b, 13c): phase 4's cell at order 1 with four PVM rows beside Z, and its
 # one-site and dynamic TDVP from a haar-random start of this numpy seed
 ORDER1_PVM = ("0" * 100, "1" * 100, "01" * 50, "0" * 50 + "1" * 50)
@@ -299,6 +332,22 @@ LIBRARY_CALLS = dict(householder="torch.linalg.qr and matmul a step (the plain v
 # stream: (members, kets a member, L, chi) of the ensemble cell and a ragged shape
 MASKED_QR_SHAPES = {"bug": (32, 64, 32), "guard": (4096, 32, 16), "ragged": (3, 37, 21)}
 BRA_SHAPES = {"ensemble": (8, 2, 100, 64), "ragged": (3, 3, 9, 37)}
+# phases 19a-19d (the Lindblad backend, MCWF-Krylov): TFIM J=1, g=0.5 from x+, z and lowering 0.05 on
+# every site, 10 steps of dt=0.1; the dense route at L=6 (vec(rho) 4096), RK4 at L=10
+# (RECOMMENDED_MAX_QUBITS) checked against the CPU over `cpu_steps` (the CPU's plain RK4 takes about
+# 0.6 s a substep there), and at L=7 against the dense propagator; Bose-Hubbard L=6, d=3 and two ions on an
+# 8-point grid (d=8); K21-K23 against their plain versions (relative), the rows against complex128
+# references, RK4 against the dense propagator (the JAX package's own test), the krylov route against the
+# dense one with the same draws (complex64)
+LINDBLAD = dict(dense_length=6, rk4_length=10, check_length=7, steps=10, dt=0.1, gamma=0.05, cpu_steps=1)
+QUDITS = dict(length=6, local_dim=3, steps=5, grid=8)
+SPARSE_TOL = {torch.complex64: 1e-5, torch.complex128: 1e-12}
+LINDBLAD_TOL = 1e-10
+LINDBLAD_C64_TOL = 1e-4
+RK4_DENSE_TOL = 1e-6
+KRYLOV_TOL = 1e-4
+# kernel-name marks of the library calls that must not run on those paths (cuSPARSE, cuBLAS's gemv)
+LIBRARY_MARKS = ("cusparse", "gemv")
 # the products of the polar factor's schedule in K4, K5 and K6 (ns_polar.cuh), for every shape
 NS_PRODUCTS = "3xTF32 on the tensor cores (mma.sync m16n8k8, FP32 accumulators)"
 NEWTON_TOL = 1e-4  # K5 and K6 against their plain versions (relative; the Newton steps amplify the summation order)
@@ -468,10 +517,10 @@ def kernel_ms_by_name(fn, kernels: dict[str, str], calls: int = 20) -> dict[str,
     return out
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, flops_rate: float = FP32_FLOPS) -> tuple[float, str]:
     """The least time the card could take: bytes over the memory rate or
-    operations over the FP32 rate, the larger, in ms."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    operations over ``flops_rate`` (FP32's, or FP64's), the larger, in ms."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_rate
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -488,7 +537,7 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops, per_call=1, slow_plain=False,
-            library_device=False, tc_flops=0):
+            library_device=False, tc_flops=0, flops_rate=FP32_FLOPS):
     """Every time of one kernel at one shape, printed on one line.  The
     kernel and its plain version: profiler device time (20 calls of the
     kernel, PLAIN_PROFILED_CALLS of the plain version) and host-paced time.
@@ -510,7 +559,8 @@ def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops,
     tensor cores in 3xTF32 (the polar factor's products of K4, K5 and
     K6): beside the FP32 bound, ``tc_bound_ms`` is the least time of the
     same work with that part at TF32_SPLIT_PRODUCTS TF32 products a real
-    one at TF32_FLOPS and the rest at FP32_FLOPS."""
+    one at TF32_FLOPS and the rest at FP32_FLOPS.  ``flops_rate``: the rate
+    of ``flops`` in the bound, FP64_FLOPS for complex128 work."""
     t_row = time.perf_counter()
     ms, launches, source = device_ms(kernel_fn, names=kernel_names, per_call=per_call)
     # a kernel of milliseconds is its own host pace: 3 windows of 3 calls are enough
@@ -532,7 +582,7 @@ def timings(label, kernel_fn, plain_fn, library_fn, kernel_names, nbytes, flops,
         plain_ms, plain_events, plain_source = device_ms(plain_fn, calls=PLAIN_PROFILED_CALLS)
         plain_host_ms = host_paced_ms(plain_fn) if plain_ms < 1.0 else host_paced_ms(plain_fn, 3, 5, 1)
         library_ms = None if library_fn is None else host_paced_ms(library_fn, windows=3, calls=3)
-    bound_ms, bound_by = bound(nbytes, flops)
+    bound_ms, bound_by = bound(nbytes, flops, flops_rate)
     out = dict(
         ms=ms, ms_source=source, launches_per_call=launches, host_ms=host_ms, plain_ms=plain_ms,
         plain_ms_source=plain_source, plain_events_per_call=plain_events, plain_host_ms=plain_host_ms,
@@ -845,10 +895,13 @@ def phase_kernels(dev):
     log(f"[time] phase 3, K4, K3, K10, K7, K11: {time.perf_counter() - t_start:.1f} s")
     for name, fn in (("TDVP", tdvp_kernel_rows), ("MCWF", mcwf_kernel_rows), ("K9, K14", decomp_kernel_rows),
                      ("K5, K6", newton_kernel_rows), ("K15", two_site_kernel_rows), ("K16, K17", order1_kernel_rows),
-                     ("K18, K19, K20, K17's bra stream", port16_kernel_rows)):
+                     ("K18, K19, K20, K17's bra stream", port16_kernel_rows), ("K21, K22, K23", sparse_kernel_rows)):
         t_start = time.perf_counter()
         rows.update(fn(dev, randc, gen))
         log(f"[time] phase 3, {name}: {time.perf_counter() - t_start:.1f} s")
+    t_start = time.perf_counter()
+    sparse_path_profiles(dev)
+    log(f"[time] phase 3, the profiles of phases 19a, 19b and 19d: {time.perf_counter() - t_start:.1f} s")
     return rows
 
 
@@ -2632,27 +2685,28 @@ def phase_mcwf(dev):
 
 def exact_lindblad_z(h, jumps, psi0, dt, steps, length):
     """<Z_i>(t) of the Lindblad evolution from |psi0><psi0|: the row-major
-    vec(rho) superoperator, vec(A rho B) = (A kron B^T) vec(rho), and its
-    exact step propagator."""
-    import scipy.linalg
+    vec(rho) superoperator, vec(A rho B) = (A kron B^T) vec(rho), assembled
+    sparse, and exp(L t) vec(rho0) on the step grid by scipy's
+    ``expm_multiply`` (no dense propagator: at vec(rho) 4096 the dense
+    ``expm`` took 17 s of the card's host)."""
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import expm_multiply
 
     from yaqs_tpu_torch.analog.embedding import embed_one_site
 
     dim = h.shape[0]
-    eye = np.eye(dim)
-    liou = -1j * (np.kron(h, eye) - np.kron(eye, h.T))
-    for jump in jumps:
-        ldl = jump.conj().T @ jump
-        liou += np.kron(jump, jump.conj()) - 0.5 * (np.kron(ldl, eye) + np.kron(eye, ldl.T))
-    prop = scipy.linalg.expm(liou * dt)
-    zs = [embed_one_site(np.diag([1.0, -1.0]), i, length) for i in range(length)]
-    rho = np.outer(psi0, psi0.conj()).reshape(-1)
-    out = np.zeros((length, steps + 1))
-    for t in range(steps + 1):
-        r = rho.reshape(dim, dim)
-        out[:, t] = [np.trace(z @ r).real for z in zs]
-        rho = prop @ rho
-    return out
+    eye = sp.identity(dim, dtype=complex, format="csr")
+    hs = sp.csr_matrix(np.asarray(h, dtype=complex))
+    js = [sp.csr_matrix(np.asarray(jump, dtype=complex)) for jump in jumps]
+    ldl = sum((jump.conj().T @ jump for jump in js), sp.csr_matrix((dim, dim), dtype=complex))
+    liou = -1j * (sp.kron(hs, eye) - sp.kron(eye, hs.T)) - 0.5 * (sp.kron(ldl, eye) + sp.kron(eye, ldl.T))
+    for jump in js:
+        liou = liou + sp.kron(jump, jump.conj())
+    rho0 = np.outer(psi0, psi0.conj()).reshape(-1)
+    rhos = expm_multiply(liou.tocsc(), rho0, start=0.0, stop=steps * dt, num=steps + 1, endpoint=True)
+    zs = np.stack([np.diag(embed_one_site(np.diag([1.0, -1.0]), i, length)).real for i in range(length)])
+    diag = rhos.reshape(steps + 1, dim, dim).diagonal(axis1=1, axis2=2)
+    return zs @ diag.real.T
 
 
 def phase_mcwf_guards(dev):
@@ -3565,6 +3619,599 @@ def phase_port16_guards(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The Lindblad backend and the MCWF-Krylov route (K21, K22, K23)
+# ---------------------------------------------------------------------------
+
+
+def tfim_noise(length, gamma):
+    """z and lowering noise of strength ``gamma`` on every site."""
+    import yaqs_tpu_torch as yt
+
+    return yt.NoiseModel([{"name": n, "sites": [i], "strength": gamma} for i in range(length)
+                          for n in ("z", "lowering")])
+
+
+@functools.cache
+def lindblad_case(length):
+    """TFIM J=1, g=0.5 from x+, z and lowering 0.05 on every site: the MPO,
+    noise, rows (Z on every site, then the identity, whose row is the
+    trace), psi0 and rho0's vec, the sparse Liouvillian with its host build
+    time (the Hamiltonian, the jump operators and the Liouvillian), the
+    sparse and dense observables and the RK4 substeps a step."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch.analog.lindblad import build_liouvillian_sparse, noise_model_jump_ops_sparse, rk4_substeps
+    from yaqs_tpu_torch.analog.mcwf import dense_observables, sparse_observables
+
+    w = yt.ising_mpo(length, 1.0, 0.5)
+    noise = tfim_noise(length, LINDBLAD["gamma"])
+    obs = [yt.Observable("z", i) for i in range(length)] + [yt.Observable("id", 0)]
+    psi0 = yt.to_statevector(yt.named_product_state("x+", length, 1))
+    psi0 = psi0 / np.linalg.norm(psi0)
+    t_start = time.perf_counter()
+    liou = build_liouvillian_sparse(yt.mpo_to_sparse_matrix(w), noise_model_jump_ops_sparse(noise, length))
+    build_s = time.perf_counter() - t_start
+    return dict(w=w, noise=noise, obs=obs, psi0=psi0, rho0=np.outer(psi0, psi0.conj()).reshape(-1), liou=liou,
+                build_s=build_s, obs_sparse=sparse_observables(obs, length),
+                obs_dense=dense_observables(obs, length) if length <= 7 else None,
+                substeps=rk4_substeps(liou, LINDBLAD["dt"]))
+
+
+@functools.cache
+def krylov_case(length):
+    """The MCWF cell's sparse operators (TFIM L from x+, z and lowering 0.05,
+    Z rows): the Krylov context as ``run_mcwf_batch(route="krylov")`` builds
+    it, and its host build time."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch.analog.lindblad import noise_model_jump_ops_sparse
+    from yaqs_tpu_torch.analog.mcwf import make_mcwf_krylov_context, sparse_observables
+
+    w, _, noise, obs = mcwf_inputs(length, MCWF["gamma"])
+    t_start = time.perf_counter()
+    ctx = make_mcwf_krylov_context(yt.mpo_to_sparse_matrix(w), noise_model_jump_ops_sparse(noise, length),
+                                   sparse_observables(obs, length), MCWF["dt"], MCWF["krylov_dim"])
+    return ctx, time.perf_counter() - t_start
+
+
+def library_or_none(label, fn):
+    """``fn`` where the library call runs on these inputs, else None (the
+    reason printed)."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"[phase 3] {label}: the library call does not run here ({type(exc).__name__}: {str(exc)[:200]}); "
+            "library_ms null")
+        return None
+    return fn
+
+
+def torch_csr(a):
+    """The port's CSR triple as a ``torch.sparse_csr_tensor`` (the library
+    rows' input; the port never calls the library)."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # "sparse CSR support is in beta state"
+        return torch.sparse_csr_tensor(a.crow, a.col, a.val, a.shape, check_invariants=False)
+
+
+def spmm_bytes(a, nvec, reads, writes, elt):
+    """K21's bytes: the CSR once, and ``reads`` and ``writes`` vectors of
+    ``n_rows`` entries for each of ``nvec``."""
+    return a.nbytes + nvec * (reads + writes) * a.shape[0] * elt
+
+
+def rk4_substep_plain(a, v, h):
+    """The plain version of one RK4 substep: four plain calls of K21's
+    function."""
+    from yaqs_tpu_torch.kernels.csr_spmm import csr_spmm_plain
+
+    acc = torch.empty_like(v)
+    s1 = csr_spmm_plain(a, v, base=v, c1=h / 2, acc=acc, acc_in=v, c2=h / 6)
+    s2 = csr_spmm_plain(a, s1, base=v, c1=h / 2, acc=acc, c2=h / 3)
+    s1 = csr_spmm_plain(a, s2, base=v, c1=h, acc=acc, c2=h / 3)
+    csr_spmm_plain(a, s1, write_out=False, acc=acc, c2=h / 6)
+    return acc
+
+
+def sparse_kernel_rows(dev, randc, gen):
+    """K21 ``csr_spmm`` at the L=10 Liouvillian (B=1; complex128 and
+    complex64; one RK4 stage with every output, and one whole substep of
+    four launches) and at the MCWF cell's L=20 H_eff (B=16, complex64); K22
+    ``lindblad_step`` at n=4096 (the L=6 propagator, six Z rows and the
+    trace row; complex128 and complex64); K23 ``coo_rows`` at the L=10
+    trace rows (B=1) and the L=20 expectation rows (B=16, complex64).
+    Complex128 within 1e-12 and complex64 within 1e-5 of the plain version,
+    relative to the largest entry.  Library calls: ``torch.sparse.mm`` on
+    the same CSR (K21; K23's trace rows as one sparse product), ``torch.mv``
+    and the rows' ``einsum`` (K22)."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch.analog.lindblad import build_liouvillian, noise_model_jump_ops
+    from yaqs_tpu_torch.kernels.coo_rows import coo_rows, coo_rows_plain, coo_table
+    from yaqs_tpu_torch.kernels.csr_spmm import csr_from_scipy, csr_spmm, csr_spmm_plain, rk4_substep
+    from yaqs_tpu_torch.kernels.lindblad_step import lindblad_step, lindblad_step_plain, trace_table
+
+    rows = {name: dict(max_abs_err=0.0) for name in ("csr_spmm", "lindblad_step", "coo_rows")}
+
+    def held(name, label, got, ref, dtype):
+        err = rel_err(got, ref)
+        log(f"[phase 3] {label}: relative error {err:.3e} (limit {SPARSE_TOL[dtype]})")
+        check(bool(torch.isfinite(got).all()) and err <= SPARSE_TOL[dtype], f"{label} disagrees: {err}")
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], (got - ref).abs().max().item())
+        return err
+
+    lin = lindblad_case(LINDBLAD["rk4_length"])
+    liou, n = lin["liou"], lin["liou"].shape[0]
+    dim = math.isqrt(n)
+    h = LINDBLAD["dt"] / lin["substeps"]
+    for dtype in (torch.complex128, torch.complex64):
+        key, elt, rate = ("c128", 16, FP64_FLOPS) if dtype == torch.complex128 else ("c64", 8, FP32_FLOPS)
+        a = csr_from_scipy(liou, dev, dtype)
+        v = randc(n).to(dtype)
+        v /= torch.linalg.vector_norm(v)
+        s1, acc = torch.empty_like(v), torch.empty_like(v)
+        csr_spmm(a, v, base=v, c1=h / 2, out=s1, acc=acc, acc_in=v, c2=h / 6)
+        acc_ref = torch.empty_like(v)
+        ref = csr_spmm_plain(a, v, base=v, c1=h / 2, acc=acc_ref, acc_in=v, c2=h / 6)
+        label = f"csr_spmm L={LINDBLAD['rk4_length']} Liouvillian ({n} rows, {a.nnz} nonzeros) {key}"
+        err = max(held("csr_spmm", f"{label}, one RK4 stage", s1, ref, dtype),
+                  held("csr_spmm", f"{label}, the stage's running sum", acc, acc_ref, dtype))
+        sparse = torch_csr(a)
+        lib = library_or_none(f"csr_spmm {key}", lambda s=sparse, v=v: torch.sparse.mm(s, v[:, None]))
+        # inputs once (x, base and acc_in are one vector, v), outputs once (the stage vector and the sum)
+        stage = timings(f"{label}, one RK4 stage", lambda a=a, v=v, s1=s1, acc=acc: csr_spmm(
+            a, v, base=v, c1=h / 2, out=s1, acc=acc, acc_in=v, c2=h / 6),
+            lambda a=a, v=v: csr_spmm_plain(a, v, base=v, c1=h / 2, acc=torch.empty_like(v), acc_in=v, c2=h / 6),
+            lib, ("csr_spmm",), spmm_bytes(a, 1, 1, 2, elt), 8 * a.nnz, flops_rate=rate)
+        stage_bufs = (torch.empty_like(v), torch.empty_like(v))
+        got = rk4_substep(a, v, h, stage_bufs, torch.empty_like(v))
+        err = max(err, held("csr_spmm", f"{label}, one RK4 substep (four launches)", got, rk4_substep_plain(a, v, h),
+                            dtype))
+        # the substep as one function: the matrix and v read once, v' written once (its four passes read the
+        # matrix four times)
+        sub = timings(f"{label}, one RK4 substep", lambda a=a, v=v, b=stage_bufs, o=acc: rk4_substep(a, v, h, b, o),
+                      lambda a=a, v=v: rk4_substep_plain(a, v, h), None, ("csr_spmm",), spmm_bytes(a, 1, 1, 1, elt),
+                      4 * 8 * a.nnz, per_call=4, flops_rate=rate)
+        rows["csr_spmm"][f"lindblad_{key}"] = dict(
+            shape=[n, a.nnz, 1], rel_err=err, csr_bytes=a.nbytes, library_call="torch.sparse.mm on the same CSR",
+            **stage, substep=sub)
+    ctx, _ = krylov_case(MCWF["length"])
+    a = csr_from_scipy(ctx.heff, dev, torch.complex64)
+    nb = MCWF["batch"]
+    x = randc(nb, a.shape[0])
+    x /= torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    label = f"csr_spmm L={MCWF['length']} H_eff ({a.shape[0]} rows, {a.nnz} nonzeros) B={nb} c64"
+    err = held("csr_spmm", label, csr_spmm(a, x), csr_spmm_plain(a, x), torch.complex64)
+    sparse = torch_csr(a)
+    xt = x.T.contiguous()
+    t = timings(label, lambda a=a, x=x: csr_spmm(a, x), lambda a=a, x=x: csr_spmm_plain(a, x),
+                library_or_none("csr_spmm H_eff", lambda s=sparse, xt=xt: torch.sparse.mm(s, xt)), ("csr_spmm",),
+                spmm_bytes(a, nb, 1, 1, 8), 8 * a.nnz * nb)
+    rows["csr_spmm"]["mcwf_heff"] = dict(shape=[a.shape[0], a.nnz, nb], rel_err=err, csr_bytes=a.nbytes,
+                                         library_call="torch.sparse.mm on the same CSR", **t)
+
+    # K22 at n = 4096: the L=6 propagator, Z rows and the trace row; the plain version (a gemv and the rows'
+    # product) between CUDA events, as the profiler kept 1.6 of its device rows a call late in phase 3
+    small = lindblad_case(LINDBLAD["dense_length"])
+    length = LINDBLAD["dense_length"]
+    liou6 = build_liouvillian(yt.mpo_to_matrix(small["w"]), noise_model_jump_ops(small["noise"], length))
+    p128 = torch.linalg.matrix_exp(torch.as_tensor(liou6 * LINDBLAD["dt"]).to(dev))
+    nd = p128.shape[0]
+    obs = torch.as_tensor(np.stack(small["obs_dense"])).to(dev)
+    for dtype in (torch.complex128, torch.complex64):
+        key, elt, rate = ("c128", 16, FP64_FLOPS) if dtype == torch.complex128 else ("c64", 8, FP32_FLOPS)
+        p, o = p128.to(dtype), obs.to(dtype)
+        obs_t = trace_table(o)
+        v = torch.as_tensor(small["rho0"]).to(device=dev, dtype=dtype)
+        got, got_rows = lindblad_step(p, v, obs_t)
+        ref, ref_rows = lindblad_step_plain(p, v, obs_t)
+        label = f"lindblad_step n={nd} ({obs_t.shape[0]} rows) {key}"
+        err = max(held("lindblad_step", f"{label}, the step", got, ref, dtype),
+                  held("lindblad_step", f"{label}, the rows", got_rows, ref_rows, dtype))
+        out, rbuf = torch.empty_like(v), v.real.new_empty(obs_t.shape[0])
+        sdim = math.isqrt(nd)
+        t = timings(label, lambda p=p, v=v, ot=obs_t, out=out, rb=rbuf: lindblad_step(p, v, ot, out=out, rows=rb),
+                    lambda p=p, v=v, ot=obs_t: lindblad_step_plain(p, v, ot),
+                    lambda p=p, v=v, o=o: torch.einsum("kab,ba->k", o, torch.mv(p, v).reshape(sdim, sdim)).real,
+                    ("lindblad_step",), (nd * nd + 2 * nd + obs_t.numel()) * elt + obs_t.shape[0] * elt // 2,
+                    8 * (nd * nd + obs_t.numel()), flops_rate=rate, slow_plain=True)
+        rows["lindblad_step"][key] = dict(shape=[nd, obs_t.shape[0]], rel_err=err,
+                                          library_call="torch.mv + the rows' einsum", **t)
+
+    # K23: the L=10 trace rows (B=1) and the L=20 expectation rows (B=16)
+    import scipy.sparse as sp
+
+    for dtype in (torch.complex128, torch.complex64):
+        key, elt, rate = ("c128", 16, FP64_FLOPS) if dtype == torch.complex128 else ("c64", 8, FP32_FLOPS)
+        table = coo_table(lin["obs_sparse"], n, dev, dtype)
+        v = randc(n).to(dtype)
+        label = f"coo_rows trace rows L={LINDBLAD['rk4_length']} ({table.num_obs} rows, {table.row.numel()} entries) {key}"
+        err = held("coo_rows", label, coo_rows(table, v, "trace", dim), coo_rows_plain(table, v, "trace", dim), dtype)
+        # the same rows as one sparse product: Ot[k, col * dim + row] = data; the bound reads each entry of
+        # vec(rho) that a row gathers once (the Z rows and the trace row all read rho's diagonal)
+        at = table.col.cpu().numpy().astype(np.int64) * dim + table.row.cpu().numpy()
+        gathered = np.unique(at).size
+        ot = sp.csr_matrix((table.data.cpu().numpy(), (np.repeat(np.arange(table.num_obs), np.diff(table.host_offsets)),
+                                                        at)), shape=(table.num_obs, n))
+        ot_t = torch_csr(csr_from_scipy(ot, dev, dtype))
+        t = timings(label, lambda tb=table, v=v: coo_rows(tb, v, "trace", dim),
+                    lambda tb=table, v=v: coo_rows_plain(tb, v, "trace", dim),
+                    library_or_none("coo_rows trace", lambda s=ot_t, v=v: torch.sparse.mm(s, v[:, None]).real),
+                    ("coo_rows",), table.nbytes + gathered * elt + table.num_obs * elt // 2,
+                    8 * table.row.numel(), flops_rate=rate)
+        rows["coo_rows"][f"trace_{key}"] = dict(shape=[n, table.num_obs, table.row.numel(), 1], rel_err=err,
+                                                library_call="torch.sparse.mm of the rows' sparse matrix", **t)
+    table = coo_table(ctx.obs, a.shape[0], dev, torch.complex64)
+    label = f"coo_rows expectation rows L={MCWF['length']} ({table.num_obs} rows, {table.row.numel()} entries) B={nb} c64"
+    # held against the plain version in complex128 on the same complex64 inputs: in complex64 its float32
+    # index_add_ over 2^20 entries a row lands about 2e-3 (relative) from it on these near-zero rows (NVIDIA
+    # H100 80GB HBM3, 700.00 W), where the kernel sums in double
+    up = dataclasses.replace(table, data=table.data.to(torch.complex128))
+    err = held("coo_rows", label, coo_rows(table, x, "expectation"),
+               coo_rows_plain(up, x.to(torch.complex128), "expectation"), torch.complex64)
+    t = timings(label, lambda tb=table, x=x: coo_rows(tb, x, "expectation"),
+                lambda tb=table, x=x: coo_rows_plain(tb, x, "expectation"), None, ("coo_rows",),
+                table.nbytes + x.numel() * 8 + nb * table.num_obs * 4, 8 * table.row.numel() * nb * 2,
+                slow_plain=True)
+    rows["coo_rows"]["mcwf"] = dict(shape=[a.shape[0], table.num_obs, table.row.numel(), nb], rel_err=err,
+                                    library_call="none", **t)
+    # the kernels line gives the dtype whose launches it counts: phase 19b's run_lindblad in complex128
+    main = dict(csr_spmm="lindblad_c128", lindblad_step="c128", coo_rows="trace_c128")
+    replaces = dict(csr_spmm="yaqs_tpu/analog/lindblad.py:182", lindblad_step="yaqs_tpu/analog/lindblad.py:266",
+                    coo_rows="yaqs_tpu/analog/lindblad.py:196")
+    return {name: dict(source=f"yaqs_tpu_torch/kernels/csrc/{name}.cu", replaces=replaces[name], **row[main[name]],
+                       **row) for name, row in rows.items()}
+
+
+# the profiles of the entry points of phases 19a, 19b and 19d, taken in phase 3 (sparse_path_profiles)
+SPARSE_PROFILES: dict = {}
+
+
+def sparse_path_profiles(dev):
+    """Profiles of the entry points that phases 19a, 19b and 19d count, at
+    their dtypes, each held to its kernels and to no sparse or matrix-vector
+    library kernel: ``run_lindblad`` on the dense route (TFIM L=6, ten
+    steps, complex128: the exponential and K22), ``run_lindblad`` on the RK4
+    route (L=10, two steps, complex128: K21, K23) and ``run_mcwf_batch``'s
+    krylov route (L=20, B=16, two steps, complex64: K21, K13, K23), each
+    with its host build.  They are taken in phase 3, where the tracer keeps
+    its rows: late in the script it kept no device row of three profiles of
+    phase 19b's steps in a row, just after phase 19a's had kept its own
+    (NVIDIA H100 80GB HBM3, 700.00 W).  Each kernel launches several times
+    in its profile, as the tracer drops a share of the launches."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch.analog.run import run_mcwf_batch
+
+    dt, steps = LINDBLAD["dt"], LINDBLAD["steps"]
+    small = lindblad_case(LINDBLAD["dense_length"])
+    SPARSE_PROFILES["lindblad_dense"] = profile_through(
+        "phase 19a, run_lindblad", lambda: yt.run_lindblad(
+            small["psi0"], small["w"], small["noise"], small["obs"], dt=dt, num_steps=steps, device=dev),
+        ("lindblad_step_kernel",), steps=steps)
+    lin = lindblad_case(LINDBLAD["rk4_length"])
+    SPARSE_PROFILES["lindblad_rk4"] = profile_through(
+        "phase 19b, run_lindblad, two steps", lambda: yt.run_lindblad(
+            lin["psi0"], lin["w"], lin["noise"], lin["obs"], dt=dt, num_steps=2, device=dev, dtype=torch.complex128),
+        ("csr_spmm_kernel", "coo_rows_kernel"), steps=2)
+    w, psi0, noise, obs = mcwf_inputs(MCWF["length"], MCWF["gamma"])
+    SPARSE_PROFILES["mcwf_krylov"] = profile_through(
+        "phase 19d, run_mcwf_batch krylov, two steps", lambda: run_mcwf_batch(
+            psi0, w, noise, obs, route="krylov", dt=MCWF["dt"], num_steps=2, device=dev, dtype=torch.complex64,
+            batch=MCWF["batch"]),
+        ("csr_spmm_kernel", "coo_rows_kernel", "project_kernel"), steps=2)
+
+
+def profile_through(label, run, kernels_expected, steps=1, tries=3):
+    """``profile_run`` of ``run``, held to have gone through every kernel of
+    ``kernels_expected`` and no sparse or matrix-vector library kernel
+    (cuSPARSE, cuBLAS gemv).  The tracer drops launches on this machine, and
+    once dropped a whole profiled run late in the script: a profile that
+    lacks an expected kernel is taken again, up to ``tries`` times, before
+    the phase fails."""
+    for attempt in range(1, tries + 1):
+        profile = profile_run(label, run, steps=steps)
+        missing = [k for k in kernels_expected if not any(k in name for name in profile["names"])]
+        if not missing:
+            break
+        log(f"[timing] {label}: the profiler kept no row of {missing} (profile {attempt} of {tries})")
+    check(not missing, f"{label}: no device row of {missing} in {tries} profiles")
+    strangers = [name for name in profile["names"] if any(mark in name.lower() for mark in LIBRARY_MARKS)]
+    check(not strangers, f"{label}: library kernels on the path: {strangers}")
+    log(f"[{label}] profile: {', '.join(kernels_expected)} present, no {'/'.join(LIBRARY_MARKS)} kernel")
+    profile["tries"] = attempt
+    return profile
+
+
+def launches_only(label, launches, expected):
+    """Every kernel of ``expected`` launched as counted there (a count, or
+    None for at least once), and no other kernel."""
+    for name, count in expected.items():
+        ok = launches[name] > 0 if count is None else launches[name] == count
+        check(ok, f"{label}: {name} launched {launches[name]} times, expected {count or 'at least once'}")
+    strays = {name: k for name, k in launches.items() if k and name not in expected}
+    check(not strays, f"{label}: other kernels launched: {strays}")
+
+
+def phase_lindblad_dense(dev):
+    """Phase 19a: the dense Lindblad route at vec(rho) 4096 (TFIM L=6)."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch import kernels
+    from yaqs_tpu_torch.analog.lindblad import build_liouvillian, noise_model_jump_ops
+    from yaqs_tpu_torch.kernels.lindblad_step import lindblad_step, trace_table
+
+    length, steps, dt = LINDBLAD["dense_length"], LINDBLAD["steps"], LINDBLAD["dt"]
+    lin = lindblad_case(length)
+    args = (lin["psi0"], lin["w"], lin["noise"], lin["obs"])
+    h = yt.mpo_to_matrix(lin["w"])
+    jumps = noise_model_jump_ops(lin["noise"], length)
+    # the pieces apart: the host Liouvillian, the matrix exponential (cuBLAS), the K22 steps
+    t_start = time.perf_counter()
+    liou = build_liouvillian(h, jumps)
+    host_s = time.perf_counter() - t_start
+    lt = torch.as_tensor(liou * dt).to(dev)
+    expm_ms = single_call_ms(lambda: torch.linalg.matrix_exp(lt), calls=3, warmup=1)
+    p = torch.linalg.matrix_exp(lt)
+    obs_t = trace_table(torch.as_tensor(np.stack(lin["obs_dense"])).to(dev))
+    v = torch.as_tensor(lin["rho0"]).to(dev)
+    out, rows = torch.empty_like(v), v.real.new_empty(obs_t.shape[0])
+
+    def ten_steps():
+        for _ in range(steps):
+            lindblad_step(p, v, obs_t, out=out, rows=rows)
+
+    steps_ms = single_call_ms(ten_steps, calls=3, warmup=1)
+    log(f"[phase 19a] host Liouvillian (sparse, then dense) {host_s:.3f} s; torch.linalg.matrix_exp ({4**length} x "
+        f"{4**length}, c128, cuBLAS) {expm_ms:.3f} ms; {steps} K22 steps {steps_ms:.3f} ms "
+        f"({steps_ms / steps:.4f} ms a step)")
+    profile = SPARSE_PROFILES["lindblad_dense"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    card = yt.run_lindblad(*args, dt=dt, num_steps=steps, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    launches_only("phase 19a", launches, dict(lindblad_step=steps + 1))
+    check(card.dtype == torch.float64 and tuple(card.shape) == (length + 1, steps + 1), f"rows {card.dtype} {card.shape}")
+    t_start = time.perf_counter()
+    cpu = yt.run_lindblad(*args, dt=dt, num_steps=steps, device="cpu")
+    cpu_s = time.perf_counter() - t_start
+    d_cpu = (card.cpu() - cpu).abs().max().item()
+    t_start = time.perf_counter()
+    exact = exact_lindblad_z(h, jumps, lin["psi0"], dt, steps, length)
+    exact_s = time.perf_counter() - t_start
+    d_exact = float(np.abs(card.cpu().numpy()[:length] - exact).max())
+    d_trace = (card[length] - 1).abs().max().item()
+    log(f"[phase 19a] dense Lindblad TFIM L={length} (vec(rho) {4**length}) {steps} steps c128: {seconds:.3f} s on the "
+        f"card (the host build included), peak {peak / 2**20:.1f} MiB, launches "
+        f"{dict(lindblad_step=launches['lindblad_step'])}; card vs the port's CPU c128 run ({cpu_s:.1f} s) max|d| = "
+        f"{d_cpu:.3e}, vs the numpy exact evolution ({exact_s:.1f} s) max|dZ| = {d_exact:.3e} (limit {LINDBLAD_TOL}); "
+        f"|trace - 1| {d_trace:.3e}")
+    check(bool(torch.isfinite(card).all()) and d_cpu <= LINDBLAD_TOL and d_exact <= LINDBLAD_TOL,
+          f"dense Lindblad guard failed: {d_cpu}, {d_exact}")
+    return dict(seconds=seconds, peak_bytes=peak, launches=launches, cpu_max_abs_d=d_cpu, exact_max_abs_dz=d_exact,
+                trace_max_abs_d=d_trace, cpu_seconds=cpu_s, exact_seconds=exact_s, host_liouvillian_s=host_s,
+                matrix_exp_ms=expm_ms, steps_ms=steps_ms, profile=profile)
+
+
+def phase_lindblad_rk4(dev):
+    """Phase 19b: the sparse RK4 route at L=10 (RECOMMENDED_MAX_QUBITS) in
+    complex128 and complex64, and at L=7 against the dense propagator."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch import kernels
+    from yaqs_tpu_torch.analog.lindblad import lindblad_rk4_expectations, propagate_dense
+
+    length, steps, dt = LINDBLAD["rk4_length"], LINDBLAD["steps"], LINDBLAD["dt"]
+    lin = lindblad_case(length)
+    liou, nsub = lin["liou"], lin["substeps"]
+    args = (lin["psi0"], lin["w"], lin["noise"], lin["obs"])
+    nbytes = {k: liou.nnz * (elt + 4) + (liou.shape[0] + 1) * 4 for k, elt in (("c128", 16), ("c64", 8))}
+    log(f"[phase 19b] L={length}: host build of the sparse Liouvillian {lin['build_s']:.3f} s, {liou.nnz} nonzeros, "
+        f"{liou.shape[0]} rows, device bytes c128 {nbytes['c128'] / 1e6:.1f} MB, c64 {nbytes['c64'] / 1e6:.1f} MB; "
+        f"{nsub} RK4 substeps a step")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    card, rho = yt.run_lindblad(*args, dt=dt, num_steps=steps, device=dev, dtype=torch.complex128, get_state=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+    launches_only("phase 19b", launches, dict(csr_spmm=4 * nsub * steps, coo_rows=steps + 1))
+    out = dict(seconds=seconds, launches=launches, nnz=liou.nnz, build_s=lin["build_s"], substeps=nsub,
+               device_bytes=nbytes)
+    herm = (rho - rho.mH).abs().max().item()
+    evo = {}
+    for key, dtype in (("c128", torch.complex128), ("c64", torch.complex64)):
+        torch.cuda.reset_peak_memory_stats()
+        t_start = time.perf_counter()
+        rows = lindblad_rk4_expectations(liou, lin["rho0"], lin["obs_sparse"], dt, steps, device=dev, dtype=dtype)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        evo[key] = rows.double().cpu()
+        out[f"evolution_{key}"] = dict(seconds=wall, ms_per_step=1e3 * wall / steps,
+                                       peak_bytes=torch.cuda.max_memory_allocated())
+        log(f"[phase 19b] evolution alone {key} (the Liouvillian to the card, {steps} steps of {nsub} substeps, "
+            f"rows): {wall:.3f} s, {1e3 * wall / steps:.3f} ms a step, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    d_run = (card.cpu() - evo["c128"]).abs().max().item()
+    t_start = time.perf_counter()
+    cpu = lindblad_rk4_expectations(liou, lin["rho0"], lin["obs_sparse"], dt, LINDBLAD["cpu_steps"], device="cpu")
+    cpu_s = time.perf_counter() - t_start
+    cols = LINDBLAD["cpu_steps"] + 1
+    d128 = (card.cpu()[:, :cols] - cpu).abs().max().item()
+    d64 = (evo["c64"][:, :cols] - cpu).abs().max().item()
+    tr128 = (card[length] - 1).abs().max().item()
+    tr64 = (evo["c64"][length] - 1).abs().max().item()
+    log(f"[phase 19b] RK4 L={length} run_lindblad c128 {seconds:.3f} s (the host build included), launches "
+        f"{dict(csr_spmm=launches['csr_spmm'], coo_rows=launches['coo_rows'])}; |trace - 1| c128 {tr128:.3e} "
+        f"(limit {LINDBLAD_TOL}), c64 {tr64:.3e}; |rho - rho^H| {herm:.3e}; card c128 vs the port's CPU c128 "
+        f"({LINDBLAD['cpu_steps']} step, {cpu_s:.1f} s) {d128:.3e} (limit {LINDBLAD_TOL}), card c64 vs it {d64:.3e} "
+        f"(limit {LINDBLAD_C64_TOL}); run_lindblad vs the evolution alone {d_run:.3e}")
+    check(bool(torch.isfinite(card).all()) and tr128 <= LINDBLAD_TOL and d128 <= LINDBLAD_TOL
+          and d64 <= LINDBLAD_C64_TOL and tr64 <= LINDBLAD_C64_TOL and d_run <= LINDBLAD_TOL,
+          f"RK4 Lindblad guards failed: {tr128}, {d128}, {d64}, {tr64}, {d_run}")
+    out.update(trace_c128=tr128, trace_c64=tr64, hermiticity=herm, cpu_c128_max_abs_d=d128, cpu_c64_max_abs_d=d64,
+               cpu_seconds=cpu_s)
+    # L=7: RK4 against the dense propagator (16384 x 16384 on the card, 4.3 GB)
+    small = lindblad_case(LINDBLAD["check_length"])
+    rk4 = lindblad_rk4_expectations(small["liou"], small["rho0"], small["obs_sparse"], dt, steps, device=dev,
+                                    dtype=torch.complex128)
+    t_start = time.perf_counter()
+    dense, _ = propagate_dense(small["liou"].toarray(), small["rho0"], small["obs_dense"], dt, steps, device=dev,
+                               dtype=torch.complex128)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t_start
+    d_dense = (rk4 - dense).abs().max().item()
+    log(f"[phase 19b] L={LINDBLAD['check_length']} RK4 ({small['substeps']} substeps a step) vs the dense propagator "
+        f"({dense_s:.1f} s with its {4 ** LINDBLAD['check_length']}-row exponential): max|d| = {d_dense:.3e} (limit "
+        f"{RK4_DENSE_TOL})")
+    check(d_dense <= RK4_DENSE_TOL, f"RK4 vs the dense propagator: {d_dense}")
+    out["rk4_vs_dense_max_abs_d"] = d_dense
+    del dense
+    torch.cuda.empty_cache()
+    out["profile"] = SPARSE_PROFILES["lindblad_rk4"]
+    return out
+
+
+def phase_lindblad_qudits(dev):
+    """Phase 19c: d > 2 through the Lindblad backend: Bose-Hubbard L=6, d=3
+    (RK4) and two trapped ions on an 8-point grid (dense)."""
+    import yaqs_tpu_torch as yt
+    from yaqs_tpu_torch import kernels
+    from yaqs_tpu_torch.models.operators import destroy, number_op
+
+    length, d, dt = QUDITS["length"], QUDITS["local_dim"], LINDBLAD["dt"]
+    w = yt.bose_hubbard_mpo(length, d, 1.0, 0.5, 1.0)
+    noise = yt.NoiseModel([{"name": "decay", "sites": [i], "strength": LINDBLAD["gamma"], "matrix": destroy(d)}
+                           for i in range(length)])
+    obs = [yt.Observable(number_op(d), i) for i in range(length)] + [yt.Observable(np.eye(d), 0)]
+    site = np.array([1.0, 1.0, 0.5], dtype=complex)
+    psi0 = site
+    for _ in range(length - 1):
+        psi0 = np.kron(site, psi0)
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    card, rho = yt.run_lindblad(psi0, w, noise, obs, dt=dt, num_steps=QUDITS["steps"], device=dev,
+                                dtype=torch.complex128, get_state=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+    launches_only("phase 19c", launches, dict(csr_spmm=None, coo_rows=QUDITS["steps"] + 1))
+    t_start = time.perf_counter()
+    cpu = yt.run_lindblad(psi0, w, noise, obs, dt=dt, num_steps=1, device="cpu")
+    cpu_s = time.perf_counter() - t_start
+    d_cpu = (card.cpu()[:, :2] - cpu).abs().max().item()
+    tr = (card[length] - 1).abs().max().item()
+    herm = (rho - rho.mH).abs().max().item()
+    log(f"[phase 19c] Bose-Hubbard L={length} d={d} (vec(rho) {d ** (2 * length)}, RK4, c128) {QUDITS['steps']} steps: "
+        f"{seconds:.3f} s (the host build included), csr_spmm {launches['csr_spmm']} launches; |trace - 1| {tr:.3e}, "
+        f"|rho - rho^H| {herm:.3e}; card vs the port's CPU c128 (1 step, {cpu_s:.1f} s) {d_cpu:.3e} (limit "
+        f"{LINDBLAD_TOL}); <n_0>(t) {card[0].tolist()}")
+    check(bool(torch.isfinite(card).all()) and tr <= LINDBLAD_TOL and herm <= LINDBLAD_TOL and d_cpu <= LINDBLAD_TOL,
+          f"Bose-Hubbard guards failed: {tr}, {herm}, {d_cpu}")
+    out = dict(seconds=seconds, launches=launches, trace=tr, hermiticity=herm, cpu_max_abs_d=d_cpu, cpu_seconds=cpu_s)
+    # two ions on an 8-point grid: d = 8, vec(rho) 4096, the dense route, position rows
+    grid = np.linspace(-3.0, 3.0, QUDITS["grid"])
+    wi = yt.trapped_ion_mpo(grid, [1.0, 1.0], 1.0, coulomb_strength=0.3, softening_length=0.5)
+    g1, g2 = (np.exp(-0.5 * (grid - c) ** 2).astype(complex) for c in (1.0, -1.0))
+    psi = np.kron(g2 / np.linalg.norm(g2), g1 / np.linalg.norm(g1))
+    dephase = yt.NoiseModel([{"name": "dephase", "sites": [0], "strength": 0.1, "matrix": np.diag(grid / 3)}])
+    pos = [yt.Observable("position", i, positions=grid) for i in (0, 1)]
+    kernels.reset_launch_counts()
+    ions = yt.run_lindblad(psi, wi, dephase, pos, dt=dt, num_steps=LINDBLAD["steps"], device=dev)
+    ion_launches = kernels.launch_counts()
+    launches_only("phase 19c, ions", ion_launches, dict(lindblad_step=LINDBLAD["steps"] + 1))
+    t_start = time.perf_counter()
+    ions_cpu = yt.run_lindblad(psi, wi, dephase, pos, dt=dt, num_steps=LINDBLAD["steps"], device="cpu")
+    ions_cpu_s = time.perf_counter() - t_start
+    d_ions = (ions.cpu() - ions_cpu).abs().max().item()
+    log(f"[phase 19c] two ions, {QUDITS['grid']}-point grid (d={QUDITS['grid']}, vec(rho) {QUDITS['grid'] ** 4}, "
+        f"dense, c128): <x_0>, <x_1> at the end {ions[:, -1].tolist()}; card vs the port's CPU c128 ({ions_cpu_s:.1f} s) "
+        f"{d_ions:.3e} (limit {LINDBLAD_TOL})")
+    check(bool(torch.isfinite(ions).all()) and d_ions <= LINDBLAD_TOL, f"trapped-ion guard failed: {d_ions}")
+    out.update(ions_max_abs_d=d_ions, ions_launches=ion_launches, ions_cpu_seconds=ions_cpu_s)
+    return out
+
+
+def phase_mcwf_krylov(dev):
+    """Phase 19d: the MCWF-Krylov route: at L=10 against the dense route
+    with the same draws, and at the MCWF cell (L=20, B=16) beside the local
+    route."""
+    from yaqs_tpu_torch import kernels
+    from yaqs_tpu_torch.analog.mcwf import mcwf_trajectory_krylov
+    from yaqs_tpu_torch.analog.run import run_mcwf_batch
+    from yaqs_tpu_torch.analog.tjm import GeneratorDraws
+
+    steps, dt, b, k = MCWF["steps"], MCWF["dt"], MCWF["batch"], MCWF["krylov_dim"]
+    length = 10
+    w, psi0, noise, obs = mcwf_inputs(length, MCWF["gamma"])
+    nc = 2 * length
+    rng = np.random.default_rng(19)
+    u = torch.as_tensor(rng.uniform(size=(b, steps)), dtype=torch.float32, device=dev)
+    g = torch.as_tensor(rng.gumbel(size=(b, steps, nc)), dtype=torch.float32, device=dev)
+
+    def draws(stream, j):
+        return u[:, j], g[:, j]
+
+    kw = dict(dt=dt, num_steps=steps, device=dev, dtype=torch.complex64, traj_indices=range(b), draws=draws)
+    kernels.reset_launch_counts()
+    kry = run_mcwf_batch(psi0, w, noise, obs, route="krylov", **kw)
+    small_launches = kernels.launch_counts()
+    dense = run_mcwf_batch(psi0, w, noise, obs, route="dense", **kw)
+    d10 = (kry - dense).abs().max().item()
+    log(f"[phase 19d] MCWF L={length} B={b} {steps} steps, the same draws: krylov route vs dense route (c64) "
+        f"max|d| = {d10:.3e} (limit {KRYLOV_TOL}); krylov launches "
+        f"{ {name: n for name, n in small_launches.items() if n} }")
+    check(bool(torch.isfinite(kry).all()) and d10 <= KRYLOV_TOL, f"krylov vs dense at L={length}: {d10}")
+    launches_only("phase 19d, L=10", small_launches, dict(csr_spmm=None, coo_rows=steps + 1, arnoldi_step=steps * k,
+                                                          arnoldi_epilogue=steps))
+
+    length = MCWF["length"]
+    w, psi0, noise, obs = mcwf_inputs(length, MCWF["gamma"])
+    kw = dict(dt=dt, num_steps=steps, device=dev, dtype=torch.complex64, batch=b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    res = run_mcwf_batch(psi0, w, noise, obs, route="krylov", **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_start
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    launches_only("phase 19d", launches, dict(csr_spmm=None, coo_rows=steps + 1, arnoldi_step=steps * k,
+                                              arnoldi_epilogue=steps))
+    ctx, build_s = krylov_case(length)
+    psi = torch.as_tensor(psi0 / np.linalg.norm(psi0)).to(device=dev, dtype=torch.complex64).expand(b, -1).contiguous()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    mcwf_trajectory_krylov(GeneratorDraws(0, range(b), 2 * length, dev, torch.float32), psi, ctx, steps)
+    torch.cuda.synchronize()
+    evo_s = time.perf_counter() - t_start
+    t_start = time.perf_counter()
+    local = run_mcwf_batch(psi0, w, noise, obs, route="local", **kw)
+    torch.cuda.synchronize()
+    local_s = time.perf_counter() - t_start
+    rk, rl = res.double().cpu().numpy(), local.double().cpu().numpy()
+    mk, ml = rk.mean(axis=0), rl.mean(axis=0)
+    se = np.sqrt(rk.var(axis=0, ddof=1) / b + rl.var(axis=0, ddof=1) / b)
+    worst = float(np.max(np.abs(mk - ml) / (STAT_SIGMAS * se + GUARD_TOL)))
+    per_step = {name: n / steps for name, n in launches.items() if n}
+    log(f"[phase 19d] MCWF-Krylov L={length} B={b} {steps} steps k={k} c64: {seconds:.3f} s ({b / seconds:.4f} traj/s "
+        f"with the host build of {build_s:.1f} s), the evolution alone {evo_s:.3f} s ({b / evo_s:.4f} traj/s), peak "
+        f"{peak / 2**20:.1f} MiB, launches a step {per_step}; the local route (K12) {local_s:.3f} s "
+        f"({b / local_s:.4f} traj/s); mean rows krylov vs local max|d| {np.abs(mk - ml).max():.3e}, largest share of "
+        f"5 SE + 1e-3 {worst:.3f}")
+    check(np.isfinite(rk).all() and worst <= 1.0, f"krylov vs local route means: {worst}")
+    profile = SPARSE_PROFILES["mcwf_krylov"]
+    return dict(seconds=seconds, traj_per_s=b / seconds, evolution_s=evo_s, evolution_traj_per_s=b / evo_s,
+                build_s=build_s, peak_bytes=peak, launches=launches, launches_per_step=per_step, local_s=local_s,
+                local_traj_per_s=b / local_s, l10_max_abs_d=d10, mean_limit_share=worst, profile=profile)
+
+
 def profile_run(label, run, steps=1):
     """One more run under ``torch.profiler``: the device time by kernel, the
     device events per step, and the device's busy share of the profiled wall
@@ -3736,7 +4383,9 @@ def main() -> None:
                      ("analog_1site", phase_order1_1site), ("analog_dynamic", phase_order1_dynamic),
                      ("order1_guards", phase_order1_guards), ("analog_householder", phase_power_split),
                      ("analog_cholesky", phase_power_split_cholesky), ("analog_bug", phase_bug),
-                     ("ensemble", phase_ensemble), ("port16_guards", phase_port16_guards)):
+                     ("ensemble", phase_ensemble), ("port16_guards", phase_port16_guards),
+                     ("lindblad_dense", phase_lindblad_dense), ("lindblad_rk4", phase_lindblad_rk4),
+                     ("lindblad_qudits", phase_lindblad_qudits), ("mcwf_krylov", phase_mcwf_krylov)):
         phases[name] = fn(dev)
         log(f"[time] phase {name}: {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()

@@ -31,6 +31,8 @@ from yaqs_tpu_torch.kernels.arnoldi import (
     arnoldi_step_plain,
 )
 from yaqs_tpu_torch.kernels.bond_gate import bond_gate, bond_gate_plain
+from yaqs_tpu_torch.kernels.coo_rows import coo_rows, coo_rows_plain, coo_table
+from yaqs_tpu_torch.kernels.csr_spmm import CSR, csr_from_scipy, csr_spmm, csr_spmm_plain, rk4_substep
 from yaqs_tpu_torch.kernels.env_update import (
     env_update_left,
     env_update_left_plain,
@@ -39,6 +41,7 @@ from yaqs_tpu_torch.kernels.env_update import (
 )
 from yaqs_tpu_torch.kernels.heff import heff1, heff1_plain, heff2, heff2_plain
 from yaqs_tpu_torch.kernels.lanczos_epilogue import lanczos_epilogue, lanczos_epilogue_plain
+from yaqs_tpu_torch.kernels.lindblad_step import lindblad_step, lindblad_step_plain
 from yaqs_tpu_torch.kernels.lanczos_solve import (
     cluster_blocks,
     lanczos_solve,
@@ -73,6 +76,19 @@ from yaqs_tpu_torch.kernels.svd import MAX_SWEEPS, convergence, reset_convergenc
 
 def _complex(rng, shape, dtype=torch.complex64):
     return torch.tensor(rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).to(dtype)
+
+
+def _random_csr(rng, n_rows, n_cols, max_len=40):
+    """A scipy CSR matrix with ragged rows of 0..max_len entries (every
+    seventh row empty), complex128."""
+    import scipy.sparse as sp
+
+    lens = rng.integers(0, min(max_len, n_cols) + 1, n_rows)
+    lens[::7] = 0
+    rows = np.repeat(np.arange(n_rows), lens)
+    cols = np.concatenate([rng.choice(n_cols, size=k, replace=False) for k in lens]) if lens.sum() else np.zeros(0, int)
+    vals = rng.standard_normal(rows.size) + 1j * rng.standard_normal(rows.size)
+    return sp.csr_matrix((vals, (rows, cols)), shape=(n_rows, n_cols))
 
 
 def _epilogue_inputs(rng, batch, k, n, device="cpu"):
@@ -243,12 +259,22 @@ def test_wrappers_take_plain_path_on_cpu_without_building():
             torch.testing.assert_close(got, ref, rtol=0, atol=0)
     for got, ref in zip(masked_qr(m), masked_qr_plain(m)):
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    csr = csr_from_scipy(_random_csr(rng, 30, 30), "cpu", torch.complex128)
+    xs = _complex(rng, (3, 30), torch.complex128)
+    torch.testing.assert_close(csr_spmm(csr, xs, base=xs, c1=0.5), csr_spmm_plain(csr, xs, base=xs, c1=0.5), rtol=0,
+                               atol=0)
+    props = _complex(rng, (16, 16), torch.complex128)
+    for got, ref in zip(lindblad_step(props, xs[0, :16], xs[:2, :16]), lindblad_step_plain(props, xs[0, :16], xs[:2, :16])):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    table = coo_table([_random_csr(rng, 30, 30), _random_csr(rng, 30, 30)], 30, "cpu", torch.complex128)
+    torch.testing.assert_close(coo_rows(table, xs, "expectation"), coo_rows_plain(table, xs, "expectation"), rtol=0,
+                               atol=0)
     assert set(kernels.launch_counts()) == {
         "ns_polar", "lanczos_epilogue", "bond_gate", "moment_scan", "sample_shots", "heff2", "heff1",
         "lanczos_solve2", "lanczos_solve1", "lanczos_solve0", "env_update", "sv_mpo_matvec", "arnoldi_step",
         "arnoldi_epilogue", "svd_jacobi", "householder_qr", "householder_qr_r", "subspace_split", "ns_canon",
         "pair_weights", "op_scan", "op_scan_bra", "subspace_power_householder", "subspace_power_cholesky",
-        "masked_qr",
+        "masked_qr", "csr_spmm", "lindblad_step", "coo_rows",
     }
     assert not any(kernels.launch_counts().values())
     assert build.load_library.cache_info().currsize == 0  # nothing was built
@@ -309,9 +335,9 @@ def test_ns_polar_cluster_rule(monkeypatch, batch, blocks):
 def test_build_digest_covers_the_shared_headers(tmp_path):
     """An edited header changes the library's name, so the kernels that
     include it are rebuilt rather than loaded stale; the sources in the
-    repository include ``ns_polar.cuh``, ``heff.cuh``, ``householder.cuh``
-    and ``launch.cuh`` (through ``ns_polar.cuh`` too) and the build hashes
-    all four."""
+    repository include ``ns_polar.cuh``, ``heff.cuh``, ``householder.cuh``,
+    ``complex.cuh`` and ``launch.cuh`` (through ``ns_polar.cuh`` too) and the
+    build hashes all five."""
     src, hdr = tmp_path / "k.cu", tmp_path / "k.cuh"
     src.write_text('#include "k.cuh"\n')
     hdr.write_text("// one\n")
@@ -319,14 +345,17 @@ def test_build_digest_covers_the_shared_headers(tmp_path):
     hdr.write_text("// two\n")
     assert build._digest([src], [hdr]) != before
     assert build._digest([src], [hdr]) == build._digest([src], [hdr])
-    assert [h.name for h in build._headers()] == ["heff.cuh", "householder.cuh", "launch.cuh", "ns_polar.cuh"]
+    assert [h.name for h in build._headers()] == ["complex.cuh", "heff.cuh", "householder.cuh", "launch.cuh",
+                                                  "ns_polar.cuh"]
     includers = [p.name for p in build._sources() if '#include "ns_polar.cuh"' in p.read_text()]
     assert includers == ["moment_scan.cu", "ns_canon.cu", "ns_polar.cu", "subspace_split.cu"]
     assert '#include "launch.cuh"' in (build.CSRC / "ns_polar.cuh").read_text()
     includers = [p.name for p in build._sources() if '#include "launch.cuh"' in p.read_text()]
     assert includers == ["bond_gate.cu", "env_update.cu", "householder_qr.cu", "lanczos_epilogue.cu", "lanczos_solve.cu",
-                         "masked_qr.cu", "op_scan.cu", "pair_weights.cu", "sample_shots.cu", "subspace_power.cu",
-                         "sv_mpo.cu", "svd_jacobi.cu"]
+                         "lindblad_step.cu", "masked_qr.cu", "op_scan.cu", "pair_weights.cu", "sample_shots.cu",
+                         "subspace_power.cu", "sv_mpo.cu", "svd_jacobi.cu"]
+    includers = [p.name for p in build._sources() if '#include "complex.cuh"' in p.read_text()]
+    assert includers == ["coo_rows.cu", "csr_spmm.cu", "lindblad_step.cu"]
     includers = [p.name for p in build._sources() if '#include "householder.cuh"' in p.read_text()]
     assert includers == ["householder_qr.cu", "masked_qr.cu", "subspace_power.cu"]
     includers = [p.name for p in build._sources() if '#include "heff.cuh"' in p.read_text()]
@@ -387,6 +416,13 @@ def test_wrappers_refuse_non_cuda_devices():
         ns_canon_scan(t)
     with pytest.raises(ValueError, match="unsupported device"):
         pair_weights(t, t[:, :, 0], t[:, :, 0], t.real[0, :2, 0, 0, 0].long(), t[0, :2, 0], t.real[0, :2, 0, 0, 0])
+    index = torch.zeros(5, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        csr_spmm(CSR(index, index, w[0, :5], (4, 32)), w)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lindblad_step(None, w[0], w)
+    with pytest.raises(ValueError, match="unsupported device"):
+        coo_rows(coo_table([], 32, "cpu", torch.complex64), w, "expectation")
 
 
 @pytest.fixture
@@ -1486,3 +1522,185 @@ def test_op_scan_bra_kernel_matches_plain(cuda, batch, npk, length, chi, nc):
     assert ((got - ref).abs() / scale).max().item() <= 1e-4
     with pytest.raises(ValueError):
         op_scan(kets, sel, ops, bra=bra, ket_of=ket_of.long())
+
+
+# K21-K23: complex64 within 1e-5 and complex128 within 1e-12 of the plain
+# version, relative to the largest entry (another summation order)
+SPARSE_TOL = {torch.complex64: 1e-5, torch.complex128: 1e-12}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("nvec", [1, 3, 16, 40])
+def test_csr_spmm_kernel_matches_plain(cuda, dtype, nvec):
+    """Ragged rows (0 to 40 entries, every seventh row empty), a rectangular
+    matrix, strided input vectors, each output mode; B = 40 is two launches."""
+    rng = np.random.default_rng(nvec)
+    csr = csr_from_scipy(_random_csr(rng, 1000, 700), cuda, dtype)
+    x = _complex(rng, (nvec, 2, 700), dtype).to(cuda)[:, 1]  # a stride between vectors
+    base = _complex(rng, (nvec, 1000), dtype).to(cuda)
+    acc0 = _complex(rng, (nvec, 1000), dtype).to(cuda)
+    tol = SPARSE_TOL[dtype]
+    kernels.reset_launch_counts()
+    y = csr_spmm(csr, x)
+    assert kernels.launch_counts()["csr_spmm"] == -(-nvec // 32)
+    ref = csr_spmm_plain(csr, x)
+    assert _rel_err(y, ref) <= tol
+    acc, acc_ref = acc0.clone(), acc0.clone()
+    out = torch.empty_like(base)
+    csr_spmm(csr, x, base=base, c1=0.25, out=out, acc=acc, acc_in=base, c2=-0.5)
+    csr_spmm_plain(csr, x, base=base, c1=0.25, acc=acc_ref, acc_in=base, c2=-0.5)
+    assert _rel_err(out, base + 0.25 * ref) <= tol
+    assert _rel_err(acc, acc_ref) <= tol
+    assert csr_spmm(csr, x, write_out=False, acc=acc, c2=2.0) is None
+    assert _rel_err(acc, acc_ref + 2.0 * ref) <= tol
+    empty = (torch.diff(csr.crow) == 0).nonzero().flatten()
+    assert empty.numel() > 0 and bool((y[:, empty] == 0).all())
+    one = csr_spmm(csr, x[0])
+    assert one.shape == (1000,) and _rel_err(one, ref[0]) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_rk4_substep_kernel_matches_plain(cuda, dtype):
+    """Four fused launches a substep against the plain version's four calls,
+    a square ragged matrix, one vector."""
+    rng = np.random.default_rng(3)
+    m = _random_csr(rng, 2048, 2048) * 0.05
+    a, a_cpu = csr_from_scipy(m, cuda, dtype), csr_from_scipy(m, "cpu", dtype)
+    v = _complex(rng, (2048,), dtype)
+    got = v.to(cuda)
+    ref = v.clone()
+    for _ in range(3):
+        got = rk4_substep(a, got, 0.1, (torch.empty_like(got), torch.empty_like(got)), torch.empty_like(got))
+        ref = rk4_substep(a_cpu, ref, 0.1, (torch.empty_like(ref), torch.empty_like(ref)), torch.empty_like(ref))
+    assert _rel_err(got.cpu(), ref) <= 10 * SPARSE_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize(("n", "n_obs"), [(4096, 6), (100, 3), (37, 0), (64, 300)])
+def test_lindblad_step_kernel_matches_plain(cuda, dtype, n, n_obs):
+    """The step and its rows (none, or more rows than a block has threads),
+    the identity step (t = 0), a ragged n; the launch leaves its ticket at
+    zero (two launches in a row agree)."""
+    rng = np.random.default_rng(n)
+    p = _complex(rng, (n, n), dtype).to(cuda) / np.sqrt(n)
+    v = _complex(rng, (n,), dtype).to(cuda)
+    obs_t = _complex(rng, (n_obs, n), dtype).to(cuda)
+    tol = SPARSE_TOL[dtype]
+    for prop in (p, None):
+        got, rows = lindblad_step(prop, v, obs_t)
+        ref, ref_rows = lindblad_step_plain(prop, v, obs_t)
+        assert _rel_err(got, ref) <= tol
+        assert rows.shape == (n_obs,) and rows.dtype == v.real.dtype
+        if n_obs:
+            assert _rel_err(rows, ref_rows) <= tol
+            again = lindblad_step(prop, v, obs_t)[1]
+            assert torch.equal(again, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("nvec", [1, 16, 33])
+def test_coo_rows_kernel_matches_plain(cuda, dtype, nvec):
+    """Ragged observables (one empty, one of several chunks), both modes
+    (trace rows of (dim, dim) observables on vec(rho), expectation rows of
+    (n, n) ones on state vectors), vectors with a stride between them; B =
+    33 is two launches."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(nvec)
+    dim = 90
+    n = dim * dim
+    x = _complex(rng, (nvec, 2, n), dtype).to(cuda)[:, 0]
+    tol = SPARSE_TOL[dtype]
+    for mode, side in (("trace", dim), ("expectation", n)):
+        mats = [_random_csr(rng, side, side, 3), sp.csr_matrix((side, side), dtype=complex),
+                _random_csr(rng, side, side, 1), sp.identity(side, dtype=complex, format="csr")]
+        table = coo_table(mats, n, cuda, dtype)
+        got = coo_rows(table, x, mode, dim)
+        ref = coo_rows_plain(table, x, mode, dim)
+        assert got.shape == (nvec, 4) and got.dtype == x.real.dtype
+        assert _rel_err(got, ref) <= tol
+        assert bool((got[:, 1] == 0).all())
+        assert coo_rows(table, x[0], mode, dim).shape == (4,)
+
+
+@pytest.mark.cuda
+def test_sparse_wrappers_never_run_their_plain_versions_on_the_card(cuda, monkeypatch):
+    """On CUDA tensors K21-K23 launch their kernels: their plain versions
+    refuse to run, and a library that cannot load raises."""
+    from yaqs_tpu_torch.kernels import coo_rows as k23
+    from yaqs_tpu_torch.kernels import csr_spmm as k21
+    from yaqs_tpu_torch.kernels import lindblad_step as k22
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for module, name in ((k21, "csr_spmm_plain"), (k22, "lindblad_step_plain"), (k23, "coo_rows_plain")):
+        monkeypatch.setattr(module, name, refuse)
+    rng = np.random.default_rng(0)
+    csr = csr_from_scipy(_random_csr(rng, 64, 64), cuda, torch.complex64)
+    x = _complex(rng, (2, 64)).to(cuda)
+    kernels.reset_launch_counts()
+    csr_spmm(csr, x)
+    lindblad_step(None, x[0], x)
+    coo_rows(coo_table([_random_csr(rng, 64, 64)], 64, cuda, torch.complex64), x, "expectation")
+    assert {k: kernels.launch_counts()[k] for k in ("csr_spmm", "lindblad_step", "coo_rows")} == dict(
+        csr_spmm=1, lindblad_step=1, coo_rows=1)
+
+    def broken():
+        raise RuntimeError("nvcc failed")
+
+    for module in (k21, k22, k23):
+        monkeypatch.setattr(module, "load_library", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        csr_spmm(csr, x)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        lindblad_step(None, x[0], x)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        coo_rows(coo_table([_random_csr(rng, 64, 64)], 64, cuda, torch.complex64), x, "expectation")
+
+
+@pytest.mark.cuda
+def test_lindblad_and_krylov_routes_on_card(cuda):
+    """The slice on the card at small sizes: ``run_lindblad`` on both routes
+    (L = 5 dense in complex128, L = 7 RK4 in complex128 and complex64)
+    against the CPU's complex128 runs, and ``run_mcwf_batch(route="krylov")``
+    in complex64 against the dense route on the CPU with the same draws."""
+    import yaqs_tpu_torch as yt
+
+    def noise(length):
+        return yt.NoiseModel([{"name": n, "sites": [i], "strength": 0.05} for i in range(length)
+                              for n in ("z", "lowering")])
+
+    for length, dtype, tol in ((5, None, 1e-10), (7, torch.complex128, 1e-10), (7, torch.complex64, 1e-4)):
+        obs = [yt.Observable("z", i) for i in range(length)] + [yt.Observable("xx", [0, 1])]
+        args = (yt.to_statevector(yt.named_product_state("x+", length, 1)), yt.ising_mpo(length, 1.0, 0.5),
+                noise(length), obs)
+        kernels.reset_launch_counts()
+        card = yt.run_lindblad(*args, dt=0.1, num_steps=3, device=cuda, dtype=dtype)
+        counts = kernels.launch_counts()
+        cpu = yt.run_lindblad(*args, dt=0.1, num_steps=3, device="cpu")
+        assert (card.cpu().double() - cpu).abs().max().item() <= tol
+        route = ("lindblad_step",) if length == 5 else ("csr_spmm", "coo_rows")
+        assert all(counts[k] > 0 for k in route)
+    length, steps = 6, 4
+    u = np.random.default_rng(1).uniform(size=(4, steps))
+    g = np.random.default_rng(2).gumbel(size=(4, steps, 2 * length))
+    args = (yt.to_statevector(yt.named_product_state("x+", length, 1)), yt.ising_mpo(length, 1.0, 0.5),
+            yt.NoiseModel([{"name": n, "sites": [i], "strength": 0.3} for i in range(length) for n in ("z", "lowering")]),
+            [yt.Observable("z", i) for i in range(length)])
+
+    def draws_on(device):
+        return lambda stream, j: (torch.as_tensor(u[:, j], dtype=torch.float32, device=device),
+                                  torch.as_tensor(g[:, j], dtype=torch.float32, device=device))
+
+    kernels.reset_launch_counts()
+    card = yt.run_mcwf_batch(*args, dt=0.1, num_steps=steps, device=cuda, traj_indices=range(4), draws=draws_on(cuda),
+                             route="krylov")
+    assert all(kernels.launch_counts()[k] > 0 for k in ("csr_spmm", "coo_rows", "arnoldi_step"))
+    cpu = yt.run_mcwf_batch(*args, dt=0.1, num_steps=steps, device="cpu", dtype=torch.complex64, traj_indices=range(4),
+                            draws=draws_on("cpu"), route="dense")
+    assert (card.cpu() - cpu).abs().max().item() <= 1e-4

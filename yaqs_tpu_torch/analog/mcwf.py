@@ -14,7 +14,13 @@ steps, with the effective Hamiltonian ``H_eff = H - (i/2) sum_c A_c^dag A_c``
 - local route (:class:`MCWFLocalContext`): each step runs Arnoldi
   (kernel K13) around ``H_eff`` applied as the MPO across the reshaped state
   vector plus the one-site ``A^dag A`` terms (kernel K12); no dense or sparse
-  operator is built.
+  operator is built;
+- Krylov route (:class:`MCWFKrylovContext`, the JAX package's
+  ``mcwf_trajectory_krylov``, which ``Simulator.run`` never takes): Arnoldi
+  (K13) around ``H_eff`` as a sparse CSR matrix (kernel K21, the matrix read
+  once for the batch), the jump operators and observables sparse too (the
+  rows by kernel K23); a jump applies the channels only to the
+  trajectories whose uniform fell below their norm deficit.
 
 Per step, as in the JAX package: the jump acts on the pre-step state
 ``psi``; ``dp = 1 - ||psi_evolved||^2`` and ``u < dp`` decides it; the
@@ -55,20 +61,27 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from ..kernels.coo_rows import coo_rows, coo_table
+from ..kernels.csr_spmm import csr_from_scipy, csr_spmm
 from ..kernels.sv_mpo import apply_one_site, sv_mpo_matvec
 from ..methods.stochastic import WEIGHT_FLOOR
 from ..ops.krylov import arnoldi_expm_apply
 from ..core.observables import product_terms
 from .embedding import embed_one_site, embed_operator, operator_schmidt_factors
+from .lindblad import _embed_one_site_sparse
 from .tjm import TRAJECTORY_STREAM
 
 __all__ = [
     "MCWFContext",
+    "MCWFKrylovContext",
     "MCWFLocalContext",
+    "KrylovTables",
     "LocalTables",
     "make_mcwf_context",
+    "make_mcwf_krylov_context",
     "make_mcwf_local_context",
     "mcwf_trajectory",
+    "mcwf_trajectory_krylov",
     "mcwf_trajectory_local",
     "mpo_matvec_statevector",
     "apply_local_sv",
@@ -76,6 +89,7 @@ __all__ = [
     "local_channel_weights",
     "local_obs_rows",
     "dense_observables",
+    "sparse_observables",
     "site_reduced_matrices",
     "apply_one_site_each",
 ]
@@ -170,6 +184,33 @@ def dense_observables(observables, length: int, d: int = 2) -> list[np.ndarray]:
             for factors in product_terms(obs.matrix, sites, d):
                 dense += embed_operator(dict(factors), length, d)
             out.append(dense)
+    return out
+
+
+def sparse_observables(observables, length: int, d: int = 2) -> list:
+    """Sparse (scipy CSR) embedded observables, in the given order: a
+    one-site operator, a multi-site one summed from its product terms, a PVM
+    row's projector (``Simulator._sparse_observables``)."""
+    import scipy.sparse as sp
+
+    out = []
+    for obs in observables:
+        _refuse_bond_rows(obs)
+        sites = obs.site_list
+        if obs.name == "pvm":
+            idx = _basis_index(obs.bitstring, d)
+            out.append(sp.csr_matrix(([1.0], ([idx], [idx])), shape=(d**length, d**length), dtype=complex))
+        elif len(sites) == 1:
+            out.append(_embed_one_site_sparse(obs.matrix, sites[0], length, d))
+        else:
+            acc = None
+            for factors in product_terms(obs.matrix, sites, d):
+                term = None
+                for s, m in factors:
+                    emb = _embed_one_site_sparse(m, s, length, d)
+                    term = emb if term is None else term @ emb
+                acc = term if acc is None else acc + term
+            out.append(acc)
     return out
 
 
@@ -328,6 +369,125 @@ def mcwf_trajectory(draws, psi0: torch.Tensor, ctx: MCWFContext, num_steps: int,
             idx, jumped = _choose_channel(w, u, 1.0 - n2, gumbel)
             chosen = lpsi[torch.arange(psi.shape[0], device=psi.device), idx]
             psi = torch.where(jumped[:, None], _normalized(chosen), no_jump)
+        else:
+            psi = no_jump
+        cols.append(measure(psi))
+    out = torch.stack(cols, dim=-1)
+    return (out, psi) if return_state else out
+
+
+# ---------------------------------------------------------------------------
+# Krylov route
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MCWFKrylovContext:
+    """Sparse operators for MCWF stepping (host scipy CSR): ``heff`` ``H -
+    0.5j sum A^dag A``, ``jump_ops`` the embedded ``A_c = sqrt(gamma_c)
+    L_c``, ``obs`` the observables; the step ``dt`` and the Krylov
+    dimension."""
+
+    heff: Any
+    jump_ops: tuple
+    obs: tuple
+    dt: float
+    krylov_dim: int
+
+    def tables(self, device, dtype: torch.dtype) -> KrylovTables:
+        """The device tables: CSR matrices (kernel K21's form) and the
+        observables' COO rows (kernel K23's)."""
+        dim = self.heff.shape[0]
+        return KrylovTables(
+            heff=csr_from_scipy(self.heff, device, dtype),
+            jumps=tuple(csr_from_scipy(j, device, dtype) for j in self.jump_ops),
+            obs=coo_table(self.obs, dim, device, dtype),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class KrylovTables:
+    """Device tables of the Krylov route: ``heff`` and each jump operator as
+    a :class:`..kernels.csr_spmm.CSR`, the observables as one
+    :class:`..kernels.coo_rows.COORows`."""
+
+    heff: Any
+    jumps: tuple
+    obs: Any
+
+
+def make_mcwf_krylov_context(
+    h_sparse,
+    jump_ops_sparse: list,
+    observables: list,
+    dt: float,
+    krylov_dim: int = 25,
+) -> MCWFKrylovContext:
+    """Build from scipy sparse operators (the jump operators carry
+    ``sqrt(gamma)``; observables sparse or dense), complex128."""
+    import scipy.sparse as sp
+
+    heff = h_sparse.astype(np.complex128).copy()
+    if jump_ops_sparse:
+        # the A^dag A summed first (each about d^L entries), then one sum with H (about 21 d^L at L = 20)
+        ldl = None
+        for jump in jump_ops_sparse:
+            term = (jump.conj().T @ jump).tocsr()
+            ldl = term if ldl is None else ldl + term
+        heff = heff - 0.5j * ldl
+    return MCWFKrylovContext(
+        heff=heff.tocsr(),
+        jump_ops=tuple(j.tocsr() for j in jump_ops_sparse),
+        obs=tuple((o if sp.issparse(o) else sp.csr_matrix(o)).tocsr() for o in observables),
+        dt=float(dt),
+        krylov_dim=int(krylov_dim),
+    )
+
+
+def _krylov_jump(psi, no_jump, u, dp, gumbel, jumps) -> torch.Tensor:
+    """The post-step states of a batch: the jump branch for the
+    trajectories whose ``u < dp`` (the channel weights ``||A_c psi||^2`` of
+    their pre-step states, each channel's matrix read once for all of them;
+    then each one's chosen channel), ``no_jump`` for the others.  Reading
+    which trajectories jump, and their channels, synchronizes with the
+    host."""
+    cand = torch.nonzero(u < dp).flatten()
+    if cand.numel() == 0:
+        return no_jump
+    sub = psi[cand]
+    w = torch.stack([_norm2(csr_spmm(jump, sub)) for jump in jumps], dim=-1)
+    idx, jumped = _choose_channel(w, u[cand], dp[cand], gumbel[cand])
+    chosen = torch.stack([csr_spmm(jumps[c], sub[i]) for i, c in enumerate(idx.tolist())])
+    out = no_jump.clone()
+    out[cand] = torch.where(jumped[:, None], _normalized(chosen), no_jump[cand])
+    return out
+
+
+def mcwf_trajectory_krylov(draws, psi0: torch.Tensor, ctx: MCWFKrylovContext, num_steps: int,
+                           return_state: bool = False):
+    """A batch of MCWF trajectories through the sparse ``H_eff``: each step
+    Arnoldi (K13) with K21 as its matvec, the rows by K23.
+
+    ``psi0 (B, D)`` (device and dtype of the run); ``ctx`` is moved there.
+    Returns ``(B, n_obs, num_steps + 1)`` real values, and the final states
+    ``(B, D)`` with ``return_state``.
+    """
+    tab = ctx.tables(psi0.device, psi0.dtype)
+    has_noise = len(tab.jumps) > 0
+    _check_draws(has_noise, draws)
+
+    def measure(psi):
+        return coo_rows(tab.obs, psi, "expectation")
+
+    psi = psi0
+    cols = [measure(psi)]
+    for j in range(num_steps):
+        psi_evolved = arnoldi_expm_apply(lambda v: csr_spmm(tab.heff, v), psi, -1j * ctx.dt, k=ctx.krylov_dim)
+        n2 = _norm2(psi_evolved)
+        no_jump = psi_evolved / torch.sqrt(n2).to(psi.dtype)[:, None]
+        if has_noise:
+            u, gumbel = draws(TRAJECTORY_STREAM, j)
+            psi = _krylov_jump(psi, no_jump, u, 1.0 - n2, gumbel, tab.jumps)
         else:
             psi = no_jump
         cols.append(measure(psi))

@@ -9,28 +9,44 @@ routes to the dense or the local MCWF route exactly as the simulator does.
 :func:`schedule_jumps` prepares an order-1 run's scheduled jumps as the
 simulator does.  :func:`run_ensemble_batch` is the unitary ensemble of
 ``Simulator.run`` on a list of states (``simulator.py``
-``_run_ensemble``), with two-time correlators.
+``_run_ensemble``), with two-time correlators.  :func:`run_lindblad` is the
+density-matrix branch (``simulator.py`` ``_run_analog_lindblad``): the exact
+Lindblad evolution through the dense step propagator or RK4 on the sparse
+Liouvillian.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
-from ..core.mpo_builders import mpo_to_matrix
+from ..core.mpo_builders import mpo_to_matrix, mpo_to_sparse_matrix
 from ..core.noise_model import CompiledNoise
 from ..core.observables import CompiledObservables
-from .lindblad import noise_model_jump_ops
+from .lindblad import (
+    MAX_PROPAGATOR_VEC_DIM,
+    RECOMMENDED_MAX_QUBITS,
+    build_liouvillian,
+    build_liouvillian_sparse,
+    lindblad_rk4_expectations,
+    noise_model_jump_ops,
+    noise_model_jump_ops_sparse,
+    propagate_dense,
+)
 from .mcwf import (
     dense_observables,
     local_jump_channels,
     local_obs_rows,
     make_mcwf_context,
+    make_mcwf_krylov_context,
     make_mcwf_local_context,
     mcwf_trajectory,
+    mcwf_trajectory_krylov,
     mcwf_trajectory_local,
+    sparse_observables,
 )
 from .ensemble import correlator_tables, ensemble_trajectory, prepare_phi
 from ..methods.scheduled_jumps import apply_scheduled_jumps_host, compile_scheduled_jumps, split_t0_jumps
@@ -42,6 +58,8 @@ __all__ = [
     "run_tjm_batch",
     "schedule_jumps",
     "run_mcwf_batch",
+    "run_lindblad",
+    "lindblad_route",
     "mcwf_route",
     "full_precision_matmuls",
     "check_device",
@@ -188,7 +206,10 @@ def run_mcwf_batch(
     (Arnoldi with ``k = min(25, d^L)`` around the MPO applied across the
     vector, kernels K12 and K13) above ``d^L = 4096`` and the dense
     propagator otherwise, as ``Simulator.run`` does; ``"dense"`` or
-    ``"local"`` forces one.  The batch is ``traj_indices`` (default
+    ``"local"`` forces one, and ``"krylov"`` (never chosen by ``"auto"``)
+    takes the JAX package's ``mcwf_trajectory_krylov``: Arnoldi around the
+    sparse ``H_eff`` (kernels K21 and K13), sparse jump operators and rows
+    (K23).  The batch is ``traj_indices`` (default
     ``range(batch)``); trajectory ``i`` draws from a generator seeded by
     ``(seed, 0, i)`` unless ``draws`` supplies the draws.
 
@@ -222,8 +243,12 @@ def run_mcwf_batch(
         jumps = noise_model_jump_ops(noise, length, d)
         ctx = make_mcwf_context(mpo_to_matrix(mpo), jumps, [1.0] * len(jumps), obs_dense or [np.eye(dim)], dt)
         num_channels, trajectory = len(jumps), mcwf_trajectory
+    elif route == "krylov":
+        ctx = make_mcwf_krylov_context(mpo_to_sparse_matrix(mpo), noise_model_jump_ops_sparse(noise, length, d),
+                                       sparse_observables(observables, length, d), dt, min(MCWF_KRYLOV_DIM, dim))
+        num_channels, trajectory = len(ctx.jump_ops), mcwf_trajectory_krylov
     else:
-        msg = f"route must be 'auto', 'dense' or 'local', got {route!r}"
+        msg = f"route must be 'auto', 'dense', 'local' or 'krylov', got {route!r}"
         raise ValueError(msg)
     psi = torch.as_tensor(vec / np.linalg.norm(vec)).to(device=device, dtype=dtype)
     psi = psi.unsqueeze(0).expand(len(traj_indices), dim).contiguous()
@@ -233,6 +258,90 @@ def run_mcwf_batch(
     if route == "dense" and not observables:
         return (out[0][:, :0], out[1]) if return_state else out[:, :0]
     return out
+
+
+def lindblad_route(dim: int) -> str:
+    """The route ``Simulator.run`` takes for a density matrix of side
+    ``dim``: ``"dense"`` (the step propagator) while ``dim^2 <=
+    MAX_PROPAGATOR_VEC_DIM``, else ``"rk4"`` (simulator.py:645)."""
+    return "dense" if dim * dim <= MAX_PROPAGATOR_VEC_DIM else "rk4"
+
+
+def run_lindblad(
+    state,
+    mpo,
+    noise=None,
+    observables=(),
+    *,
+    dt: float,
+    num_steps: int,
+    device="cuda",
+    dtype: torch.dtype | None = None,
+    get_state: bool = False,
+    sample_timesteps: bool = True,
+):
+    """The exact Lindblad evolution of a density matrix (``Simulator.run``
+    on a ``State(..., representation="density_matrix")``).
+
+    ``state`` is a state vector ``psi0 (d^L,)`` (normalized here; rho =
+    |psi0><psi0|) or a density matrix ``rho0 (d^L, d^L)`` (divided by its
+    trace), site 0 least significant; ``mpo (L, d, d, Dw, Dw)`` the
+    Hamiltonian, any ``d``; ``noise`` a :class:`NoiseModel` (or None; scheduled jumps raise
+    ``ValueError``) and ``observables`` :class:`Observable` objects (one-site,
+    multi-site, PVM or position), in the order of the rows.  The route is the
+    simulator's (:func:`lindblad_route`): while vec(rho) has at most 4096
+    entries the step propagator ``expm(L dt)`` (``torch.linalg.matrix_exp``
+    in complex128, then kernel K22 a step; ``dtype`` defaults to complex128
+    on every device, as the JAX package's numpy loop), else RK4 on the sparse
+    Liouvillian (kernels K21 and K23; ``dtype`` defaults to complex64 on a
+    CUDA device and complex128 elsewhere).  Each call builds its operators
+    on the host.  A chain longer than ``RECOMMENDED_MAX_QUBITS`` warns.
+
+    Runs on the card unless ``device`` says otherwise (no CPU fallback).
+    Returns the rows ``(n_obs, num_steps + 1)`` (the last column alone
+    without ``sample_timesteps``) as a real tensor on ``device``, and with
+    ``get_state`` also the final ``rho / tr(rho)`` ``(d^L, d^L)``.
+    """
+    check_device(device)
+    if noise is not None and getattr(noise, "scheduled_jumps", None):
+        msg = ("scheduled_jumps are supported only for analog MPS TJM (order=1) runs, not the Lindblad density-matrix "
+               "backend")
+        raise ValueError(msg)
+    full_precision_matmuls()
+    mpo = np.asarray(mpo)
+    length, d = int(mpo.shape[0]), int(mpo.shape[1])
+    dim = d**length
+    if length > RECOMMENDED_MAX_QUBITS:
+        warnings.warn(
+            f"Density-matrix evolution is exponential in system size; N={length} exceeds the recommended maximum "
+            f"of {RECOMMENDED_MAX_QUBITS}",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+    arr = np.asarray(state, dtype=np.complex128)
+    if arr.ndim == 1 and arr.shape[0] == dim:
+        psi = arr / np.linalg.norm(arr)
+        rho0 = np.outer(psi, psi.conj())
+    elif arr.shape == (dim, dim):
+        rho0 = arr / np.trace(arr)
+    else:
+        msg = f"state must be ({dim},) or ({dim}, {dim}) for the {length}-site MPO, got {arr.shape}"
+        raise ValueError(msg)
+    if lindblad_route(dim) == "dense":
+        liou = build_liouvillian(mpo_to_matrix(mpo), noise_model_jump_ops(noise, length, d))
+        vals, vec = propagate_dense(liou, rho0.reshape(-1), dense_observables(observables, length, d), dt, num_steps,
+                                    device=device, dtype=dtype or torch.complex128)
+    else:
+        liou = build_liouvillian_sparse(mpo_to_sparse_matrix(mpo), noise_model_jump_ops_sparse(noise, length, d))
+        vals, vec = lindblad_rk4_expectations(liou, rho0.reshape(-1), sparse_observables(observables, length, d), dt,
+                                              num_steps, return_final=True, device=device,
+                                              dtype=resolve_dtype(device, dtype))
+    if not sample_timesteps:
+        vals = vals[:, -1:]
+    if not get_state:
+        return vals
+    rho = vec.reshape(dim, dim)
+    return vals, rho / torch.diagonal(rho).sum()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,9 +2,9 @@
 
 Nothing here imports JAX: each function reads the fields of a ``yaqs_tpu``
 object (``CompiledNoise``, ``CompiledObservables``, ``TDVPConfig``,
-``TrajectoryPlan``, the MCWF contexts) by name, copies arrays with
-``np.array``, and builds the port's counterpart, so the same inputs go
-through both packages.
+``TrajectoryPlan``, the MCWF contexts, BCOO matrices) by name, copies
+arrays with ``np.array``, and builds the port's counterpart, so the same
+inputs go through both packages.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .analog.mcwf import MCWFContext, MCWFLocalContext
+from .analog.mcwf import MCWFContext, MCWFKrylovContext, MCWFLocalContext
 from .analog.tjm import TrajectoryPlan
 from .core.noise_model import CompiledNoise
 from .core.observables import CompiledObservables
@@ -35,6 +35,8 @@ __all__ = [
     "digital_draws",
     "mcwf_context",
     "mcwf_local_context",
+    "bcoo_to_scipy",
+    "mcwf_krylov_context",
 ]
 
 
@@ -152,6 +154,27 @@ def mcwf_local_context(ctx) -> MCWFLocalContext:
         obs_rows=rows,
         length=int(ctx.length),
         d=int(ctx.d),
+        dt=float(ctx.dt),
+        krylov_dim=int(ctx.krylov_dim),
+    )
+
+
+def bcoo_to_scipy(m):
+    """A JAX ``BCOO`` matrix (its ``data``, ``indices (nnz, 2)`` and
+    ``shape``) as a scipy CSR matrix with the same entries."""
+    import scipy.sparse as sp
+
+    idx = np.array(m.indices)
+    return sp.coo_matrix((np.array(m.data), (idx[:, 0], idx[:, 1])), shape=tuple(m.shape)).tocsr()
+
+
+def mcwf_krylov_context(ctx) -> MCWFKrylovContext:
+    """The JAX package's ``MCWFKrylovContext`` (BCOO leaves) as the port's
+    (scipy CSR): the same ``H_eff``, jump operators and observables."""
+    return MCWFKrylovContext(
+        heff=bcoo_to_scipy(ctx.heff),
+        jump_ops=tuple(bcoo_to_scipy(j) for j in ctx.jump_ops),
+        obs=tuple(bcoo_to_scipy(o) for o in ctx.obs),
         dt=float(ctx.dt),
         krylov_dim=int(ctx.krylov_dim),
     )

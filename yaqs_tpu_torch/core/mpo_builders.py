@@ -1,12 +1,14 @@
 """Host-side MPO construction (numpy), producing fixed-shape padded arrays.
 
-Port of ``yaqs_tpu.core.mpo_builders`` (the parts the TJM, digital and MCWF
-slices need): an MPO
+Port of ``yaqs_tpu.core.mpo_builders``: an MPO
 over ``L`` sites is ``w: (L, d, d, Dw, Dw)`` complex, index order
 ``(out, in, wl, wr)``, with the boundary bond vectors absorbed at index 0 and
 interior bonds smaller than ``Dw`` zero padded.  The finite-state-machine
 Pauli-sum builder shares an automaton state between terms whose remaining
 suffix is identical, so the arrays are bit-identical to the JAX package's.
+:func:`mpo_to_sparse_matrix` contracts the bond channels into a scipy CSR
+operator without a dense intermediate, in the JAX package's order of sums,
+so its sparsity pattern and values are the JAX package's too.
 """
 
 from __future__ import annotations
@@ -15,7 +17,17 @@ import numpy as np
 
 from ..models.operators import PAULI
 
-__all__ = ["gate_product_terms", "mpo_from_terms", "ising_mpo", "heisenberg_mpo", "mpo_to_matrix"]
+__all__ = [
+    "gate_product_terms",
+    "mpo_from_terms",
+    "mpo_from_pauli_sum",
+    "ising_mpo",
+    "heisenberg_mpo",
+    "identity_mpo",
+    "pad_mpo",
+    "mpo_to_matrix",
+    "mpo_to_sparse_matrix",
+]
 
 
 def _op_matrix(op, d: int) -> np.ndarray:
@@ -168,6 +180,22 @@ def mpo_from_terms(
     return w
 
 
+def mpo_from_pauli_sum(terms: list[tuple[complex, str]], length: int, d: int = 2) -> np.ndarray:
+    """Build an MPO from Pauli-string terms like ``(0.5, "X0 Z3")``:
+    whitespace (or comma) separated ``<P><site>`` tokens."""
+    parsed = []
+    for coeff, s in terms:
+        ops = []
+        for tok in s.replace(",", " ").split():
+            p, rest = tok[0], tok[1:]
+            if not rest or not rest.isdigit():
+                msg = f"invalid Pauli-string token {tok!r} (expected e.g. 'X0')"
+                raise ValueError(msg)
+            ops.append((int(rest), p))
+        parsed.append((coeff, ops))
+    return mpo_from_terms(parsed, length, d=d)
+
+
 def ising_mpo(length: int, j: float, g: float, d: int = 2) -> np.ndarray:
     """Transverse-field Ising chain ``H = -J sum Z_i Z_{i+1} - g sum X_i``."""
     terms: list[tuple[complex, list[tuple[int, object]]]] = []
@@ -187,6 +215,48 @@ def heisenberg_mpo(
     if h != 0:
         terms += [(-h, [(i, "Z")]) for i in range(length)]
     return mpo_from_terms(terms, length, d=d)
+
+
+def identity_mpo(length: int, d: int = 2, dw: int = 1) -> np.ndarray:
+    """The identity on ``length`` sites, bond dimension ``dw`` (zero padded)."""
+    w = np.zeros((length, d, d, dw, dw), dtype=np.complex128)
+    w[:, :, :, 0, 0] = np.eye(d)
+    return w
+
+
+def pad_mpo(w: np.ndarray, dw: int) -> np.ndarray:
+    """Pad the MPO bond dimension up to ``dw``."""
+    length, d, d2, a, b = w.shape
+    out = np.zeros((length, d, d2, dw, dw), dtype=w.dtype)
+    out[:, :, :, :a, :b] = w
+    return out
+
+
+def mpo_to_sparse_matrix(w: np.ndarray):
+    """Sparse (scipy CSR) operator with site 0 least significant.
+
+    Contracts the bond channels left to right, each channel one sparse block
+    on the sites so far (O(L Dw^2 nnz), no dense intermediate); a channel's
+    terms are summed in the JAX package's order, so the pattern (scipy drops
+    the zeros a sum cancels to) and the values are the JAX package's.
+    """
+    import scipy.sparse as sp
+
+    w = np.asarray(w)
+    length = w.shape[0]
+    # channels after site i: bond index -> sparse matrix on sites 0..i
+    channels: dict[int, object] = {0: sp.identity(1, dtype=complex, format="csr")}
+    for i in range(length):
+        new_channels: dict[int, object] = {}
+        for wl, block in channels.items():
+            for wr in range(w.shape[-1]):
+                site_op = w[i, :, :, wl, wr]
+                if not np.any(site_op):
+                    continue
+                term = sp.kron(sp.csr_matrix(site_op), block, format="csr")
+                new_channels[wr] = new_channels[wr] + term if wr in new_channels else term
+        channels = new_channels
+    return channels[0].tocsr()
 
 
 def mpo_to_matrix(w: np.ndarray) -> np.ndarray:

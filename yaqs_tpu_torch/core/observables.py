@@ -65,16 +65,20 @@ class Observable:
     """What to measure: a named operator (``x, y, z, id, h, p0, p1`` on one
     site, ``xx, yy, zz`` on two), a square matrix on its sites, the
     ``entropy`` / ``schmidt_spectrum`` of a bond (``sites`` a nearest-neighbour
-    pair, or its left site), or the probability of a bitstring (``"pvm"``
+    pair, or its left site), the probability of a bitstring (``"pvm"``
     with ``bitstring="0110..."``, or the bitstring itself as ``gate``; one
-    character a site, site 0 first, no ``sites``).
+    character a site, site 0 first, no ``sites``), or the grid-basis position
+    ``diag(positions)`` of one site (``"position"`` with ``positions=``, the
+    trapped-ion grid Hamiltonians' coordinate).
 
     :func:`compile_observables` also takes the JAX package's ``Observable``
     objects (anything with ``name``, ``matrix`` and ``site_list``, and
     ``bitstring`` for PVM rows).
     """
 
-    def __init__(self, gate, sites: int | list[int] | None = None, bitstring: str | None = None) -> None:
+    def __init__(
+        self, gate, sites: int | list[int] | None = None, bitstring: str | None = None, positions=None
+    ) -> None:
         if isinstance(gate, str) and (gate.lower() == "pvm" or (gate and set(gate) <= {"0", "1"})):
             self.name = "pvm"
             self.bitstring = gate if gate.lower() != "pvm" else bitstring
@@ -97,8 +101,20 @@ class Observable:
                     sites = [sites, sites + 1]
                 elif len(sites) == 1:
                     sites = [int(sites[0]), int(sites[0]) + 1]
+            elif name == "position":
+                if positions is None:
+                    msg = "Observable('position', ...) requires positions="
+                    raise ValueError(msg)
+                positions = np.asarray(positions)
+                if positions.ndim != 1 or positions.size == 0 or not np.all(np.isfinite(positions)):
+                    msg = "Observable positions must be a nonempty finite 1-D array"
+                    raise ValueError(msg)
+                self.matrix = np.diag(positions.astype(np.complex128))
             else:
-                msg = f"observable {gate!r} is not ported (named operators, entropy and schmidt_spectrum only)"
+                msg = (
+                    f"observable {gate!r} is not ported (named operators, entropy, schmidt_spectrum and position "
+                    "only)"
+                )
                 raise NotImplementedError(msg)
             self.name = name
         else:

@@ -48,6 +48,9 @@ LAUNCHES: dict[str, int] = {
     "subspace_power_householder": 0,
     "subspace_power_cholesky": 0,
     "masked_qr": 0,
+    "csr_spmm": 0,
+    "lindblad_step": 0,
+    "coo_rows": 0,
 }
 
 

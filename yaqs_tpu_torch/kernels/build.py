@@ -37,6 +37,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.c_longlong
+_D = ctypes.c_double
 # C signatures: every launch function returns the cudaError_t of its launch
 _SIGNATURES = {
     # (in, out, batch, m, n, cluster, stream)
@@ -98,6 +99,13 @@ _SIGNATURES = {
     "subspace_power_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # (in, stride_in, q, r, batch, n, k, stream)
     "masked_qr_launch": [_P, _LL, _P, _P, _I, _I, _I, _P],
+    # (crow, col, val, n_rows, x, ldx, base, ldb, c1, out, ldo, acc_in, ldai, acc, lda, c2, nb, dbl, stream)
+    "csr_spmm_launch": [_P, _P, _P, _I, _P, _LL, _P, _LL, _D, _P, _LL, _P, _LL, _P, _LL, _D, _I, _I, _P],
+    # (p or null, v, v_out, n, obs_t, n_obs, partial, counter, rows, dbl, stream)
+    "lindblad_step_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P],
+    # (row, col, data, offsets, chunk_start, n_obs, chunks, x, ldx, nb, mode, dim, n, partial, counter, out, dbl,
+    #  stream)
+    "coo_rows_launch": [_P, _P, _P, _P, _P, _I, _I, _P, _LL, _I, _I, _LL, _LL, _P, _P, _P, _I, _P],
 }
 # functions that return something else than a cudaError_t
 _RESTYPES = {"svd_jacobi_workspace": _LL}
